@@ -1,0 +1,214 @@
+"""Package-level checks of the PyTorch port `crdt_tpu_torch`: it stands
+alone (no jax, nothing of `crdt_tpu`), it refuses to run on the host
+unless asked, and its copied host layer (HLC, record and JSON codecs,
+node table, checkpoint format, watch hub) behaves exactly like the JAX
+package's.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import crdt_tpu
+import crdt_tpu_torch as port
+from crdt_tpu import crdt_json as jax_json
+from crdt_tpu.ops import packing as jax_packing
+from crdt_tpu.testing import FakeClock
+from crdt_tpu_torch import _build, crdt_json as port_json
+from crdt_tpu_torch import checkpoint as port_ckpt
+from crdt_tpu_torch.obs import device as obs_device
+from crdt_tpu_torch.ops import dense as td
+from crdt_tpu_torch.ops import packing as port_packing
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "crdt_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_crdt_tpu(path):
+    for mod in imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "crdt_tpu"), (path, mod)
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        port.DenseCrdt("n0", 16)
+    assert port.DenseCrdt("n0", 16, device="cpu").device.type == "cpu"
+
+
+def test_any_slot_count_works():
+    """No tile alignment: any n_slots, any replica row count."""
+    c = port.DenseCrdt("n0", 37, device="cpu", wall_clock=FakeClock())
+    c.put_batch([0, 36], [1, 2])
+    cs, ids = c.export_delta()
+    d = port.DenseCrdt("n1", 37, device="cpu", wall_clock=FakeClock())
+    d.merge_many([(cs, ids)] * 3)
+    assert (d.get(0), d.get(36), d.get(5)) == (1, 2, None)
+
+
+@pytest.mark.parametrize("millis,counter,node", [
+    (0, 0, "a"), (1_700_000_000_123, 0xFFFF, "node-with-dash"),
+    (253_402_300_790_000, 7, "z")])
+def test_hlc_copy_matches_jax(millis, counter, node):
+    a = crdt_tpu.Hlc(millis, counter, node)
+    b = port.Hlc(millis, counter, node)
+    assert str(a) == str(b) and a.pack() == b.pack()
+    assert a.logical_time == b.logical_time
+    assert str(port.Hlc.parse(str(a))) == str(a)
+    assert str(port.Hlc.unpack(a.pack())) == str(crdt_tpu.Hlc.unpack(a.pack()))
+    for wall in (millis - 5, millis, millis + 5):
+        if counter < 0xFFFF or wall > millis:
+            assert str(crdt_tpu.Hlc.send(a, millis=wall)) == \
+                str(port.Hlc.send(b, millis=wall))
+    ja, jl = crdt_tpu.Hlc.send_batch(a, 1, millis=millis + 1)
+    pa, pl = port.Hlc.send_batch(b, 1, millis=millis + 1)
+    assert (str(ja), jl) == (str(pa), pl)
+
+
+def test_hlc_guards_match_jax():
+    for mod in (crdt_tpu, port):
+        canonical = mod.Hlc(1000, 0, "me")
+        with pytest.raises(mod.DuplicateNodeException):
+            mod.Hlc.recv(canonical, mod.Hlc(2000, 0, "me"), millis=2000)
+        with pytest.raises(mod.ClockDriftException):
+            mod.Hlc.recv(canonical, mod.Hlc(200_000, 0, "x"), millis=1000)
+        with pytest.raises(mod.OverflowException):
+            mod.Hlc.send_batch(mod.Hlc(1000, 0xFFF0, "me"), 100, millis=1)
+
+
+def test_json_codec_matches_jax_pure_path():
+    records = {k: crdt_tpu.Record(crdt_tpu.Hlc(1_700_000_000_000 + k, k,
+                                               f"n{k % 3}"),
+                                  None if k % 4 == 0 else k * 7,
+                                  crdt_tpu.Hlc(1, 0, "x"))
+               for k in range(20)}
+    port_records = {k: port.Record(port.Hlc(r.hlc.millis, r.hlc.counter,
+                                            r.hlc.node_id), r.value,
+                                   port.Hlc(1, 0, "x"))
+                    for k, r in records.items()}
+    wire = jax_json.encode(records)
+    assert port_json.encode(port_records) == wire
+    canonical = port.Hlc(5, 0, "me")
+    decoded = port_json.decode(wire, canonical, now_millis=10)
+    ref = jax_json.decode(wire, crdt_tpu.Hlc(5, 0, "me"), now_millis=10)
+    assert [(k, str(r.hlc), r.value, str(r.modified))
+            for k, r in decoded.items()] == \
+        [(k, str(r.hlc), r.value, str(r.modified)) for k, r in ref.items()]
+
+
+def test_node_table_matches_jax():
+    ids = ["n3", "n1", "a", "n2"]
+    a, b = jax_packing.NodeTable(ids), port_packing.NodeTable(ids)
+    for new in (["n0"], ["zz", "b"], ["n1"]):
+        ra, rb = a.intern(new), b.intern(new)
+        assert (ra is None and rb is None) or np.array_equal(ra, rb)
+        assert a.ids() == b.ids()
+    np.testing.assert_array_equal(a.encode(["zz", "a", "n2"]),
+                                  b.encode(["zz", "a", "n2"]))
+
+
+def test_store_numpy_round_trip_copies(tmp_path):
+    rng = np.random.default_rng(0)
+    lanes = {f: rng.integers(0, 2 if dt == torch.bool else 100, 32)
+             .astype(np.dtype(str(dt).split(".")[1]))
+             for f, dt in td.STORE_DTYPES.items()}
+    store = td.store_from_numpy(lanes)
+    store.lt[0] = -1                     # must not write through
+    assert lanes["lt"][0] != -1
+    back = td.store_to_numpy(td.store_from_numpy(lanes))
+    for f in lanes:
+        np.testing.assert_array_equal(back[f], lanes[f])
+        assert back[f].dtype == lanes[f].dtype
+    path = str(tmp_path / "s.npz")
+    port_ckpt.save_dense(td.store_from_numpy(lanes), path)
+    loaded, ids = port_ckpt.load_dense_with_node_ids(path)
+    assert ids is None
+    for f in lanes:
+        np.testing.assert_array_equal(getattr(loaded, f).numpy(), lanes[f])
+    from crdt_tpu import load_dense as jax_load_dense
+    jax_store = jax_load_dense(path)
+    for f in lanes:
+        np.testing.assert_array_equal(np.asarray(getattr(jax_store, f)),
+                                      lanes[f])
+
+
+def test_load_refuses_lane_only_snapshot(tmp_path):
+    path = str(tmp_path / "lanes.npz")
+    port_ckpt.save_dense(td.empty_dense_store(8), path)
+    with pytest.raises(ValueError, match="no node-id table"):
+        port.DenseCrdt.load("n0", path, device="cpu")
+
+
+def test_written_store_handed_out_stays_unchanged():
+    """A store read through `store` is not written in place later."""
+    c = port.DenseCrdt("n0", 8, device="cpu", wall_clock=FakeClock())
+    c.put_batch([1], [10])
+    snap = c.store
+    c.put_batch([1], [20])
+    with c.ingest():
+        c.put_batch([2], [30])
+    assert int(snap.val[1]) == 10 and not bool(snap.occupied[2])
+    assert (c.get(1), c.get(2)) == (20, 30)
+
+
+def test_refusals_inside_windows():
+    c = port.DenseCrdt("n0", 8, device="cpu", wall_clock=FakeClock())
+    with c.pipelined():
+        with pytest.raises(RuntimeError, match="host clock"):
+            c.put_batch([1], [1])
+        with pytest.raises(RuntimeError, match="do not nest"):
+            with c.pipelined():
+                pass
+    with c.ingest():
+        with pytest.raises(RuntimeError, match="do not nest"):
+            with c.ingest():
+                pass
+    with pytest.raises(IndexError):
+        c.put_batch([8], [1])
+    with pytest.raises(ValueError, match="holds 8"):
+        cs, ids = port.DenseCrdt("n1", 9, device="cpu").export_delta()
+        c.merge(cs, ids)
+
+
+def test_async_watch_iterator_delivers():
+    import asyncio
+    c = port.DenseCrdt("n0", 8, device="cpu", wall_clock=FakeClock())
+
+    async def consume():
+        it = c.watch().aiter()
+        c.put_batch([3], [4])
+        c.delete_batch([3])
+        it.close()
+        return [e async for e in it]
+
+    assert asyncio.run(consume()) == [port.ChangeEvent(3, 4),
+                                      port.ChangeEvent(3, None)]
+
+
+def test_launch_counters_and_build_paths():
+    obs_device.reset()
+    assert obs_device.launches() == dict.fromkeys(obs_device.KERNELS, 0)
+    obs_device.note_launch("fanin_batch")
+    assert obs_device.launches()["fanin_batch"] == 1
+    obs_device.reset()
+    for name in _build.SOURCES:
+        path = _build.library_path(name)
+        assert path.parent == _build.BUILD_DIR
+        assert path == _build.library_path(name)   # stable tag
+        assert (_build.CSRC / f"{name}.cu").exists()
+    assert set(_build.SOURCES) == set(obs_device.KERNELS)
