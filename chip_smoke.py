@@ -45,9 +45,10 @@ from crdt_tpu_torch import DenseCrdt, Hlc, _build
 from crdt_tpu_torch.hlc import MAX_DRIFT, SHIFT
 from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.ops import fanin_kernel, ingest_kernel
-from crdt_tpu_torch.ops.dense import (DenseChangeset, DenseStore,
-                                      dense_delta_mask, empty_dense_store,
-                                      fanin_step, ingest_scatter)
+from crdt_tpu_torch.ops.dense import (_I32_NEG, _NEG, DenseChangeset,
+                                      DenseStore, dense_delta_mask,
+                                      empty_dense_store, fanin_step,
+                                      ingest_scatter)
 
 N_SLOTS = 1 << 20
 ROWS_PER_PASS = 128
@@ -57,7 +58,8 @@ FLUSHES = 16
 DELTA_ROWS = 4096
 MILLIS = 1_700_000_000_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-INT_OPS_PER_S = 67e12            # H100 non-tensor-core peak, per op
+INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x boost
+SECTOR = 32                      # bytes per device-memory sector
 IDS = [f"n{i}" for i in range(9)]   # changeset ordinals 1..8; local n0
 
 
@@ -174,6 +176,50 @@ def make_store(n: int, seed: int) -> DenseStore:
 # --- phase 2: kernels against their plain versions ------------------
 
 
+def sector_bytes(mask: torch.Tensor, per_sector: int) -> int:
+    """Bytes of the 32-B sectors of a lane (``per_sector`` entries each)
+    that hold at least one entry where ``mask`` is set."""
+    return SECTOR * int(mask.reshape(-1, per_sector).any(-1).sum())
+
+
+def fanin_traffic(store: DenseStore, cs: DenseChangeset,
+                  win: torch.Tensor) -> tuple:
+    """``(needed, fetched)`` bytes of one merge on these inputs, counted
+    in sectors. ``needed`` is what the function must move: valid of
+    every entry, lt/node where some entry of the sector is valid,
+    val/tomb only of the entry that wins its slot, the store's
+    lt/node/occupied, its val/tomb where it keeps the slot, and the six
+    outputs once. ``fetched`` is what ``csrc/fanin_batch.cu`` loads:
+    lt/node/valid of every entry, val/tomb of each new running best,
+    and the whole store."""
+    r, n = cs.lt.shape
+    check(n % SECTOR == 0, "fanin_traffic needs whole sectors per row")
+    rows = torch.arange(r, device=cs.lt.device)[:, None]
+    masked = torch.where(cs.valid, cs.lt, _NEG)
+    cand = cs.valid & (cs.lt == masked.amax(0))
+    cand &= cs.node == torch.where(cand, cs.node, _I32_NEG).amax(0)
+    final = (rows == torch.where(cand, rows, r).amin(0)) & win
+    best = torch.zeros_like(cs.valid)
+    b_lt, b_node = masked[0].clone(), torch.where(cs.valid[0], cs.node[0],
+                                                  _I32_NEG)
+    best[0] = cs.valid[0]
+    for row in range(1, r):
+        lt, node = cs.lt[row], cs.node[row]
+        better = cs.valid[row] & ((lt > b_lt) | ((lt == b_lt)
+                                                 & (node > b_node)))
+        best[row] = better
+        b_lt = torch.where(better, lt, b_lt)
+        b_node = torch.where(better, node, b_node)
+    out = n * (8 + 4 + 8 + 1 + 1 + 1)
+    needed = (r * n + sector_bytes(cs.valid, 4) + sector_bytes(cs.valid, 8)
+              + sector_bytes(final, 4) + sector_bytes(final, 32)
+              + n * (8 + 4 + 1) + sector_bytes(~win, 4)
+              + sector_bytes(~win, 32) + out)
+    fetched = (r * n * (8 + 4 + 1) + sector_bytes(best, 4)
+               + sector_bytes(best, 32) + n * (8 + 4 + 8 + 1 + 1) + out)
+    return needed, fetched
+
+
 def kernel_fanin(results: dict) -> None:
     store = make_store(N_SLOTS, 1)
     cs = make_changeset(ROWS_PER_PASS, N_SLOTS, 2)
@@ -213,11 +259,13 @@ def kernel_fanin(results: dict) -> None:
     plain_ms = cuda_ms(lambda: fanin_kernel.fanin_join_reference(
         store, cs, canonical, local), iters=3, warmup=1)
     r, n = cs.lt.shape
-    entry = 8 + 4 + 8 + 1 + 1                  # lt node val tomb valid
-    moved = r * n * entry + n * entry + n * (entry + 1)  # + store in/out
-    ops = r * n * 8                            # compares/selects per entry
+    moved, fetched = fanin_traffic(store, cs, k_res.win)
+    # Per valid entry, as int32 instructions: two int64 compares and a
+    # max select for basemax and the canonical test, the lex compare
+    # (int64 >, int64 ==, int32 >) and the node test, with their ands.
+    ops = int(cs.valid.sum()) * 16
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT_OPS_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
     results["fanin_batch"] = dict(
         name="fanin_batch", route="cuda",
         source="crdt_tpu_torch/csrc/fanin_batch.cu",
@@ -225,7 +273,8 @@ def kernel_fanin(results: dict) -> None:
         max_abs_err=err, ms=float(np.median(runs)), plain_ms=plain_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None, shape=[r, n], bytes_moved=moved, ms_runs=runs,
+        library_ms=None, shape=[r, n], bytes_moved=moved,
+        bytes_fetched=fetched, ops=ops, ops_ms=ops_ms, ms_runs=runs,
         call_ms=call_ms)
     del cs, store, k_store, p_store
 
@@ -281,6 +330,7 @@ def main_path(card: str) -> dict:
     delta_slots = delta_rng.choice(N_SLOTS, DELTA_ROWS, replace=False)
     delta_vals = delta_rng.integers(0, 1 << 40, DELTA_ROWS)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     obs_device.reset()
     t0 = time.perf_counter()

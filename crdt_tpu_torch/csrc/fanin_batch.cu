@@ -18,17 +18,20 @@
 // The winners' modified stamp needs the final canonical, which needs
 // this kernel's basemax, so the wrapper stamps mod_lt/mod_node after.
 //
-// Bound on the H100: bytes. Each entry of the changeset is read once
-// (lt 8 + node 4 + val 8 + tomb 1 + valid 1 = 22 B) and does a few
-// integer compares; at R = 128 the store lanes are under 2% of the
-// traffic. Design: one thread per slot walks its column down the rows,
-// so for every row a warp reads 32 neighbouring slots (coalesced) and
-// the running best stays in registers; the loads of a row do not
-// depend on the previous row's compare, and the row loop is unrolled,
-// so several rows' loads are in flight per thread. Nothing is carried
-// between blocks except the two scalars, reduced per block (warp
-// shuffles, then one atomic per block). TMA or cp.async staging and
-// wider loads are left for a later change.
+// Bound on the H100: bytes. The merge must read lt, node and valid of
+// every entry (13 B), but val and tomb only of the entry that wins its
+// slot; on random rows that is a small share of the changeset's 22 B
+// per entry. At R = 128 the store lanes are under 2% of the traffic.
+// Design: one thread per slot walks its column down the rows, so for
+// every row a warp reads 32 neighbouring slots (coalesced) and the
+// running best stays in registers. The lt/node/valid loads of a row
+// do not depend on the previous row's compare, and the row loop is
+// unrolled, so several rows' loads are in flight per thread; val and
+// tomb are loaded only when an entry becomes the running best (a later
+// row does so with odds of about 1/row), so most of their sectors are
+// never fetched. Nothing is carried between blocks except the two
+// scalars, reduced per block (warp shuffles, then one atomic per
+// block). TMA or cp.async staging and wider loads are left for later.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,17 +80,16 @@ __global__ void __launch_bounds__(kBlock) fanin_batch_kernel(
       const bool valid = cs_valid[k] != 0;
       const long long lt = cs_lt[k];
       const int node = cs_node[k];
-      const long long val = cs_val[k];
-      const uint8_t tomb = cs_tomb[k];
       if (valid) {
         bmax = lt > bmax ? lt : bmax;
         dup |= (node == local_node) & (lt > canon);
         // Strict compare: an equal (lt, node) from a later row loses.
+        // The payload is read only for a new running best.
         if (lt > b_lt || (lt == b_lt && node > b_node)) {
           b_lt = lt;
           b_node = node;
-          b_val = val;
-          b_tomb = tomb;
+          b_val = cs_val[k];
+          b_tomb = cs_tomb[k];
         }
       }
     }

@@ -160,21 +160,17 @@ def reduce_replicas(cs: DenseChangeset):
 
 
 def fanin_step(store: DenseStore, cs: DenseChangeset,
-               canonical_lt: Scalar, local_node: int, wall_millis: int,
-               stamp_lt: Optional[Scalar] = None
+               canonical_lt: Scalar, local_node: int, wall_millis: int
                ) -> Tuple[DenseStore, FaninResult]:
     """One fused R-replica fan-in lattice join with EXACT recv guards
     (see module docstring) — the plain oracle of the batch kernel.
-    ``stamp_lt`` overrides the ``modified`` stamp for winners (default:
-    the post-absorption canonical)."""
+    Winners' ``modified`` lanes get the post-absorption canonical."""
     dev = store.lt.device
     any_bad, first_bad, first_is_dup, canonical_at_fail = recv_guards(
         cs.lt, cs.node, cs.valid, canonical_lt, local_node, wall_millis)
     canon = torch.as_tensor(canonical_lt, dtype=torch.int64, device=dev)
     new_canonical = torch.maximum(
         canon, torch.where(cs.valid, cs.lt, _NEG).amax())
-    stamp = new_canonical if stamp_lt is None else torch.as_tensor(
-        stamp_lt, dtype=torch.int64, device=dev)
 
     # Replica reduce + LWW join in ONE fold: seed the running best with
     # the local lanes (empty slots as _NEG so any valid remote beats
@@ -186,7 +182,7 @@ def fanin_step(store: DenseStore, cs: DenseChangeset,
         lt=torch.where(win, lt, store.lt),
         node=torch.where(win, node, store.node),
         val=val,
-        mod_lt=store.mod_lt.masked_fill(win, stamp),
+        mod_lt=store.mod_lt.masked_fill(win, new_canonical),
         mod_node=store.mod_node.masked_fill(win, local_node),
         occupied=store.occupied | win,
         tomb=tomb,
