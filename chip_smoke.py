@@ -10,19 +10,31 @@ Phases, in order; any failure raises and exits non-zero:
 1. The card (``nvidia-smi`` name and power limit), torch and nvcc
    versions, and the build of every kernel from ``crdt_tpu_torch/csrc``.
 2. Each kernel against its plain torch version on the card, bit for bit
-   (integer lanes: tolerance 0), at the main path's shapes: the fan-in
-   merge at 2^20 slots x 128 rows, the ingest commit of a 65,536-row
-   flush into a 2^20-slot store. Timed with CUDA events beside the
-   plain version and the byte bound.
-3. The main path at full size through the public API: a
-   ``DenseCrdt("n0", 2^20)`` on the card takes 16 ingest flushes of
-   65,536 rows, 8 passes x 128 distinct replica rows (1024 rows) of
-   merges in a coarse ``pipelined()`` window, one plain ``merge_many``,
-   then ``export_delta``/``pack_since``/``to_json`` of a 4,096-row
-   delta. The kernels' launch counters are zeroed just before and read
-   just after. The final lanes and clock are held bit for bit against
-   the same inputs folded by the plain ``ops.dense`` functions on the
-   card, and the deltas against that reference store.
+   (integer lanes: tolerance 0), at the paths' shapes: the fan-in merge
+   at 2^20 slots x 128 rows; the ingest commit of a 65,536-row flush
+   into a 2^20-slot store; the pre-split merge at 2^20 x 128 in the
+   wide, the value_width=32 wide and the narrow wire form, with a
+   remapping node map; the stream replay at 2^20 x 8 rows x 128
+   chunks in both guard modes, with planted dup and drift records and
+   one that only the fast flags raise. Timed from replayed CUDA graphs
+   beside the plain version and the bound.
+3. The paths at full size through the public API, each with the launch
+   counters zeroed just before it and read just after, each held bit
+   for bit against the same inputs folded by the plain ``ops.dense``
+   functions on the card:
+   - the main path: a ``DenseCrdt("n0", 2^20)`` takes 16 ingest flushes
+     of 65,536 rows, 8 passes x 128 distinct replica rows of merges in a
+     coarse ``pipelined()`` window, one plain ``merge_many``, then
+     ``export_delta``/``pack_since``/``to_json`` of a 4,096-row delta;
+   - path A, the JAX-peer interchange: a peer replica's ingest flushes
+     and ``export_split_delta``; a receiver's coarse window of 8 x
+     ``merge_split`` of 128 split rows in the JAX wire dtypes and peer
+     ordinals, an unpipelined ``merge_split`` of the peer's export, an
+     ``exact_guards`` window that raises ``DuplicateNodeException``;
+     the narrow form on a value_width=32 pair for two passes;
+   - path B, the stream replay of ``bench.py``'s default mode: 64
+     chained ``fanin_stream`` calls at 2^20 x 8 x 128 chunks with the
+     canonical threaded.
 4. A JSON line per measurement, the ``kernels`` line, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -41,14 +53,17 @@ import time
 import numpy as np
 import torch
 
-from crdt_tpu_torch import DenseCrdt, Hlc, _build
+from crdt_tpu_torch import DenseCrdt, DuplicateNodeException, Hlc, _build
 from crdt_tpu_torch.hlc import MAX_DRIFT, SHIFT
 from crdt_tpu_torch.obs import device as obs_device
-from crdt_tpu_torch.ops import fanin_kernel, ingest_kernel
-from crdt_tpu_torch.ops.dense import (_I32_NEG, _NEG, DenseChangeset,
-                                      DenseStore, dense_delta_mask,
-                                      empty_dense_store, fanin_step,
-                                      ingest_scatter)
+from crdt_tpu_torch.ops import fanin_kernel, ingest_kernel, stream_kernel
+from crdt_tpu_torch.ops.split import (NEG_HI, NarrowSplitChangeset,
+                                      split_changeset,
+                                      split_changeset_narrow, split_to_wide)
+from crdt_tpu_torch.ops.dense import (_I32_NEG, _NEG, CHANGESET_DTYPES,
+                                      DenseChangeset, DenseStore,
+                                      dense_delta_mask, empty_dense_store,
+                                      fanin_step, ingest_scatter)
 
 N_SLOTS = 1 << 20
 ROWS_PER_PASS = 128
@@ -58,9 +73,22 @@ FLUSHES = 16
 DELTA_ROWS = 4096
 MILLIS = 1_700_000_000_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
-INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: SMs x INT32 lanes x boost
+# The most scalar instructions the H100 SXM's SMs can start per second:
+# 132 SMs x 128 lanes x 1.98 GHz boost, one instruction per lane per
+# clock (the rate behind its 67 TFLOP/s float32 figure, an FMA counted
+# once). No mix of int32 instructions runs faster: the compiler spreads
+# integer adds and moves over the INT32 and the FMA pipes (IMAD).
+OPS_PER_S = 132 * 128 * 1.98e9
 SECTOR = 32                      # bytes per device-memory sector
 IDS = [f"n{i}" for i in range(9)]   # changeset ordinals 1..8; local n0
+STREAM_ROWS = 8                  # bench.py's default stream shape:
+STREAM_CHUNKS = 128              # 2^20 keys x 8 rows x 128 chunks
+STREAM_LAUNCHES = 64
+PEER_FLUSHES = 4
+# Path A: the peer's table (generated rows carry ordinals 1..8 = w1..w8)
+# and the receiver's, seeded with the union so no ordinal ever shifts.
+PEER_IDS = ["p0"] + [f"w{i}" for i in range(1, 9)]
+RCV_IDS = sorted(PEER_IDS + ["a0", "r0"])
 
 
 class Failure(RuntimeError):
@@ -182,6 +210,17 @@ def sector_bytes(mask: torch.Tensor, per_sector: int) -> int:
     return SECTOR * int(mask.reshape(-1, per_sector).any(-1).sum())
 
 
+def winner_rows(lt: torch.Tensor, node: torch.Tensor, valid: torch.Tensor,
+                win: torch.Tensor) -> torch.Tensor:
+    """The entry whose payload lands in each slot the merge wins: the
+    lowest row holding its column's valid (lt, node) max."""
+    r = lt.shape[0]
+    rows = torch.arange(r, device=lt.device)[:, None]
+    cand = valid & (lt == torch.where(valid, lt, _NEG).amax(0))
+    cand &= node == torch.where(cand, node, _I32_NEG).amax(0)
+    return (rows == torch.where(cand, rows, r).amin(0)) & win
+
+
 def fanin_traffic(store: DenseStore, cs: DenseChangeset,
                   win: torch.Tensor) -> tuple:
     """``(needed, fetched)`` bytes of one merge on these inputs, counted
@@ -194,11 +233,8 @@ def fanin_traffic(store: DenseStore, cs: DenseChangeset,
     and the whole store."""
     r, n = cs.lt.shape
     check(n % SECTOR == 0, "fanin_traffic needs whole sectors per row")
-    rows = torch.arange(r, device=cs.lt.device)[:, None]
     masked = torch.where(cs.valid, cs.lt, _NEG)
-    cand = cs.valid & (cs.lt == masked.amax(0))
-    cand &= cs.node == torch.where(cand, cs.node, _I32_NEG).amax(0)
-    final = (rows == torch.where(cand, rows, r).amin(0)) & win
+    final = winner_rows(cs.lt, cs.node, cs.valid, win)
     best = torch.zeros_like(cs.valid)
     b_lt, b_node = masked[0].clone(), torch.where(cs.valid[0], cs.node[0],
                                                   _I32_NEG)
@@ -220,19 +256,25 @@ def fanin_traffic(store: DenseStore, cs: DenseChangeset,
     return needed, fetched
 
 
-def kernel_fanin(results: dict) -> None:
-    store = make_store(N_SLOTS, 1)
-    cs = make_changeset(ROWS_PER_PASS, N_SLOTS, 2)
-    # Forced ties: row 1 repeats row 0's (lt, node) on every 7th slot
-    # with another payload (the lower row must win), and row 5 repeats
-    # the store's record on occupied slots (the local record must win).
+def plant_ties(store: DenseStore, cs: DenseChangeset, node_of=None) -> None:
+    """Row 1 repeats row 0's (lt, node) on every 7th slot with another
+    payload (the lower row must win); row 5 repeats the store's record
+    on every 10th occupied slot (the local record must win).
+    ``node_of`` maps a store ordinal to the changeset's own."""
     cs.lt[1, ::7] = cs.lt[0, ::7]
     cs.node[1, ::7] = cs.node[0, ::7]
     cs.valid[:2, ::7] = True
     tie = torch.nonzero(store.occupied[::10]).reshape(-1) * 10
     cs.lt[5, tie] = store.lt[tie]
-    cs.node[5, tie] = store.node[tie]
+    node = store.node[tie]
+    cs.node[5, tie] = node if node_of is None else node_of[node.long()]
     cs.valid[5, tie] = True
+
+
+def kernel_fanin(results: dict) -> None:
+    store = make_store(N_SLOTS, 1)
+    cs = make_changeset(ROWS_PER_PASS, N_SLOTS, 2)
+    plant_ties(store, cs)
     wall = MILLIS + 10_000
     local = 3                                  # writer n3: dup flag
     canonical = torch.tensor((MILLIS + 500) << SHIFT, device="cuda")
@@ -265,7 +307,7 @@ def kernel_fanin(results: dict) -> None:
     # (int64 >, int64 ==, int32 >) and the node test, with their ands.
     ops = int(cs.valid.sum()) * 16
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    ops_ms = ops / OPS_PER_S * 1e3
     results["fanin_batch"] = dict(
         name="fanin_batch", route="cuda",
         source="crdt_tpu_torch/csrc/fanin_batch.cu",
@@ -311,6 +353,232 @@ def kernel_ingest(results: dict) -> None:
         bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=None, shape=[rows, N_SLOTS], bytes_moved=moved,
         ms_runs=runs, call_ms=call_ms)
+
+
+def split_traffic(store: DenseStore, scs, node_map: torch.Tensor,
+                  win: torch.Tensor, check_fit: bool) -> int:
+    """Bytes one pre-split merge must move on these inputs, in 32-B
+    sectors: hi/lo/node of every entry (10 B — there is no valid lane to
+    skip by), the payload (val_hi/val_lo or the narrow val, and tomb)
+    only of the entry that wins its slot, or every entry's val_hi/val_lo
+    when a value_width=32 replica must check wide payloads; the store's
+    lt/node/occupied, its val/tomb where it keeps the slot, the six
+    outputs and the node map once."""
+    r, n = scs.hi.shape
+    check(n % SECTOR == 0, "split_traffic needs whole sectors per row")
+    wide = split_to_wide(scs)
+    valid = wide.valid
+    if check_fit:
+        valid = valid & (wide.val == wide.val.to(torch.int32).long())
+    node = node_map.long()[wide.node.long().clamp(0, len(node_map) - 1)]
+    final = winner_rows(wide.lt, node, valid, win)
+    if check_fit:
+        payload = r * n * 8
+    else:
+        payload = sector_bytes(final, 8) * (
+            1 if isinstance(scs, NarrowSplitChangeset) else 2)
+    return (r * n * 10 + payload + sector_bytes(final, 32) + n * 13
+            + sector_bytes(~win, 4) + sector_bytes(~win, 32) + n * 23
+            + 4 * len(node_map))
+
+
+def kernel_split(results: dict) -> None:
+    """K1s in its three wire forms against the plain version: wide
+    lanes, wide lanes on a value_width=32 replica (with entries whose
+    payload does not fit, masked and flagged) and narrow lanes; each
+    with the ties of `kernel_fanin`, a remapping node map, a dup and a
+    drift record and malformed sentinels (hi = NEG_HI, lo != 0)."""
+    store = make_store(N_SLOTS, 5)
+    wall = MILLIS + 10_000
+    local = 3
+    canonical = torch.tensor((MILLIS + 500) << SHIFT, device="cuda")
+    # Peer ordinal p -> local ordinal; peer 2 is the local node (dup).
+    node_map = torch.tensor([0, 6, 3, 8, 1, 7, 2, 5, 4], dtype=torch.int32,
+                            device="cuda")
+    peer_of = torch.argsort(node_map).to(torch.int32)
+    cs = make_changeset(ROWS_PER_PASS, N_SLOTS, 6)
+    plant_ties(store, cs, peer_of)
+    cs.lt[9, 12345] = (wall + MAX_DRIFT + 5) << SHIFT   # drift flag
+    cs.valid[9, 12345] = True
+    small = cs._replace(val=cs.val & 0xFFFFF)
+    small.val[3, ::1000] = 1 << 40               # past int32
+    small.valid[3, ::1000] = True
+    forms = {"wide": (split_changeset(cs), 64),
+             "wide_vw32": (split_changeset(small), 32),
+             "narrow": (split_changeset_narrow(small)[0], 32)}
+    del cs, small
+    detail = {}
+    for form, (scs, vw) in forms.items():
+        bad = torch.zeros_like(scs.hi, dtype=torch.bool)
+        bad[7, ::4099] = True                    # malformed sentinels
+        scs = scs._replace(
+            hi=torch.where(bad, NEG_HI, scs.hi),
+            lo=torch.where(bad, 9, scs.lo.long()).to(torch.uint32))
+        k = fanin_kernel.fanin_split(store, scs, node_map, canonical, local,
+                                     wall, value_width=vw)
+        p = fanin_kernel.fanin_split_reference(store, scs, node_map,
+                                               canonical, local, wall,
+                                               value_width=vw)
+        torch.cuda.synchronize()
+        err = max_abs_err(list(k[0]) + list(k[1]) + list(k[2:]),
+                          list(p[0]) + list(p[1]) + list(p[2:]))
+        check(err == 0, f"fanin_split ({form}) kernel != plain version "
+                        f"(max |err| {err})")
+        check(bool(k[1].any_dup) and bool(k[1].any_drift),
+              f"fanin_split ({form}): expected both superset flags set")
+        check(bool(k[3]) == (form == "wide_vw32"),
+              f"fanin_split ({form}): val_overflow {bool(k[3])}")
+        check(bool(k[1].win.any()) and not bool(k[1].win.all()),
+              f"fanin_split ({form}): degenerate win mask")
+        check_fit = form == "wide_vw32"
+        launch = lambda: fanin_kernel._fanin_split_cuda(
+            store, scs, node_map, canonical, local, check_fit)
+        runs = graph_ms(launch, iters=20)
+        call_ms = cuda_ms(launch, iters=20)
+        plain_ms = cuda_ms(lambda: fanin_kernel.fanin_split_join_reference(
+            store, scs, node_map, canonical, local, check_fit), iters=2,
+            warmup=1)
+        r, n = scs.hi.shape
+        moved = split_traffic(store, scs, node_map, k[1].win, check_fit)
+        # Per entry, as int32 instructions: the sentinel test and seen
+        # count, the remap (sentinel test, clamp, shared-memory load,
+        # select), the int64 key, basemax, the dup test, the lex compare
+        # and the running-best selects.
+        ops = r * n * 24
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / OPS_PER_S * 1e3
+        detail[form] = dict(
+            max_abs_err=err, ms=float(np.median(runs)), ms_runs=runs,
+            call_ms=call_ms, plain_ms=plain_ms, bytes_moved=moved,
+            bytes_ms=bytes_ms, ops=ops, ops_ms=ops_ms,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            value_width=vw, shape=[r, n])
+    wide = detail["wide"]
+    results["fanin_split"] = dict(
+        name="fanin_split", route="cuda",
+        source="crdt_tpu_torch/csrc/fanin_split.cu",
+        replaces="crdt_tpu/ops/pallas_merge.py:803",
+        max_abs_err=max(d["max_abs_err"] for d in detail.values()),
+        ms=wide["ms"], plain_ms=wide["plain_ms"],
+        bound_ms=wide["bound_ms"], bound_by=wide["bound_by"],
+        library_ms=None, forms=detail)
+
+
+def stream_inputs(seed: int, shielded_only: bool):
+    """Store and 8-row changeset at the bench shape; the canonical sits
+    2 s above every generated record, so only planted records reach the
+    guards' slow path: a column whose local-node record is shielded by
+    an earlier, larger one (fast flags raise it, exact guards do not);
+    unless ``shielded_only``, a real dup and a real drift record."""
+    store = make_store(N_SLOTS, seed)
+    cs = make_changeset(STREAM_ROWS, N_SLOTS, seed + 1)
+    plant_ties(store, cs)
+    canon = (MILLIS + 2000) << SHIFT
+    local = 3
+    cs.valid[:, 100] = False
+    cs.valid[:2, 100] = True
+    cs.node[:2, 100] = torch.tensor([5, local], dtype=torch.int32,
+                                    device="cuda")
+    cs.lt[:2, 100] = torch.tensor([canon + (9 << SHIFT),
+                                   canon + (3 << SHIFT)], device="cuda")
+    if not shielded_only:
+        cs.valid[2, 200], cs.node[2, 200] = True, local
+        cs.lt[2, 200] = canon + (20 << SHIFT)
+        cs.valid[4, 300], cs.node[4, 300] = True, 5
+        cs.lt[4, 300] = (MILLIS + 10_000 + MAX_DRIFT + 5) << SHIFT
+    return store, cs, torch.tensor(canon, device="cuda"), local
+
+
+def kernel_stream(results: dict) -> None:
+    wall = MILLIS + 10_000
+    detail = {}
+    for shielded_only in (True, False):
+        store, cs, canon, local = stream_inputs(30, shielded_only)
+        for guards in ("fast", "exact"):
+            k_store, k_res = stream_kernel.fanin_stream(
+                store, cs, canon, local, wall, n_chunks=STREAM_CHUNKS,
+                guards=guards)
+            p_store, p_res = stream_kernel.fanin_stream_reference(
+                store, cs, canon, local, wall, n_chunks=STREAM_CHUNKS,
+                guards=guards)
+            torch.cuda.synchronize()
+            err = max_abs_err(list(k_store) + list(k_res),
+                              list(p_store) + list(p_res))
+            check(err == 0, f"fanin_stream ({guards}) kernel != plain "
+                            f"version (max |err| {err})")
+            want = ((guards == "fast", False) if shielded_only
+                    else (True, True))
+            got = (bool(k_res.any_dup), bool(k_res.any_drift))
+            check(got == want, f"fanin_stream ({guards}, shielded_only="
+                               f"{shielded_only}): flags {got}, want {want}")
+            check(bool(k_res.win.any()) and not bool(k_res.win.all()),
+                  "fanin_stream: degenerate win mask")
+            if shielded_only:
+                continue
+            out = DenseStore(*(torch.empty_like(x) for x in store))
+            win = torch.empty_like(store.occupied)
+            flags = torch.zeros(2, dtype=torch.int32, device="cuda")
+            basemax = torch.where(cs.valid, cs.lt, _NEG).amax()
+            thresh = ((wall + MAX_DRIFT) << SHIFT) | 0xFFFF
+            launch = lambda: stream_kernel.launch_stream(
+                store, cs, out, win, flags, canon, basemax, local, thresh,
+                STREAM_CHUNKS, guards == "exact")
+            runs = graph_ms(launch, iters=5)
+            plain_ms = cuda_ms(lambda: stream_kernel.fanin_stream_reference(
+                store, cs, canon, local, wall, n_chunks=STREAM_CHUNKS,
+                guards=guards), iters=1, warmup=0)
+            moved = stream_traffic(store, cs, k_res.win)
+            # The fewest int32 instructions the function takes. Chunk c
+            # shifts every valid lt alike, so a column's row order never
+            # changes and the chunks have a closed form: one pass over
+            # the rows finds the column's winner, per valid entry the
+            # lex compare against the running best (int64 >, int64 ==
+            # and int32 >: 5) and the selects of its lt, node and row
+            # (4); the exact guards' slow-path tests are monotone in the
+            # chunk and add, once per valid entry, the compare with the
+            # running max (2), the node test (1), the drift compare (2),
+            # their combination (2), the run select (2) and the flags
+            # (1). Per slot: the winner at the last chunk against the
+            # store (the int64 offset add, 2, and the lex compare, 5),
+            # the win flag (1) and the stamp selects (2), as a winner
+            # wins every chunk after its first.
+            per = 19 if guards == "exact" else 9
+            valid_entries = int(cs.valid.sum())
+            ops = valid_entries * per + N_SLOTS * 10
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / OPS_PER_S * 1e3
+            detail[guards] = dict(
+                max_abs_err=err, ms=float(np.median(runs)), ms_runs=runs,
+                plain_ms=plain_ms, bytes_moved=moved, bytes_ms=bytes_ms,
+                valid_entries=valid_entries, ops=ops, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                shape=[STREAM_ROWS, N_SLOTS, STREAM_CHUNKS])
+        del store, cs
+    fast = detail["fast"]                 # bench.py's stream mode
+    results["fanin_stream"] = dict(
+        name="fanin_stream", route="cuda",
+        source="crdt_tpu_torch/csrc/fanin_stream.cu",
+        replaces="crdt_tpu/ops/pallas_merge.py:572",
+        max_abs_err=max(d["max_abs_err"] for d in detail.values()),
+        ms=fast["ms"], plain_ms=fast["plain_ms"], bound_ms=fast["bound_ms"],
+        bound_by=fast["bound_by"], library_ms=None, guards=detail)
+
+
+def stream_traffic(store: DenseStore, cs: DenseChangeset,
+                   win: torch.Tensor) -> int:
+    """Bytes one stream replay must move, in 32-B sectors: valid of
+    every entry, lt/node where a sector holds a valid entry, val/tomb of
+    the entry that wins its slot, the store's lt/node/occupied, its
+    val/tomb/mod lanes where it keeps the slot, and the eight outputs
+    once. The chunks re-read nothing the function needs from memory."""
+    r, n = cs.lt.shape
+    final = winner_rows(cs.lt, cs.node, cs.valid, win)
+    return (r * n + sector_bytes(cs.valid, 4) + sector_bytes(cs.valid, 8)
+            + sector_bytes(final, 4) + sector_bytes(final, 32) + n * 13
+            + 2 * sector_bytes(~win, 4) + sector_bytes(~win, 8)
+            + sector_bytes(~win, 32) + n * (8 + 4 + 8 + 1 + 8 + 4 + 1 + 1))
 
 
 # --- phase 3: the main path ------------------------------------------
@@ -483,6 +751,188 @@ def guard_path() -> None:
           "refused merge changed the store")
 
 
+class RefReplica:
+    """The plain fold of a receiver's merges on the card: the merged
+    lanes and clock path A is held against."""
+
+    def __init__(self, ids: list, node_id: str, start: int):
+        self.store = empty_dense_store(N_SLOTS, "cuda")
+        self.canon = Hlc(0, 0, node_id)
+        self.clock = StepClock(start)
+        self.ids = ids
+        self.node_id = node_id
+
+    def merge_split(self, scs, peer_ids: list, expect_bad=False) -> None:
+        wide = split_to_wide(scs)
+        remap = torch.tensor([self.ids.index(i) for i in peer_ids],
+                             dtype=torch.int32, device="cuda")
+        wide = wide._replace(node=torch.where(
+            wide.valid, remap[wide.node.long().clamp(0, len(peer_ids) - 1)],
+            0))
+        wall = self.clock()
+        self.store, res = fanin_step(self.store, wide,
+                                     self.canon.logical_time,
+                                     self.ids.index(self.node_id), wall)
+        check(bool(res.any_bad) == expect_bad,
+              "reference merge: unexpected guard result")
+        self.canon = Hlc.send(Hlc.from_logical_time(
+            int(res.new_canonical), self.node_id), millis=self.clock())
+
+    def check_against(self, crdt: DenseCrdt, what: str) -> None:
+        err = max_abs_err(crdt.store, self.store)
+        check(err == 0, f"{what}: lanes differ from the plain fold "
+                        f"(max |err| {err})")
+        check(crdt.canonical_time.logical_time == self.canon.logical_time,
+              f"{what}: canonical clock differs from the plain fold")
+
+
+def peer_replica(value_width: int, flushes: int, start: int):
+    """A JAX-style peer: ingest flushes, then its split wire delta."""
+    peer = DenseCrdt("p0", N_SLOTS, node_ids=PEER_IDS,
+                     value_width=value_width, wall_clock=StepClock(start))
+    with peer.ingest(auto_flush_rows=FLUSH_ROWS):
+        for f in range(flushes):
+            slots, vals, tombs = flush_inputs(f)
+            if value_width == 32:
+                vals = vals >> 33
+            peer.put_batch(slots, vals, tombs)
+    scs, ids = peer.export_split_delta()
+    wide = split_to_wide(scs)
+    occ = peer.store.occupied
+    check(bool(torch.equal(wide.valid[0], occ)) and all(
+        torch.equal(getattr(wide, f)[0][occ], getattr(peer.store, f)[occ])
+        for f in ("lt", "node", "val", "tomb")),
+          "export_split_delta lanes differ from the peer's store")
+    check(scs.hi.dim() == 3, "export_split_delta: expected tiled lanes")
+    return scs, ids
+
+
+def generated_split(rows: int, seed: int, narrow: bool):
+    """Replica rows generated on the card in the JAX wire dtypes, with
+    the peer's ordinals (1..8)."""
+    cs = make_changeset(rows, N_SLOTS, seed)
+    if narrow:
+        return split_changeset_narrow(cs._replace(val=cs.val >> 33))[0]
+    return split_changeset(cs)
+
+
+def path_a(card: str) -> dict:
+    """The JAX-peer interchange at 2^20 slots (see the module doc)."""
+    start = MILLIS + 500
+    peer_scs, peer_ids = peer_replica(64, PEER_FLUSHES, MILLIS + 400)
+    peer32_scs, _ = peer_replica(32, 2, MILLIS + 450)
+    rcv = DenseCrdt("r0", N_SLOTS, node_ids=RCV_IDS,
+                    wall_clock=StepClock(start))
+    rcv32 = DenseCrdt("r0", N_SLOTS, node_ids=RCV_IDS, value_width=32,
+                      wall_clock=StepClock(start))
+    dup = DenseChangeset(*(torch.zeros((1, N_SLOTS), dtype=dt, device="cuda")
+                           for dt in CHANGESET_DTYPES.values()))
+    dup.valid[0, 77] = True
+    dup.node[0, 77] = RCV_IDS.index("r0")
+    dup.lt[0, 77] = (MILLIS + 5000) << SHIFT
+    dup_scs = split_changeset(dup)
+    torch.cuda.synchronize()
+
+    obs_device.reset()
+    seen0 = rcv.stats.records_seen
+    t0 = time.perf_counter()
+    with rcv.pipelined():                   # exit = ONE readback
+        for p in range(PASSES):
+            rcv.merge_split(generated_split(ROWS_PER_PASS, 3000 + p, False),
+                            PEER_IDS)
+    t_window = time.perf_counter() - t0
+    merged = rcv.stats.records_seen - seen0
+    t0 = time.perf_counter()
+    rcv.merge_split(peer_scs, peer_ids)
+    torch.cuda.synchronize()
+    t_export_merge = time.perf_counter() - t0
+    try:
+        with rcv.pipelined(exact_guards=True):
+            rcv.merge_split(dup_scs, RCV_IDS)
+    except DuplicateNodeException:
+        pass
+    else:
+        raise Failure("exact window did not raise DuplicateNodeException")
+    with rcv32.pipelined():
+        for p in range(2):
+            rcv32.merge_split(generated_split(ROWS_PER_PASS, 4000 + p, True),
+                              PEER_IDS)
+    rcv32.merge_split(peer32_scs, peer_ids)
+    torch.cuda.synchronize()
+    launches = obs_device.launches()
+    want = PASSES + 2 + 2 + 1
+    check(launches["fanin_split"] == want,
+          f"path A launched fanin_split {launches['fanin_split']} times, "
+          f"expected {want}")
+
+    ref = RefReplica(RCV_IDS, "r0", start)
+    for p in range(PASSES):
+        ref.merge_split(generated_split(ROWS_PER_PASS, 3000 + p, False),
+                        PEER_IDS)
+    ref.merge_split(peer_scs, peer_ids)
+    ref.merge_split(dup_scs, RCV_IDS, expect_bad=True)
+    ref.check_against(rcv, "path A (wide)")
+    ref32 = RefReplica(RCV_IDS, "r0", start)
+    for p in range(2):
+        ref32.merge_split(generated_split(ROWS_PER_PASS, 4000 + p, True),
+                          PEER_IDS)
+    ref32.merge_split(peer32_scs, peer_ids)
+    ref32.check_against(rcv32, "path A (narrow)")
+    # The window's row generation and split alone, apart from the run.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(PASSES):
+        generated_split(ROWS_PER_PASS, 3000 + p, False)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    return dict(card=card, n_slots=N_SLOTS, passes=PASSES,
+                rows_per_pass=ROWS_PER_PASS, records_merged=merged,
+                window_s=t_window, merges_per_s=merged / t_window,
+                window_includes_generation=True,
+                window_generation_s=t_gen,
+                export_rows=int((peer_scs.hi != NEG_HI).sum()),
+                export_merge_s=t_export_merge, narrow_passes=2,
+                launches=launches)
+
+
+def path_b(card: str) -> dict:
+    """bench.py's default stream mode on the card: 64 chained replays of
+    one 8-row changeset x 128 chunks, the canonical threaded from call
+    to call (bench.py:237-245), one readback at the end."""
+    store = make_store(N_SLOTS, 40)
+    cs = make_changeset(STREAM_ROWS, N_SLOTS, 41)
+    canon0 = torch.tensor((MILLIS + 500) << SHIFT, device="cuda")
+    wall = MILLIS + 10_000
+    stream_kernel.fanin_stream(store, cs, canon0, 0, wall,
+                               n_chunks=STREAM_CHUNKS, guards="fast")
+    torch.cuda.synchronize()
+    obs_device.reset()
+    canon = canon0
+    t0 = time.perf_counter()
+    for _ in range(STREAM_LAUNCHES):
+        _, res = stream_kernel.fanin_stream(store, cs, canon, 0, wall,
+                                            n_chunks=STREAM_CHUNKS,
+                                            guards="fast")
+        canon = res.new_canonical
+    final = int(canon)
+    seconds = time.perf_counter() - t0
+    launches = obs_device.launches()
+    check(launches["fanin_stream"] == STREAM_LAUNCHES,
+          f"path B launched fanin_stream {launches['fanin_stream']} times")
+    basemax = int(torch.where(cs.valid, cs.lt, _NEG).amax())
+    check(final == max(int(canon0),
+                       basemax + ((STREAM_CHUNKS - 1) << SHIFT)),
+          "path B: threaded canonical differs from the closed form")
+    check(not bool(res.any_dup | res.any_drift), "path B: a guard flagged")
+    valid = int(cs.valid.sum())
+    return dict(card=card, n_slots=N_SLOTS, rows=STREAM_ROWS,
+                n_chunks=STREAM_CHUNKS, launches_chained=STREAM_LAUNCHES,
+                valid_entries=valid, seconds=seconds,
+                ms_per_call=seconds / STREAM_LAUNCHES * 1e3,
+                record_merges_per_s=valid * STREAM_CHUNKS * STREAM_LAUNCHES
+                / seconds, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -505,13 +955,26 @@ def main() -> int:
     results: dict = {}
     kernel_fanin(results)
     kernel_ingest(results)
-    print("phase 2: both kernels equal their plain versions on the card")
+    kernel_split(results)
+    kernel_stream(results)
+    print("phase 2: all four kernels equal their plain versions on the "
+          "card")
     guard_path()
     path = main_path(card)
     print("phase 3: main path equals the plain fold; deltas match")
-    for name, n in path["launches"].items():
-        results[name]["launches"] = n
     path["breakdown"] = breakdown()
+    interchange = path_a(card)
+    print("phase 3: path A (export_split_delta -> merge_split, coarse, "
+          "unpipelined and exact windows, wide and narrow) equals the "
+          "plain fold")
+    stream = path_b(card)
+    print("phase 3: path B (64 chained stream replays) threads the clock "
+          "as the closed form says")
+    # Each kernel's launches on the path it serves.
+    for name, counts in (("fanin_batch", path), ("ingest_scatter", path),
+                         ("fanin_split", interchange),
+                         ("fanin_stream", stream)):
+        results[name]["launches"] = counts["launches"][name]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -519,11 +982,15 @@ def main() -> int:
     kernels = {"kernels": [{k: results[n][k] for k in keys}
                            for n in obs_device.KERNELS]}
     record = dict(card=card, build_s=build_s, main_path=path,
-                  kernel_detail=results, torch=torch.__version__)
+                  path_a=interchange, path_b=stream, kernel_detail=results,
+                  torch=torch.__version__,
+                  held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps({"main_path": path}))
+    print(json.dumps({"path_a": interchange}))
+    print(json.dumps({"path_b": stream}))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

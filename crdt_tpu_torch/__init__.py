@@ -2,11 +2,11 @@
 
 The same hybrid-logical-clock LWW map, its dense replication loop
 running on an NVIDIA H100: the store lanes live on the card, and the
-two hot operations of the loop — the fan-in merge and the ingest
-commit — are hand-written CUDA kernels (``csrc/``) built with ``nvcc``
-at first use. Each kernel has a plain torch version beside it, which
-the wrappers take for CPU tensors and which the CPU tests hold against
-the JAX package.
+hot operations — the fan-in merge, the ingest commit, the merge of the
+JAX peers' split wire lanes and the stream replay — are hand-written
+CUDA kernels (``csrc/``) built with ``nvcc`` at first use. Each kernel
+has a plain torch version beside it, which the wrappers take for CPU
+tensors and which the CPU tests hold against the JAX package.
 
 The JAX package ``crdt_tpu`` is the reference; this package imports
 nothing of it (not even its jax-free modules) and never imports jax.

@@ -12,7 +12,11 @@ is a batched tensor op. The replication loop:
   merge through the batch kernel (`ops.fanin_kernel`); a tripped
   superset guard flag is recomputed exactly (`ops.merge.recv_guards`)
   and raises the reference's exception types (hlc.dart:164-189). A
-  coarse ``pipelined()`` window threads the clock on the device.
+  ``pipelined()`` window threads the clock on the device: coarse, or
+  with ``exact_guards=True`` one exact guard pass per merge.
+- **The JAX peers' wire form.** ``export_split_delta`` ships the split
+  32-bit lanes (`ops.split`) that ``merge_split`` takes back through the
+  pre-split kernel, with no conversion to wide lanes.
 - **Deltas out.** ``export_delta``, ``pack_since``, ``record_map`` and
   ``to_json`` select rows through `ops.dense.dense_delta_mask`.
 
@@ -38,10 +42,16 @@ from ..ops.dense import (CHANGESET_DTYPES, DenseChangeset, DenseStore,
                          delete_scatter, dense_delta_mask,
                          dense_max_logical_time, empty_dense_store,
                          put_scatter, store_to_changeset)
-from ..ops.fanin_kernel import model_fanin_batch, pipelined_model_step
+from ..ops.fanin_kernel import (model_fanin_batch, model_fanin_split,
+                                pipelined_model_step,
+                                pipelined_model_step_split)
 from ..ops.ingest_kernel import ingest_scatter
 from ..ops.merge import recv_guards, send_step
 from ..ops.packing import NodeTable, PackedDelta, pack_into_arena
+from ..ops.split import (MAX_NODE_ORDINAL, SPLIT_DTYPES, TILE,
+                         NarrowSplitChangeset, SplitChangeset, _cs_shape,
+                         split_changeset, split_changeset_narrow,
+                         split_guard_lanes, tile_changeset)
 from ..record import KeyEncoder, Record, ValueEncoder
 from ..utils.stats import MergeStats, merge_annotation
 from ..watch import ChangeHub, ChangeStream
@@ -63,12 +73,15 @@ class _PipeState:
     """Device-resident clock state threaded across a pipelined window."""
 
     __slots__ = ("canonical", "any_bad", "overflow", "drift",
-                 "val_overflow", "first_flag_idx", "merges")
+                 "val_overflow", "first_flag_idx", "merges", "exact",
+                 "ex_have", "ex_dup", "ex_lt", "ex_wall")
 
-    def __init__(self, canonical_lt: int, device: torch.device):
+    def __init__(self, canonical_lt: int, device: torch.device,
+                 exact: bool = False):
         self.canonical = torch.tensor(canonical_lt, dtype=torch.int64,
                                       device=device)
         false = torch.zeros((), dtype=torch.bool, device=device)
+        zero = torch.zeros((), dtype=torch.int64, device=device)
         self.any_bad = self.overflow = self.drift = false
         self.val_overflow = false
         # Index (0-based, window order) of the first merge that set ANY
@@ -76,11 +89,29 @@ class _PipeState:
         self.first_flag_idx = torch.tensor(-1, dtype=torch.int32,
                                            device=device)
         self.merges = 0
+        # Exact mode: the first offender's own fields, in sequential
+        # visit order (one recv_guards pass per merge, seeded with the
+        # threaded canonical). ex_wall is the OFFENDING merge's wall
+        # read, so a payload never pairs one merge's record with
+        # another's wall.
+        self.exact = exact
+        self.ex_have = self.ex_dup = false
+        self.ex_lt = self.ex_wall = zero
 
     def note(self, flags: torch.Tensor, idx: int) -> None:
         """Attribute freshly raised flags to window slot ``idx``."""
         self.first_flag_idx = torch.where(
             (self.first_flag_idx < 0) & flags, idx, self.first_flag_idx)
+
+
+def _pipe_exact_guards(lt, node, valid, canonical_lt, local_node, wall):
+    """One exact recv-guard pass for a pipelined merge (the r-major
+    running-cummax semantics of `ops.merge.recv_guards`, seeded with the
+    THREADED device canonical): ``(any_bad, offender's logicalTime,
+    offender is a duplicate)``, all on the device."""
+    any_b, first_bad, first_is_dup, _ = recv_guards(
+        lt, node, valid, canonical_lt, local_node, wall)
+    return any_b, lt.reshape(-1)[first_bad], first_is_dup
 
 
 def resolve_device(device) -> torch.device:
@@ -181,53 +212,90 @@ class DenseCrdt:
         return self._table.ordinal(self._node_id)
 
     @contextmanager
-    def pipelined(self):
+    def pipelined(self, exact_guards: bool = False):
         """Zero-host-sync merge window: inside it, ``merge`` /
-        ``merge_many`` thread the canonical clock as a DEVICE scalar
-        (the final send bump runs on device, `ops.merge.send_step`) and
-        accumulate guard flags instead of fetching them. On exit, ONE
-        readback materializes the clock and raises
-        `PipelinedGuardError` if any recv/send guard fired.
+        ``merge_many`` / ``merge_split`` thread the canonical clock as a
+        DEVICE scalar (the final send bump runs on device,
+        `ops.merge.send_step`) and accumulate guard flags instead of
+        fetching them. On exit, ONE readback materializes the clock and
+        raises if a guard fired.
 
         Merges land optimistically (a guard violation is already in the
-        store when the flush reports it), and the recv flags are the
-        kernel's superset flags, so a report may be spurious: re-run
-        the batches unpipelined to find out. Store lanes and the
+        store when the flush reports it). In a coarse window the recv
+        flags are the kernels' superset flags, so a `PipelinedGuardError`
+        may be spurious: re-run the batches unpipelined to find out.
+        ``exact_guards=True`` spends one exact guard pass per merge
+        (`ops.merge.recv_guards`, seeded with the threaded canonical —
+        the unpipelined path's flags) and the flush raises the
+        reference's own `DuplicateNodeException`/`ClockDriftException`
+        with the unpipelined payloads; a value-ref overflow is reported
+        before them, and both before the send flags. Store lanes and the
         canonical clock equal the same merges issued unpipelined. Local
-        writes are refused inside the window (they need the host
-        clock). An active watch subscriber costs one readback per
-        merge."""
+        writes are refused inside the window (they need the host clock).
+        An active watch subscriber costs one readback per merge."""
         if self._pipe is not None:
             raise RuntimeError("pipelined() windows do not nest")
         # Staged ingest rows would otherwise commit with stamps the
         # window never sees — barrier first.
         self.drain_ingest()
         self._pipe = _PipeState(self._canonical_time.logical_time,
-                                self._device)
+                                self._device, exact=exact_guards)
         try:
             yield self
         finally:
             pipe, self._pipe = self._pipe, None
-            lt, any_bad, overflow, drift, val_ovf, first_idx = torch.stack(
+            (lt, any_bad, overflow, drift, val_ovf, first_idx, ex_have,
+             ex_dup, ex_lt, ex_wall) = torch.stack(
                 [pipe.canonical, pipe.any_bad.long(), pipe.overflow.long(),
                  pipe.drift.long(), pipe.val_overflow.long(),
-                 pipe.first_flag_idx.long()]).tolist()
+                 pipe.first_flag_idx.long(), pipe.ex_have.long(),
+                 pipe.ex_dup.long(), pipe.ex_lt, pipe.ex_wall]).tolist()
             self._canonical_time = Hlc.from_logical_time(lt, self._node_id)
+            # Never shadow an exception already leaving the window body.
+            if sys.exc_info()[0] is None:
+                self._flush_report(pipe, any_bad, overflow, drift, val_ovf,
+                                   first_idx, ex_have, ex_dup, ex_lt,
+                                   ex_wall)
+
+    def _flush_report(self, pipe: _PipeState, any_bad, overflow, drift,
+                      val_ovf, first_idx, ex_have, ex_dup, ex_lt,
+                      ex_wall) -> None:
+        def coarse(include_recv: bool) -> None:
             kinds = [k for k, f in (
-                ("recv-guard (duplicate-node or drift)", any_bad),
+                ("recv-guard (duplicate-node or drift)",
+                 any_bad and include_recv),
+                ("recv-guard (exact: " + ("duplicate-node" if ex_dup
+                                          else "drift") + ")",
+                 pipe.exact and ex_have),
                 ("send counter overflow", overflow),
                 ("send drift", drift),
                 ("value-ref overflow (records with values past int32 "
                  "were SKIPPED, not merged; re-sync from the peer with a "
                  "value_width=64 replica)", val_ovf)) if f]
-            # Never shadow an exception already leaving the window body.
-            if kinds and sys.exc_info()[0] is None:
-                raise PipelinedGuardError(
-                    f"guards tripped in pipelined window: "
-                    f"{', '.join(kinds)}; first flagged at merge "
-                    f"#{first_idx} of {pipe.merges} (0-based, window "
-                    "order); possibly spurious (superset flags) — re-run "
-                    "from that batch unpipelined for the exact diagnosis")
+            raise PipelinedGuardError(
+                f"guards tripped in pipelined window: {', '.join(kinds)}; "
+                f"first flagged at merge #{first_idx} of {pipe.merges} "
+                "(0-based, window order)"
+                + ("" if pipe.exact else
+                   "; possibly spurious (superset flags) — re-run from "
+                   "that batch unpipelined for the exact diagnosis, or "
+                   "open the window with exact_guards=True"))
+
+        if not pipe.exact:
+            if any_bad or overflow or drift or val_ovf:
+                coarse(include_recv=True)
+            return
+        # Exact mode keeps the unpipelined priority: a value overflow
+        # (records SKIPPED) is never eaten by a typed raise, and the recv
+        # guard preempts the send flags of the merge it let through.
+        if val_ovf:
+            coarse(include_recv=False)
+        if ex_have:
+            if ex_dup:
+                raise DuplicateNodeException(str(self._node_id))
+            raise ClockDriftException(ex_lt >> SHIFT, ex_wall)
+        if overflow or drift:
+            coarse(include_recv=False)
 
     # --- ingest fast lane (models/ingest.py) ---
 
@@ -668,25 +736,18 @@ class DenseCrdt:
               for f in DenseChangeset._fields))
         local = self._local_ordinal()
         pipe = self._pipe
-        if pipe is not None:
+        if pipe is not None and not pipe.exact:
             # Both wall reads up front (absorption + send bump): the
             # count and order of the unpipelined path.
             wall_merge = self._wall_clock()
             wall_send = self._wall_clock()
             with merge_annotation("crdt_tpu_torch.dense_merge"):
-                (new_store, pipe.canonical, pipe.any_bad, pipe.overflow,
-                 pipe.drift, pipe.val_overflow, pipe.first_flag_idx,
-                 win_count, win, seen) = pipelined_model_step(
+                out = pipelined_model_step(
                     self._store, cs, pipe.canonical, pipe.any_bad,
                     pipe.overflow, pipe.drift, pipe.val_overflow,
                     pipe.first_flag_idx, local, wall_merge, wall_send,
                     pipe.merges, value_width=self._value_width)
-            pipe.merges += 1
-            self._store = new_store
-            self._store_escaped = False
-            self.stats.add_seen_lazy(seen)
-            self.stats.add_adopted_lazy(win_count)
-            self._emit_merge_wins(new_store, win)
+            self._finish_coarse(out)
             return
 
         wall = self._wall_clock()
@@ -695,6 +756,60 @@ class DenseCrdt:
                 self._store, cs, self._canonical_lt(), local, wall,
                 value_width=self._value_width)
         self.stats.add_seen_lazy(seen)
+        self._finish_merge(new_store, res, voverflow, wall,
+                           lambda: (cs.lt, cs.node, cs.valid))
+
+    def _finish_coarse(self, out) -> None:
+        """Land one fused coarse-window step (`pipelined_model_step` or
+        its split twin): the window state, the store, lazy stats."""
+        pipe = self._pipe
+        (new_store, pipe.canonical, pipe.any_bad, pipe.overflow,
+         pipe.drift, pipe.val_overflow, pipe.first_flag_idx, win_count,
+         win, seen) = out
+        pipe.merges += 1
+        self._store = new_store
+        self._store_escaped = False
+        self.stats.add_seen_lazy(seen)
+        self.stats.add_adopted_lazy(win_count)
+        self._emit_merge_wins(new_store, win)
+
+    def _finish_merge(self, new_store: DenseStore, res, voverflow, wall: int,
+                      guard_lanes: Callable[[], Tuple[torch.Tensor, ...]]
+                      ) -> None:
+        """The tail shared by ``merge_many`` and ``merge_split`` outside
+        coarse windows. ``guard_lanes`` returns the ``(lt, node, valid)``
+        lanes the exact guards read, with local ordinals: every merge in
+        an exact window needs them, an unpipelined one only when a flag
+        trips."""
+        local = self._local_ordinal()
+        pipe = self._pipe
+        if pipe is not None:
+            # Exact window: one guard pass seeded with the threaded
+            # canonical supersedes the kernel's superset flags; nothing
+            # leaves the device.
+            g_lt, g_node, g_valid = guard_lanes()
+            any_b, bad_lt, first_is_dup = _pipe_exact_guards(
+                g_lt, g_node, g_valid, pipe.canonical, local, wall)
+            newly = ~pipe.ex_have & any_b
+            pipe.ex_dup = torch.where(newly, first_is_dup, pipe.ex_dup)
+            pipe.ex_lt = torch.where(newly, bad_lt, pipe.ex_lt)
+            pipe.ex_wall = torch.where(newly, wall, pipe.ex_wall)
+            pipe.ex_have = pipe.ex_have | any_b
+            new_flags = any_b
+            if self._value_width == 32:
+                pipe.val_overflow = pipe.val_overflow | voverflow
+                new_flags = new_flags | voverflow
+            pipe.note(new_flags, pipe.merges)
+            pipe.any_bad = pipe.any_bad | any_b
+            pipe.merges += 1
+            self._store = new_store
+            self._store_escaped = False
+            self.stats.add_adopted_lazy(res.win.sum())
+            self._emit_merge_wins(new_store, res.win)
+            pipe.canonical = res.new_canonical
+            self._pipe_send_bump(self._wall_clock())
+            return
+
         # The result scalars come back in ONE copy; the [N] win mask
         # stays on device unless a watch subscriber needs it.
         any_bad, win_count, new_canonical, val_ovf = torch.stack(
@@ -710,8 +825,9 @@ class DenseCrdt:
             # The kernel's flags are a superset: recompute exactly in
             # the sequential visit order (crdt.dart:80-94); a shielded
             # record clears and the merge proceeds.
+            g_lt, g_node, g_valid = guard_lanes()
             bad, first_bad, first_is_dup, caf = recv_guards(
-                cs.lt, cs.node, cs.valid, self._canonical_time.logical_time,
+                g_lt, g_node, g_valid, self._canonical_time.logical_time,
                 local, wall)
             if bool(bad):
                 # Store untouched; canonical rolled to the pre-failure
@@ -720,7 +836,7 @@ class DenseCrdt:
                     int(caf), self._node_id)
                 if bool(first_is_dup):
                     raise DuplicateNodeException(str(self._node_id))
-                bad_lt = int(cs.lt.reshape(-1)[first_bad])
+                bad_lt = int(g_lt.reshape(-1)[first_bad])
                 raise ClockDriftException(bad_lt >> SHIFT, wall)
         self._store = new_store
         self._store_escaped = False
@@ -729,6 +845,91 @@ class DenseCrdt:
         self._canonical_time = Hlc.send(
             Hlc.from_logical_time(new_canonical, self._node_id),
             millis=self._wall_clock())
+
+    # --- the JAX peers' wire form (ops/split.py) ---
+
+    def export_split_delta(self, since: Optional[Hlc] = None,
+                           tiled: bool = True):
+        """Outbound changeset in the split wire form that JAX peers
+        exchange (`ops.split.SplitChangeset`, or the narrow value-ref
+        lanes on a ``value_width=32`` replica), tiled to ``[1, N // 512,
+        512]`` when ``n_slots % TILE == 0``: what ``merge_split`` — here
+        or on a JAX replica — takes with no conversion. Returns
+        ``(split_changeset, node_ids)``. Raises ``ValueError`` when a
+        node ordinal would not fit the int16 wire lane."""
+        if len(self._table) - 1 > MAX_NODE_ORDINAL:
+            raise ValueError(
+                f"node table holds {len(self._table)} ids; the split wire "
+                f"form carries ordinals up to {MAX_NODE_ORDINAL} only "
+                "(use export_delta)")
+        cs, ids = self.export_delta(since)
+        if self._value_width == 32:
+            # Every write path range-checks values: no overflow here.
+            scs, _ = split_changeset_narrow(cs)
+        else:
+            scs = split_changeset(cs)
+        if tiled and self.n_slots % TILE == 0:
+            scs = tile_changeset(scs)
+        return scs, ids
+
+    def _fit_split(self, scs):
+        """A peer's split lanes — this package's lane types or any named
+        tuple with the same fields (a JAX peer's, say), as tensors or
+        host arrays, 2-D or tiled — on this replica's device in their
+        wire dtypes."""
+        cls = NarrowSplitChangeset if "val" in scs._fields \
+            else SplitChangeset
+        return cls(*(
+            (lane if isinstance(lane, torch.Tensor)
+             else torch.tensor(np.asarray(lane))
+             ).to(self._device, SPLIT_DTYPES[f])
+            for f, lane in ((f, getattr(scs, f)) for f in cls._fields)))
+
+    def merge_split(self, scs, node_ids: Sequence[Any]) -> None:
+        """Fan-in a PRE-SPLIT changeset (`export_split_delta`'s wire
+        form, from either package; 2-D or tiled, wide or narrow) whose
+        ordinals index ``node_ids``. The lanes go to the pre-split kernel
+        as they arrive; the ordinal remap runs inside it. Semantics —
+        guards, value-width enforcement, pipelined windows, watch, stats,
+        clock — are those of ``merge``. The changeset must cover exactly
+        ``n_slots``."""
+        scs = self._fit_split(scs)
+        self.drain_ingest()
+        _, n = _cs_shape(scs)
+        if n != self.n_slots:
+            raise ValueError(
+                f"pre-split changeset covers {n} slots but this replica "
+                f"holds {self.n_slots}; use merge() (the wide path pads "
+                "or refuses capacity mismatches)")
+        self.stats.merges += 1
+        self._intern_ids(node_ids)
+        node_map = torch.tensor([self._table.ordinal(i) for i in node_ids],
+                                dtype=torch.int32, device=self._device)
+        local = self._local_ordinal()
+        pipe = self._pipe
+        if pipe is not None and not pipe.exact:
+            wall_merge = self._wall_clock()
+            wall_send = self._wall_clock()
+            with merge_annotation("crdt_tpu_torch.dense_merge"):
+                out = pipelined_model_step_split(
+                    self._store, scs, node_map, pipe.canonical,
+                    pipe.any_bad, pipe.overflow, pipe.drift,
+                    pipe.val_overflow, pipe.first_flag_idx, local,
+                    wall_merge, wall_send, pipe.merges,
+                    value_width=self._value_width)
+            self._finish_coarse(out)
+            return
+        wall = self._wall_clock()
+        with merge_annotation("crdt_tpu_torch.dense_merge"):
+            new_store, res, seen, voverflow = model_fanin_split(
+                self._store, scs, node_map, self._canonical_lt(), local,
+                wall, value_width=self._value_width)
+        self.stats.add_seen_lazy(seen)
+        # The kernel remaps as it reads, so ``scs`` keeps peer ordinals:
+        # the guard lanes apply the remap.
+        self._finish_merge(
+            new_store, res, voverflow, wall,
+            lambda: split_guard_lanes(scs.hi, scs.lo, scs.node, node_map))
 
     def _pipe_send_bump(self, wall: int) -> None:
         """The final crdt.dart:93 send bump, on device, flags

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("fanin_batch", "ingest_scatter")
+KERNELS = ("fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream")
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 

@@ -194,17 +194,6 @@ def fanin_step(store: DenseStore, cs: DenseChangeset,
         first_is_dup=first_is_dup, canonical_at_fail=canonical_at_fail)
 
 
-def pad_replica_rows(cs: DenseChangeset, multiple: int) -> DenseChangeset:
-    """Pad the replica axis with ``valid=False`` rows (all-zero lanes)
-    up to a multiple of ``multiple``."""
-    pad = (-cs.lt.shape[0]) % multiple
-    if not pad:
-        return cs
-    return DenseChangeset(*(
-        torch.cat([lane, lane.new_zeros((pad,) + lane.shape[1:])])
-        for lane in cs))
-
-
 def dense_delta_mask(store: DenseStore, since_lt: Scalar) -> torch.Tensor:
     """modifiedSince filter — INCLUSIVE bound on the modified lane
     (map_crdt.dart:44-45)."""

@@ -16,9 +16,16 @@ flags — ``any_dup``: some valid local-node record above the pre-merge
 canonical; ``any_drift``: ``basemax`` past the drift threshold. The
 model layer recomputes the exact guards when one trips.
 
-The wrapper takes the kernel for CUDA tensors and the plain version
-(`fanin_join_reference`) for CPU tensors, and never falls back from
-one to the other.
+The pre-split entry (K1s: `fanin_split`, `model_fanin_split`,
+`pipelined_model_step_split`; ``csrc/fanin_split.cu``) is the same
+merge fed the JAX peers' split wire lanes (`ops.split`) as they arrive,
+with the ``node_map`` remap and the value-width masking in the kernel:
+the port of `_model_fanin_split_jit` / `_pipelined_model_step_split_jit`.
+It never widens the lanes in memory first.
+
+Each wrapper takes the kernel for CUDA tensors and its plain version
+(`fanin_join_reference`, `fanin_split_join_reference`) for CPU
+tensors, and never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from ..obs import device as _obs_device
 from .dense import (CHANGESET_DTYPES, STORE_DTYPES, _NEG, DenseChangeset,
                     DenseStore, check_lanes, reduce_replicas)
 from .merge import send_step
+from .split import (I16_NEG, NEG_HI, SPLIT_DTYPES, NarrowSplitChangeset,
+                    flat_lanes, join64)
 
 Scalar = Union[int, torch.Tensor]
 Join = Tuple[torch.Tensor, ...]
@@ -115,16 +124,13 @@ def _fanin_cuda(store: DenseStore, cs: DenseChangeset,
     return (*out, basemax, dup != 0)
 
 
-def _fanin(join, store: DenseStore, cs: DenseChangeset,
-           canonical_lt: Scalar, local_node: int, wall_millis: int
+def _stamp(store: DenseStore, outs: Join, canonical: torch.Tensor,
+           local_node: int, wall_millis: int
            ) -> Tuple[DenseStore, BatchResult]:
-    canonical = torch.as_tensor(canonical_lt, dtype=torch.int64,
-                                device=store.lt.device)
-    lt, node, val, tomb, occupied, win, basemax, any_dup = join(
-        store, cs, canonical, local_node)
-    # Post-pass (outside the kernel on the TPU too): the union-final
-    # canonical comes from the kernel's own basemax, and only then can
-    # the winners' modified lanes be stamped.
+    """Post-pass (outside the kernel on the TPU too): the union-final
+    canonical comes from the kernel's own basemax, and only then can the
+    winners' modified lanes be stamped."""
+    lt, node, val, tomb, occupied, win, basemax, any_dup = outs
     new_canonical = torch.maximum(canonical, basemax)
     thresh = ((wall_millis + MAX_DRIFT) << SHIFT) | MAX_COUNTER
     new_store = DenseStore(
@@ -134,6 +140,15 @@ def _fanin(join, store: DenseStore, cs: DenseChangeset,
         occupied=occupied, tomb=tomb)
     return new_store, BatchResult(new_canonical, win, basemax, any_dup,
                                   basemax > thresh)
+
+
+def _fanin(join, store: DenseStore, cs: DenseChangeset,
+           canonical_lt: Scalar, local_node: int, wall_millis: int
+           ) -> Tuple[DenseStore, BatchResult]:
+    canonical = torch.as_tensor(canonical_lt, dtype=torch.int64,
+                                device=store.lt.device)
+    return _stamp(store, join(store, cs, canonical, local_node), canonical,
+                  local_node, wall_millis)
 
 
 def fanin_batch(store: DenseStore, cs: DenseChangeset,
@@ -211,3 +226,185 @@ def _pipelined_tail(new_store, res, seen, voverflow, value_width,
     return (new_store, new_lt, any_bad | recv_flag, overflow | s_ovf,
             drift | s_drift, val_ovf | voverflow, first_idx,
             res.win.sum().to(torch.int32), res.win, seen)
+
+
+# --- K1s: the pre-split entry, fed the JAX peers' wire lanes ----------
+
+
+def fanin_split_join_reference(store: DenseStore, scs,
+                               node_map: torch.Tensor,
+                               canonical: torch.Tensor, local_node: int,
+                               check_fit: bool) -> Join:
+    """Plain torch version of the split kernel's own outputs: ``(lt,
+    node, val, tomb, occupied, win, basemax, any_dup, seen,
+    val_overflow)`` for ``[R, N]`` split lanes and an int32
+    ``node_map``. Every entry takes part as its key arrives; invalid
+    entries carry the sentinel key, which loses to everything real."""
+    dev = store.lt.device
+    hi, lo, nd = scs.hi.long(), scs.lo.long(), scs.node.long()
+    node = torch.where(nd == I16_NEG, I16_NEG, node_map.long()[
+        nd.clamp(0, node_map.shape[0] - 1)])
+    if isinstance(scs, NarrowSplitChangeset):
+        val = scs.val.long()
+    else:
+        val = join64(scs.val_hi, scs.val_lo)
+    val_overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    if check_fit:
+        # value_width=32 taking wide lanes: val_hi must be the sign fill
+        # of val_lo, else the entry is masked on all three key lanes (a
+        # half-masked hi = NEG_HI with lo != 0 would beat an empty slot).
+        vlo = scs.val_lo.long()
+        fits = scs.val_hi.long() == torch.where(vlo >= 2 ** 31, -1, 0)
+        val_overflow = ((hi != NEG_HI) & ~fits).any()
+        hi = torch.where(fits, hi, NEG_HI)
+        lo = torch.where(fits, lo, 0)
+        node = torch.where(fits, node, I16_NEG)
+    lt = (hi << 32) | lo
+    node = node.to(torch.int32)
+    b_lt = torch.where(store.occupied, store.lt, _NEG)
+    b_node, b_val, b_tomb = store.node, store.val, store.tomb
+    win = torch.zeros_like(store.occupied)
+    for r in range(lt.shape[0]):
+        better = (lt[r] > b_lt) | ((lt[r] == b_lt) & (node[r] > b_node))
+        b_lt = torch.where(better, lt[r], b_lt)
+        b_node = torch.where(better, node[r], b_node)
+        b_val = torch.where(better, val[r], b_val)
+        b_tomb = torch.where(better, scs.tomb[r] != 0, b_tomb)
+        win = win | better
+    neg = torch.full((), _NEG, dtype=torch.int64, device=dev)
+    basemax = torch.maximum(lt.amax(), neg) if lt.numel() else neg
+    any_dup = ((node == local_node) & (lt > canonical)).any()
+    # A winning malformed sentinel (hi = NEG_HI, lo != 0) lands as the
+    # Pallas kernel's split-store round trip lands it: unoccupied, lt 0.
+    real = (b_lt >> 32) != NEG_HI
+    return (torch.where(win, torch.where(real, b_lt, 0), store.lt),
+            torch.where(win, b_node, store.node), b_val, b_tomb,
+            torch.where(win, real, store.occupied), win, basemax, any_dup,
+            (hi != NEG_HI).sum(), val_overflow)
+
+
+@functools.cache
+def _split_launcher():
+    return _build.load("fanin_split", "crdt_fanin_split",
+                       [ctypes.POINTER(_VP), _VP, ctypes.c_int, _VP,
+                        ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                        ctypes.c_int, ctypes.c_int, _VP])
+
+
+MAX_MAP_LEN = 1 << 15   # peer ordinals are int16: no index reaches past
+
+
+def _fanin_split_cuda(store: DenseStore, scs, node_map: torch.Tensor,
+                      canonical: torch.Tensor, local_node: int,
+                      check_fit: bool) -> Join:
+    """Launch ``csrc/fanin_split.cu`` on the current stream."""
+    dev = store.lt.device
+    n = store.n_slots
+    r = scs.hi.shape[0]
+    check_lanes("fanin_split", store._asdict(), STORE_DTYPES, (n,), dev)
+    check_lanes("fanin_split", scs._asdict(), SPLIT_DTYPES, (r, n), dev)
+    if node_map.device != dev or node_map.dtype != torch.int32 \
+            or node_map.dim() != 1 or not node_map.is_contiguous() \
+            or not 1 <= node_map.shape[0] <= MAX_MAP_LEN:
+        raise ValueError(f"fanin_split: node_map must be a contiguous "
+                         f"int32 vector of 1..{MAX_MAP_LEN} entries on "
+                         f"{dev}")
+    if canonical.device != dev or canonical.dtype != torch.int64 \
+            or canonical.dim() != 0:
+        raise ValueError("fanin_split: canonical must be an int64 scalar "
+                         f"tensor on {dev}")
+    narrow = isinstance(scs, NarrowSplitChangeset)
+    out = [torch.empty_like(store.lt), torch.empty_like(store.node),
+           torch.empty_like(store.val), torch.empty_like(store.tomb),
+           torch.empty_like(store.occupied),
+           torch.empty_like(store.occupied)]
+    basemax = torch.full((), _NEG, dtype=torch.int64, device=dev)
+    flags = torch.zeros(2, dtype=torch.int32, device=dev)
+    seen = torch.zeros((), dtype=torch.int64, device=dev)
+    if n:
+        lanes = [store.lt, store.node, store.val, store.tomb,
+                 store.occupied, scs.hi, scs.lo, scs.node,
+                 scs.val if narrow else scs.val_hi,
+                 None if narrow else scs.val_lo, scs.tomb, *out, basemax,
+                 flags, seen]
+        ptrs = (_VP * len(lanes))(*(0 if x is None else x.data_ptr()
+                                    for x in lanes))
+        rc = _split_launcher()(
+            ptrs, node_map.data_ptr(), node_map.shape[0],
+            canonical.data_ptr(), int(local_node), n, r, int(narrow),
+            int(check_fit), torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"fanin_split kernel launch failed: CUDA "
+                               f"error {rc}")
+        _obs_device.note_launch("fanin_split")
+    return (*out, basemax, flags[0] != 0, seen, flags[1] != 0)
+
+
+def _fanin_split(join, store: DenseStore, scs, node_map: torch.Tensor,
+                 canonical_lt: Scalar, local_node: int, wall_millis: int,
+                 value_width: int):
+    canonical = torch.as_tensor(canonical_lt, dtype=torch.int64,
+                                device=store.lt.device)
+    check_fit = value_width == 32 \
+        and not isinstance(scs, NarrowSplitChangeset)
+    *outs, seen, val_overflow = join(store, flat_lanes(scs), node_map,
+                                     canonical, local_node, check_fit)
+    new_store, res = _stamp(store, tuple(outs), canonical, local_node,
+                            wall_millis)
+    return new_store, res, seen, val_overflow
+
+
+def fanin_split(store: DenseStore, scs, node_map: torch.Tensor,
+                canonical_lt: Scalar, local_node: int, wall_millis: int, *,
+                value_width: int = 64):
+    """ONE logical merge of split wire lanes (2-D or tiled) into a
+    fresh copy of ``store``: the hand kernel for CUDA tensors, the plain
+    version for CPU tensors. ``node_map`` (int32) rewrites the peer's
+    ordinals. Returns ``(new_store, BatchResult, seen, val_overflow)``;
+    the flags are K1's superset flags."""
+    join = _fanin_split_cuda if store.lt.is_cuda \
+        else fanin_split_join_reference
+    return _fanin_split(join, store, scs, node_map, canonical_lt,
+                        local_node, wall_millis, value_width)
+
+
+def fanin_split_reference(store: DenseStore, scs, node_map: torch.Tensor,
+                          canonical_lt: Scalar, local_node: int,
+                          wall_millis: int, *, value_width: int = 64):
+    """`fanin_split` through the plain version on any device — what the
+    kernel is held against on the card."""
+    return _fanin_split(fanin_split_join_reference, store, scs, node_map,
+                        canonical_lt, local_node, wall_millis, value_width)
+
+
+def model_fanin_split(store: DenseStore, scs, node_map,
+                      canonical_lt: Scalar, local_node: int,
+                      wall_millis: int, *, value_width: int = 64):
+    """The model layer's merge of a PRE-SPLIT changeset (2-D or tiled
+    lanes, wide or narrow; `ops.split`): what `merge_split` runs. A
+    value_width=32 replica taking WIDE lanes masks entries whose payload
+    does not fit int32 (invalid, never truncated) and flags
+    ``val_overflow``; narrow lanes fit by construction. Returns
+    ``(new_store, BatchResult, seen, val_overflow)``."""
+    node_map = torch.as_tensor(node_map).to(
+        store.lt.device, torch.int32)[:MAX_MAP_LEN].contiguous()
+    return fanin_split(store, scs, node_map, canonical_lt, local_node,
+                       wall_millis, value_width=value_width)
+
+
+def pipelined_model_step_split(store: DenseStore, scs, node_map,
+                               canonical: torch.Tensor,
+                               any_bad: torch.Tensor,
+                               overflow: torch.Tensor, drift: torch.Tensor,
+                               val_ovf: torch.Tensor,
+                               first_idx: torch.Tensor, local_node: int,
+                               wall_merge: int, wall_send: int,
+                               merge_idx: int, *, value_width: int = 64):
+    """`pipelined_model_step` for a PRE-SPLIT changeset (`merge_split`
+    in a coarse window); same return tuple."""
+    new_store, res, seen, voverflow = model_fanin_split(
+        store, scs, node_map, canonical, local_node, wall_merge,
+        value_width=value_width)
+    return _pipelined_tail(new_store, res, seen, voverflow, value_width,
+                           any_bad, overflow, drift, val_ovf, first_idx,
+                           merge_idx, wall_send)

@@ -17,7 +17,8 @@ import torch
 import crdt_tpu_torch as port
 from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.ops import dense as td
-from crdt_tpu_torch.ops import fanin_kernel, ingest_kernel
+from crdt_tpu_torch.ops import fanin_kernel, ingest_kernel, stream_kernel
+from crdt_tpu_torch.ops import split as ts
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +124,100 @@ def test_dense_crdt_on_card_matches_host(cuda):
         assert torch.equal(x.cpu(), y)
     assert str(a.canonical_time) == str(b.canonical_time)
     assert a.to_json() == b.to_json()
+
+
+def split_lanes(rng, cs, narrow, map_len):
+    """Split wire lanes of ``cs`` (host tensors) with payloads past int32
+    and malformed sentinels (hi == NEG_HI, lo != 0) sprinkled in, and a
+    random node map."""
+    wide = td.DenseChangeset(**{k: torch.tensor(v) for k, v in cs.items()})
+    wide = wide._replace(val=torch.where(
+        torch.tensor(rng.random(wide.val.shape) < 0.1),
+        wide.val, wide.val % 1000))
+    scs = ts.split_changeset_narrow(wide)[0] if narrow \
+        else ts.split_changeset(wide)
+    bad = torch.tensor(rng.random(scs.hi.shape) < 0.02)
+    scs = scs._replace(hi=torch.where(bad, ts.NEG_HI, scs.hi),
+                       lo=torch.where(bad, 9, scs.lo.long()).to(torch.uint32))
+    node_map = torch.tensor(rng.integers(0, 6, map_len), dtype=torch.int32)
+    return scs, node_map
+
+
+@pytest.mark.parametrize("n,rows,narrow,value_width,map_len", [
+    (5000, 3, False, 64, 4), (257, 1, True, 32, 4), (1000, 0, False, 32, 1),
+    (40_000, 64, False, 32, 7), (3001, 9, True, 64, 1 << 15)])
+def test_fanin_split_kernel_matches_plain(cuda, n, rows, narrow, value_width,
+                                          map_len):
+    rng = np.random.default_rng(n + rows)
+    store, cs = lanes(rng, n, rows)
+    scs, node_map = split_lanes(rng, cs, narrow, map_len)
+    args = (BASE + 3, 2, 1_700_000_010_000)
+    obs_device.reset()
+    k = fanin_kernel.fanin_split(
+        td.store_from_numpy(store, cuda), type(scs)(*(x.to(cuda)
+                                                      for x in scs)),
+        node_map.to(cuda), *args, value_width=value_width)
+    assert obs_device.launches()["fanin_split"] == (1 if n else 0)
+    p = fanin_kernel.fanin_split(td.store_from_numpy(store), scs, node_map,
+                                 *args, value_width=value_width)
+    for a, b in zip(list(k[0]) + list(k[1]) + list(k[2:]),
+                    list(p[0]) + list(p[1]) + list(p[2:])):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n,rows,n_chunks", [(5000, 3, 4), (257, 1, 1),
+                                             (1000, 0, 2), (4099, 8, 5),
+                                             (3001, 13, 3)])
+@pytest.mark.parametrize("guards", ["exact", "fast"])
+def test_fanin_stream_kernel_matches_plain(cuda, n, rows, n_chunks, guards):
+    rng = np.random.default_rng(n + rows + n_chunks)
+    store, cs = lanes(rng, n, rows)
+    cs["node"][:, ::5] = 2                   # local-node records: dup
+    canonical = BASE + 2
+    wall = (BASE >> 16) - port.MAX_DRIFT + 1   # chunk 2 on drifts
+    obs_device.reset()
+    k = stream_kernel.fanin_stream(*on(cuda, store, cs), canonical, 2, wall,
+                                   n_chunks=n_chunks, guards=guards)
+    assert obs_device.launches()["fanin_stream"] == (1 if n else 0)
+    p = stream_kernel.fanin_stream(*on("cpu", store, cs), canonical, 2, wall,
+                                   n_chunks=n_chunks, guards=guards)
+    for a, b in zip(list(k[0]) + list(k[1]), list(p[0]) + list(p[1])):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_split_interchange_on_card_matches_host(cuda):
+    """export_split_delta -> merge_split (unpipelined, coarse and exact
+    windows) on a card replica and a host replica: identical lanes,
+    clocks, and the same duplicate-node raise."""
+    results = []
+    for device in (cuda, "cpu"):
+        tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
+        peer = port.DenseCrdt("p0", 3001, device=device,
+                              node_ids=["a", "p0"], wall_clock=tick.__next__)
+        rng = np.random.default_rng(4)
+        with peer.ingest(auto_flush_rows=100):
+            peer.put_batch(rng.choice(3001, 300, replace=False),
+                           rng.integers(0, 1 << 40, 300))
+        scs, ids = peer.export_split_delta()
+        c = port.DenseCrdt("r0", 3001, device=device,
+                           node_ids=["b", "r0"], wall_clock=tick.__next__)
+        c.merge_split(scs, ids)
+        with c.pipelined():
+            c.merge_split(scs, ids)
+        # A record carrying this replica's own id, 1 s past its clock.
+        own_ids = c.export_delta()[1]
+        dup = td.DenseChangeset(*(torch.zeros((1, 3001), dtype=dt)
+                                  for dt in td.CHANGESET_DTYPES.values()))
+        dup.valid[0, 9] = True
+        dup.node[0, 9] = own_ids.index("r0")
+        dup.lt[0, 9] = c.canonical_time.logical_time + (1000 << 16)
+        with pytest.raises(port.DuplicateNodeException):
+            with c.pipelined(exact_guards=True):
+                peer.put_batch([7], [70])
+                c.merge_split(*peer.export_split_delta())
+                c.merge_split(ts.split_changeset(dup), own_ids)
+        results.append(c)
+    a, b = results
+    for x, y in zip(a.store, b.store):
+        assert torch.equal(x.cpu(), y)
+    assert str(a.canonical_time) == str(b.canonical_time)

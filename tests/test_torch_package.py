@@ -211,4 +211,32 @@ def test_launch_counters_and_build_paths():
         assert path.parent == _build.BUILD_DIR
         assert path == _build.library_path(name)   # stable tag
         assert (_build.CSRC / f"{name}.cu").exists()
-    assert set(_build.SOURCES) == set(obs_device.KERNELS)
+    assert set(_build.SOURCES) == set(obs_device.KERNELS) == {
+        "fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream"}
+    # The AST import check above covers every module of the port.
+    assert {"split.py", "stream_kernel.py", "fanin_kernel.py"} <= {
+        p.name for p in PORT_FILES}
+
+
+def test_cpu_wrappers_of_every_kernel_launch_nothing():
+    """On CPU tensors every path — ingest, merge, merge_split in each
+    window, the stream replay — takes the plain versions: no launch
+    counter moves."""
+    from crdt_tpu_torch.ops import stream_kernel
+    obs_device.reset()
+    c = port.DenseCrdt("n0", 64, device="cpu", wall_clock=FakeClock())
+    with c.ingest():
+        c.put_batch([1, 5, 63], [10, 50, 630])
+    scs, ids = c.export_split_delta()
+    d = port.DenseCrdt("n1", 64, device="cpu", wall_clock=FakeClock())
+    d.merge(*c.export_delta())
+    d.merge_split(scs, ids)
+    for exact in (False, True):
+        with d.pipelined(exact_guards=exact):
+            d.merge_split(scs, ids)
+    _, res = stream_kernel.fanin_stream(
+        c.store, td.store_to_changeset(c.store), 0, 1, 1_700_000_000_000,
+        n_chunks=3)
+    assert obs_device.launches() == dict.fromkeys(obs_device.KERNELS, 0)
+    # From chunk 1 on the replayed records beat their own store slots.
+    assert d.get(5) == 50 and int(res.win.sum()) == 3
