@@ -16,8 +16,11 @@ Phases, in order; any failure raises and exits non-zero:
    wide, the value_width=32 wide and the narrow wire form, with a
    remapping node map; the stream replay at 2^20 x 8 rows x 128
    chunks in both guard modes, with planted dup and drift records and
-   one that only the fast flags raise. Timed from replayed CUDA graphs
-   beside the plain version and the bound.
+   one that only the fast flags raise; the sharded step (K1p) on a
+   (replica=2, key=2) mesh at 2^20 x 128, against its plain version and
+   the unsharded merge, with ties across the replica-shard boundary.
+   Timed from replayed CUDA graphs beside the plain version and the
+   bound (K1p: its four block launches, and the combine apart).
 3. The paths at full size through the public API, each with the launch
    counters zeroed just before it and read just after, each held bit
    for bit against the same inputs folded by the plain ``ops.dense``
@@ -34,7 +37,14 @@ Phases, in order; any failure raises and exits non-zero:
      the narrow form on a value_width=32 pair for two passes;
    - path B, the stream replay of ``bench.py``'s default mode: 64
      chained ``fanin_stream`` calls at 2^20 x 8 x 128 chunks with the
-     canonical threaded.
+     canonical threaded;
+   - path C, the sharded replication loop: a ``ShardedDenseCrdt("n0",
+     2^20, make_fanin_mesh(2, 2))`` on the one card takes the main
+     path's flushes and window, a ``merge_many``, an exact window that
+     raises ``DuplicateNodeException`` and a 4,096-row delta out, held
+     against the unsharded ``DenseCrdt`` given the same ops (lanes,
+     clock, delta bytes, exception) with every replica copy equal; then
+     the (1, 1) and multislice (2, 1, 2) meshes at 2^16 slots.
 4. A JSON line per measurement, the ``kernels`` line, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -53,7 +63,8 @@ import time
 import numpy as np
 import torch
 
-from crdt_tpu_torch import DenseCrdt, DuplicateNodeException, Hlc, _build
+from crdt_tpu_torch import (DenseCrdt, DuplicateNodeException, Hlc,
+                            ShardedDenseCrdt, _build, parallel)
 from crdt_tpu_torch.hlc import MAX_DRIFT, SHIFT
 from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.ops import fanin_kernel, ingest_kernel, stream_kernel
@@ -566,6 +577,106 @@ def kernel_stream(results: dict) -> None:
         bound_by=fast["bound_by"], library_ms=None, guards=detail)
 
 
+def kernel_fanin_sharded(results: dict) -> None:
+    """K1p: the sharded step on a (replica=2, key=2) mesh on the card,
+    its four K1 launches (each a block of 64 rows x 2^19 slots read in
+    place, row stride 2^20) and the combine, against the step with the
+    plain per-block join and against the unsharded K1 merge of the same
+    inputs, with ties planted across the replica-shard boundary."""
+    mesh = parallel.make_fanin_mesh(2, 2)
+    store = make_store(N_SLOTS, 11)
+    cs = make_changeset(ROWS_PER_PASS, N_SLOTS, 12)
+    plant_ties(store, cs)
+    half = ROWS_PER_PASS // 2               # rank 1's first row
+    cs.lt[half, ::3] = cs.lt[0, ::3]
+    cs.node[half, ::3] = cs.node[0, ::3]
+    cs.valid[0, ::3] = cs.valid[half, ::3] = True
+    wall = MILLIS + 10_000
+    local = 3                                  # writer n3: dup flag
+    canonical = torch.tensor((MILLIS + 500) << SHIFT, device="cuda")
+    cs.lt[9, 12345] = (wall + MAX_DRIFT + 5) << SHIFT   # drift flag
+    cs.valid[9, 12345] = True
+    sstore = parallel.shard_store(store, mesh)
+    scs = parallel.shard_changeset(cs, mesh)
+    check(scs.blocks[1][1].lt.data_ptr()
+          == cs.lt[half:, N_SLOTS // 2:].data_ptr(),
+          "K1p: changeset blocks are not read in place")
+    args = (canonical, local, wall)
+    k_store, k_res = parallel.make_sharded_fanin(mesh)(sstore, scs, *args)
+    p_store, p_res = parallel.make_sharded_fanin(mesh, reference=True)(
+        sstore, scs, *args)
+    u_store, u_res = fanin_kernel.fanin_batch(store, cs, *args)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(a, b) for ka, pa in zip(k_store.blocks,
+                                                    p_store.blocks)
+              for a, b in zip(ka, pa))
+    err = max(err, max_abs_err(k_res, p_res))
+    check(err == 0, f"K1p != its plain version (max |err| {err})")
+    err_u = max_abs_err(
+        list(parallel.gather_store(k_store)) + [k_res.win,
+                                                k_res.new_canonical,
+                                                k_res.any_dup,
+                                                k_res.any_drift],
+        list(u_store) + [u_res.win, u_res.new_canonical, u_res.any_dup,
+                         u_res.any_drift])
+    check(err_u == 0, f"K1p != the unsharded K1 merge (max |err| {err_u})")
+    check(bool(k_res.any_dup) and bool(k_res.any_drift),
+          "K1p: expected both superset flags set")
+    check(bool(k_res.win.any()) and not bool(k_res.win.all()),
+          "K1p: degenerate win mask")
+    check_copies(k_store, "K1p")
+
+    joins = lambda: parallel.fanin.block_joins(sstore, scs, canonical,
+                                               local)
+    runs = graph_ms(joins, iters=5)
+    call_ms = cuda_ms(joins, iters=10)
+    parts = joins()
+    comb_runs = graph_ms(lambda: parallel.fanin.combine_blocks(
+        sstore, parts, canonical, local, wall), iters=5)
+    step = parallel.make_sharded_fanin(mesh)
+    step_ms = cuda_ms(lambda: step(sstore, scs, *args), iters=5)
+    k1_runs = graph_ms(lambda: fanin_kernel._fanin_cuda(store, cs,
+                                                         canonical, local),
+                       iters=5)
+    plain_ms = cuda_ms(lambda: parallel.fanin.block_joins(
+        sstore, scs, canonical, local,
+        join=fanin_kernel.fanin_join_reference), iters=2, warmup=1)
+    moved = fetched = 0
+    for s_row, c_row, p_row in zip(sstore.blocks, scs.blocks, parts):
+        for blk, cblk, part in zip(s_row, c_row, p_row):
+            m, f = fanin_traffic(blk, cblk, part[5])
+            moved, fetched = moved + m, fetched + f
+    # As K1's count: 16 int32 instructions per valid entry.
+    ops = int(cs.valid.sum()) * 16
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / OPS_PER_S * 1e3
+    launches = len(mesh.devices.flat)
+    ms = float(np.median(runs))
+    results["fanin_batch_sharded"] = dict(
+        name="fanin_batch_sharded", route="cuda",
+        source="crdt_tpu_torch/csrc/fanin_batch.cu",
+        replaces="crdt_tpu/parallel/fanin.py:263",
+        max_abs_err=max(err, err_u), ms=ms, plain_ms=plain_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        library_ms=None, mesh=dict(mesh.shape), shape=list(cs.lt.shape),
+        ms_is="the four block launches of one merge",
+        launches_per_merge=launches, ms_per_launch=ms / launches,
+        ms_runs=runs, call_ms=call_ms,
+        combine_ms=float(np.median(comb_runs)), combine_ms_runs=comb_runs,
+        step_ms=step_ms, unsharded_k1_ms=float(np.median(k1_runs)),
+        bytes_moved=moved, bytes_fetched=fetched, ops=ops, ops_ms=ops_ms)
+    del cs, store, sstore, scs, parts, k_store, p_store, u_store
+
+
+def check_copies(store, what: str) -> None:
+    """Every replica copy of every key shard equals the rank-0 copy."""
+    for k, first in enumerate(store.blocks[0]):
+        for blk in store.column(k):
+            check(max_abs_err(blk, first) == 0,
+                  f"{what}: replica copies of key shard {k} differ")
+
+
 def stream_traffic(store: DenseStore, cs: DenseChangeset,
                    win: torch.Tensor) -> int:
     """Bytes one stream replay must move, in 32-B sectors: valid of
@@ -584,11 +695,11 @@ def stream_traffic(store: DenseStore, cs: DenseChangeset,
 # --- phase 3: the main path ------------------------------------------
 
 
-def flush_inputs(f: int):
+def flush_inputs(f: int, n: int = N_SLOTS, rows: int = FLUSH_ROWS):
     rng = np.random.default_rng(100 + f)
-    slots = rng.choice(N_SLOTS, FLUSH_ROWS, replace=False)
-    return slots, rng.integers(-2 ** 62, 2 ** 62, FLUSH_ROWS), \
-        rng.random(FLUSH_ROWS) < 0.2
+    slots = rng.choice(n, rows, replace=False)
+    return slots, rng.integers(-2 ** 62, 2 ** 62, rows), \
+        rng.random(rows) < 0.2
 
 
 def main_path(card: str) -> dict:
@@ -933,6 +1044,123 @@ def path_b(card: str) -> dict:
                 / seconds, launches=launches)
 
 
+# Path C: the sharded replication loop. The (2, 2) mesh runs at the main
+# path's full size; the (1, 1) and multislice (2, 1, 2) meshes once each
+# at a smaller depth, so the whole script stays well inside its limit.
+SHARDED_RUNS = (((2, 2), N_SLOTS, FLUSHES, FLUSH_ROWS, PASSES),
+                ((1, 1), 1 << 16, 2, 4096, 2),
+                ((2, 1, 2), 1 << 16, 2, 4096, 2))
+
+
+def sharded_ops(crdt, n: int, flushes: int, flush_rows: int,
+                passes: int) -> dict:
+    """Path C's protocol on one replica, sharded or not: ingest flushes,
+    a coarse window of ``passes`` x 128 generated rows, one unpipelined
+    merge_many, an exact window that must raise DuplicateNodeException,
+    and a 4,096-row delta out. Returns the timings, the exception and
+    the delta's three forms."""
+    out = {}
+    t0 = time.perf_counter()
+    with crdt.ingest(auto_flush_rows=flush_rows) as wc:
+        for f in range(flushes):
+            crdt.put_batch(*flush_inputs(f, n, flush_rows))
+    torch.cuda.synchronize()
+    out["ingest_s"] = time.perf_counter() - t0
+    check(wc.flushes == flushes, f"expected {flushes} flushes, got "
+                                 f"{wc.flushes}")
+    seen0 = crdt.stats.records_seen
+    t0 = time.perf_counter()
+    with crdt.pipelined():                   # exit = ONE readback
+        for p in range(passes):
+            crdt.merge(make_changeset(ROWS_PER_PASS, n, 5000 + p), IDS)
+    out["window_s"] = time.perf_counter() - t0
+    out["records_merged"] = crdt.stats.records_seen - seen0
+    crdt.merge_many([(make_changeset(4, n, 6000 + i), IDS)
+                     for i in range(2)])
+    dup = DenseChangeset(*(torch.zeros((1, n), dtype=dt, device="cuda")
+                           for dt in CHANGESET_DTYPES.values()))
+    dup.valid[0, 77] = True                  # "n0": this replica's own id
+    dup.lt[0, 77] = crdt.canonical_time.logical_time + (5000 << SHIFT)
+    try:
+        with crdt.pipelined(exact_guards=True):
+            crdt.merge(make_changeset(4, n, 7000), IDS)
+            crdt.merge(dup, IDS)
+    except DuplicateNodeException as e:
+        out["error"] = e
+    else:
+        raise Failure("exact window did not raise DuplicateNodeException")
+    since = crdt.canonical_time
+    rng = np.random.default_rng(8)
+    with crdt.ingest():
+        crdt.put_batch(rng.choice(n, DELTA_ROWS, replace=False),
+                       rng.integers(0, 1 << 40, DELTA_ROWS))
+    t0 = time.perf_counter()
+    cs, _ = crdt.export_delta(since)
+    packed, _ = crdt.pack_since(since)
+    wire = crdt.to_json(since)
+    out["deltas_s"] = time.perf_counter() - t0
+    out["delta"] = (cs, packed, wire)
+    return out
+
+
+def path_c(card: str) -> dict:
+    """ShardedDenseCrdt on meshes that repeat the card, each run held
+    against the unsharded DenseCrdt given the same ops: equal lanes,
+    clock, delta (changeset, packed bytes, JSON) and exception; every
+    replica copy equal."""
+    runs = []
+    for shape, n, flushes, flush_rows, passes in SHARDED_RUNS:
+        mesh = (parallel.make_multislice_fanin_mesh(*shape)
+                if len(shape) == 3 else parallel.make_fanin_mesh(*shape))
+        start = MILLIS + 500
+        crdt = ShardedDenseCrdt("n0", n, mesh, node_ids=IDS,
+                                wall_clock=StepClock(start))
+        torch.cuda.synchronize()
+        obs_device.reset()
+        got = sharded_ops(crdt, n, flushes, flush_rows, passes)
+        torch.cuda.synchronize()
+        launches = obs_device.launches()
+        positions = len(mesh.devices.flat)
+        k_shards = mesh.shape[parallel.KEY_AXIS]
+        want = dict(fanin_batch_sharded=positions * (passes + 3),
+                    ingest_scatter=positions * (flushes + 1))
+        check(all(launches[k] == v for k, v in want.items())
+              and launches["fanin_batch"] == 0,
+              f"path C {shape}: launches {launches}, expected {want}")
+        twin = DenseCrdt("n0", n, node_ids=IDS, wall_clock=StepClock(start))
+        ref = sharded_ops(twin, n, flushes, flush_rows, passes)
+        what = f"path C {shape}"
+        err = max_abs_err(crdt.store, twin.store)
+        check(err == 0, f"{what}: lanes differ from the unsharded model "
+                        f"(max |err| {err})")
+        check(crdt.canonical_time == twin.canonical_time,
+              f"{what}: canonical clock differs from the unsharded model")
+        e1, e2 = got.pop("error"), ref.pop("error")
+        check(type(e1) is type(e2) and e1.args == e2.args,
+              f"{what}: exception {e1!r} != {e2!r}")
+        (c1, p1, w1), (c2, p2, w2) = got.pop("delta"), ref.pop("delta")
+        check(max_abs_err(c1, c2) == 0 and w1 == w2 and all(
+            getattr(p1, f).tobytes() == getattr(p2, f).tobytes()
+            for f in ("slots", "lt", "node", "val", "tomb"))
+            and p1.k == DELTA_ROWS, f"{what}: deltas differ")
+        if n < N_SLOTS:
+            check(crdt.to_json() == twin.to_json(),
+                  f"{what}: to_json differs")
+        check_copies(crdt._store, what)
+        runs.append(dict(
+            mesh=dict(mesh.shape), n_slots=n, flushes=flushes,
+            flush_rows=flush_rows, merge_passes=passes,
+            rows_per_pass=ROWS_PER_PASS, key_shards=k_shards,
+            ingest_rows_per_s=flushes * flush_rows / got["ingest_s"],
+            merges_per_s=got["records_merged"] / got["window_s"],
+            twin_merges_per_s=ref["records_merged"] / ref["window_s"],
+            window_includes_generation=True, launches=launches,
+            **got, twin=ref))
+        del crdt, twin
+    head = runs[0]
+    return dict(card=card, launches=head["launches"], runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -957,7 +1185,8 @@ def main() -> int:
     kernel_ingest(results)
     kernel_split(results)
     kernel_stream(results)
-    print("phase 2: all four kernels equal their plain versions on the "
+    kernel_fanin_sharded(results)
+    print("phase 2: all five kernels equal their plain versions on the "
           "card")
     guard_path()
     path = main_path(card)
@@ -970,10 +1199,15 @@ def main() -> int:
     stream = path_b(card)
     print("phase 3: path B (64 chained stream replays) threads the clock "
           "as the closed form says")
+    sharded = path_c(card)
+    print("phase 3: path C (ShardedDenseCrdt on (2, 2), (1, 1) and "
+          "(2, 1, 2) meshes) equals the unsharded model; replica copies "
+          "equal")
     # Each kernel's launches on the path it serves.
     for name, counts in (("fanin_batch", path), ("ingest_scatter", path),
                          ("fanin_split", interchange),
-                         ("fanin_stream", stream)):
+                         ("fanin_stream", stream),
+                         ("fanin_batch_sharded", sharded)):
         results[name]["launches"] = counts["launches"][name]
 
     keys = ("name", "route", "source", "replaces", "launches",
@@ -982,8 +1216,8 @@ def main() -> int:
     kernels = {"kernels": [{k: results[n][k] for k in keys}
                            for n in obs_device.KERNELS]}
     record = dict(card=card, build_s=build_s, main_path=path,
-                  path_a=interchange, path_b=stream, kernel_detail=results,
-                  torch=torch.__version__,
+                  path_a=interchange, path_b=stream, path_c=sharded,
+                  kernel_detail=results, torch=torch.__version__,
                   held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -991,6 +1225,7 @@ def main() -> int:
     print(json.dumps({"main_path": path}))
     print(json.dumps({"path_a": interchange}))
     print(json.dumps({"path_b": stream}))
+    print(json.dumps({"path_c": sharded}))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

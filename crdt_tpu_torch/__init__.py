@@ -19,13 +19,15 @@ from .record import Record
 from .crdt_json import CrdtJson, dart_str
 from .watch import ChangeEvent, ChangeStream
 from .ops.packing import PackedDelta
-from .models.dense_crdt import DenseCrdt, PipelinedGuardError
+from .models.dense_crdt import (DenseCrdt, PipelinedGuardError,
+                                ShardedDenseCrdt, sync_dense)
+from . import parallel
 from .checkpoint import load_dense, save_dense
 
 __all__ = [
     "Hlc", "ClockDriftException", "DuplicateNodeException",
     "OverflowException", "MAX_COUNTER", "MAX_DRIFT", "wall_clock_millis",
     "Record", "CrdtJson", "dart_str", "ChangeEvent", "ChangeStream",
-    "PackedDelta", "DenseCrdt", "PipelinedGuardError", "load_dense",
-    "save_dense",
+    "PackedDelta", "DenseCrdt", "PipelinedGuardError", "ShardedDenseCrdt",
+    "sync_dense", "parallel", "load_dense", "save_dense",
 ]

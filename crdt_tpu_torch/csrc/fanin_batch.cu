@@ -3,7 +3,10 @@
 //
 // Replaces: crdt_tpu/ops/pallas_merge.py:206 `_fanin_stream_kernel` in
 // batch mode (advance_clock=False, no in-kernel guards), launched at
-// pallas_merge.py:739 by `pallas_fanin_batch`.
+// pallas_merge.py:739 by `pallas_fanin_batch`; and, per key shard, the
+// same body inside the sharded step (K1p, crdt_tpu/parallel/fanin.py:263
+// `_pallas_fanin_block`), which reads a shard's column block of the
+// changeset in place through the row stride `ld`.
 //
 // What it computes, per slot i:
 //   - the strict lexicographic (lt, node) max over the valid rows
@@ -64,7 +67,7 @@ __global__ void __launch_bounds__(kBlock) fanin_batch_kernel(
     uint8_t* __restrict__ o_occ, uint8_t* __restrict__ o_win,
     long long* __restrict__ basemax, int* __restrict__ any_dup,
     const long long* __restrict__ canonical, int local_node,
-    long long n, long long r) {
+    long long n, long long r, long long ld) {
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   long long bmax = kNeg;
   int dup = 0;
@@ -76,7 +79,7 @@ __global__ void __launch_bounds__(kBlock) fanin_batch_kernel(
     uint8_t b_tomb = 0;
 #pragma unroll 4
     for (long long row = 0; row < r; ++row) {
-      const long long k = row * n + i;
+      const long long k = row * ld + i;
       const bool valid = cs_valid[k] != 0;
       const long long lt = cs_lt[k];
       const int node = cs_node[k];
@@ -128,7 +131,9 @@ __global__ void __launch_bounds__(kBlock) fanin_batch_kernel(
 // Launches on `stream`; returns cudaGetLastError() (0 on success). The
 // caller allocates every output and initializes *basemax to kNeg and
 // *any_dup to 0. `canonical` is a device scalar, so a pipelined merge
-// never has to bring the clock back to the host.
+// never has to bring the clock back to the host. `ld` is the changeset
+// lanes' row stride in entries: n for whole lanes, the full width for a
+// key shard's column block taken in place (the sharded step, K1p).
 extern "C" int crdt_fanin_batch(
     const void* st_lt, const void* st_node, const void* st_val,
     const void* st_tomb, const void* st_occ,
@@ -136,7 +141,7 @@ extern "C" int crdt_fanin_batch(
     const void* cs_tomb, const void* cs_valid,
     void* o_lt, void* o_node, void* o_val, void* o_tomb, void* o_occ,
     void* o_win, void* basemax, void* any_dup, const void* canonical,
-    int local_node, long long n, long long r, void* stream) {
+    int local_node, long long n, long long r, long long ld, void* stream) {
   if (n <= 0) return 0;
   const long long blocks = (n + kBlock - 1) / kBlock;
   fanin_batch_kernel<<<(unsigned)blocks, kBlock, 0,
@@ -149,6 +154,6 @@ extern "C" int crdt_fanin_batch(
       (long long*)o_lt, (int*)o_node, (long long*)o_val,
       (uint8_t*)o_tomb, (uint8_t*)o_occ, (uint8_t*)o_win,
       (long long*)basemax, (int*)any_dup, (const long long*)canonical,
-      local_node, n, r);
+      local_node, n, r, ld);
   return (int)cudaGetLastError();
 }

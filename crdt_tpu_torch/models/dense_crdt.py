@@ -20,6 +20,10 @@ is a batched tensor op. The replication loop:
 - **Deltas out.** ``export_delta``, ``pack_since``, ``record_map`` and
   ``to_json`` select rows through `ops.dense.dense_delta_mask`.
 
+`ShardedDenseCrdt` is the same model with its key space sharded over a
+device mesh (`crdt_tpu_torch.parallel`); `sync_dense` is one
+anti-entropy round between two replicas.
+
 Device rule: the store lives on ``device``, which defaults to
 ``"cuda"``; without a card the constructor raises unless the caller
 asks for ``device="cpu"``. Each op wrapper takes the hand-written
@@ -42,16 +46,20 @@ from ..ops.dense import (CHANGESET_DTYPES, DenseChangeset, DenseStore,
                          delete_scatter, dense_delta_mask,
                          dense_max_logical_time, empty_dense_store,
                          put_scatter, store_to_changeset)
-from ..ops.fanin_kernel import (model_fanin_batch, model_fanin_split,
-                                pipelined_model_step,
+from ..ops.fanin_kernel import (mask_value_width, model_fanin_batch,
+                                model_fanin_split, pipelined_model_step,
                                 pipelined_model_step_split)
 from ..ops.ingest_kernel import ingest_scatter
 from ..ops.merge import recv_guards, send_step
 from ..ops.packing import NodeTable, PackedDelta, pack_into_arena
+from ..parallel.fanin import (gather_lane, gather_store, make_sharded_fanin,
+                              make_sharded_ingest, shard_changeset,
+                              shard_store, sharded_delta_mask,
+                              sharded_max_logical_time)
 from ..ops.split import (MAX_NODE_ORDINAL, SPLIT_DTYPES, TILE,
                          NarrowSplitChangeset, SplitChangeset, _cs_shape,
                          split_changeset, split_changeset_narrow,
-                         split_guard_lanes, tile_changeset)
+                         split_guard_lanes, split_to_wide, tile_changeset)
 from ..record import KeyEncoder, Record, ValueEncoder
 from ..utils.stats import MergeStats, merge_annotation
 from ..watch import ChangeHub, ChangeStream
@@ -114,6 +122,14 @@ def _pipe_exact_guards(lt, node, valid, canonical_lt, local_node, wall):
     return any_b, lt.reshape(-1)[first_bad], first_is_dup
 
 
+def reencode(store: DenseStore, remap: np.ndarray) -> DenseStore:
+    """The store with its ordinal lanes rewritten old -> new through
+    ``remap`` (a node table re-sorted by newly interned ids)."""
+    rd = torch.from_numpy(remap).to(store.lt.device)
+    return store._replace(node=rd[store.node.long()],
+                          mod_node=rd[store.mod_node.long()])
+
+
 def resolve_device(device) -> torch.device:
     """``None`` means the CUDA card, and raises without one: the port
     never carries on silently on the host."""
@@ -128,6 +144,11 @@ def resolve_device(device) -> torch.device:
 
 class DenseCrdt:
     """LWW-map CRDT over slots ``[0, n_slots)`` with int64 values."""
+
+    # Coarse windows take the fused step (merge, flags and send bump in
+    # one call); a model that cannot sets this False and its coarse
+    # merges take `_dispatch_fanin` and `_finish_merge`.
+    _FUSED_COARSE = True
 
     def __init__(self, node_id: Any, n_slots: int, *, device=None,
                  wall_clock: Optional[Callable[[], int]] = None,
@@ -148,11 +169,7 @@ class DenseCrdt:
         # that table first, then intern our own id (re-encoding lanes
         # if it sorts into the middle).
         self._table = NodeTable(node_ids or [])
-        if store is None:
-            self._store = empty_dense_store(n_slots, self._device)
-        else:
-            self._store = DenseStore(*(lane.to(self._device)
-                                       for lane in store))
+        self._store = self._adopt_store(n_slots, store)
         if self._store.n_slots != n_slots:
             raise ValueError(f"store holds {self._store.n_slots} slots but "
                              f"n_slots={n_slots}")
@@ -167,6 +184,12 @@ class DenseCrdt:
         self._pipe: Optional[_PipeState] = None
         self._ingest = None     # active WriteCombiner (models/ingest.py)
         self.refresh_canonical_time()
+
+    def _adopt_store(self, n_slots: int, store: Optional[DenseStore]):
+        """The store lanes this replica starts from, on its device."""
+        if store is None:
+            return empty_dense_store(n_slots, self._device)
+        return DenseStore(*(lane.to(self._device) for lane in store))
 
     # --- clock (crdt.dart:8-33,114-121) ---
 
@@ -353,9 +376,17 @@ class DenseCrdt:
 
     def _commit_scatter(self, slots: np.ndarray, lt: np.ndarray,
                         vals: np.ndarray, tombs: np.ndarray) -> None:
-        """ONE ingest-kernel launch committing a deduped flush. The rows
-        pad to a power of two with ``slot == n_slots`` sentinels, so a
-        steady stream of flushes reuses a few allocation sizes."""
+        """ONE ingest-kernel launch committing a deduped flush."""
+        ingest_scatter(self._writable_store(),
+                       *self._flush_lanes(slots, lt, vals, tombs),
+                       self._local_ordinal())
+
+    def _flush_lanes(self, slots: np.ndarray, lt: np.ndarray,
+                     vals: np.ndarray, tombs: np.ndarray
+                     ) -> Tuple[torch.Tensor, ...]:
+        """A deduped flush as ingest-kernel rows on the device, padded
+        to a power of two with ``slot == n_slots`` sentinels, so a steady
+        stream of flushes reuses a few allocation sizes."""
         d = len(slots)
         padded = 1 << max(d - 1, 1).bit_length()
         slot_l = np.full(padded, self.n_slots, np.int64)
@@ -366,9 +397,7 @@ class DenseCrdt:
         lt_l[:d] = lt
         val_l[:d] = vals
         tomb_l[:d] = tombs
-        ingest_scatter(self._writable_store(), self._to_device(slot_l),
-                       self._to_device(lt_l), self._to_device(val_l),
-                       self._to_device(tomb_l), self._local_ordinal())
+        return tuple(self._to_device(a) for a in (slot_l, lt_l, val_l, tomb_l))
 
     # --- local ops: one send per batch (crdt.dart:39-54) ---
 
@@ -425,11 +454,7 @@ class DenseCrdt:
             return
         self._canonical_time = Hlc.send(self._canonical_time,
                                         millis=self._wall_clock())
-        put_scatter(self._writable_store(), self._to_device(slots),
-                    self._to_device(values),
-                    self._canonical_time.logical_time,
-                    self._local_ordinal(),
-                    tombs=None if tombs is None else self._to_device(tombs))
+        self._write_local(slots, values, tombs)
         self.stats.puts += 1
         self.stats.records_put += int(slots.shape[0])
         self._emit_put(slots, values, tombs)
@@ -445,12 +470,23 @@ class DenseCrdt:
             return
         self._canonical_time = Hlc.send(self._canonical_time,
                                         millis=self._wall_clock())
-        delete_scatter(self._writable_store(), self._to_device(slots),
-                       self._canonical_time.logical_time,
-                       self._local_ordinal())
+        self._write_local(slots, None, None)
         self.stats.puts += 1
         self.stats.records_put += int(slots.shape[0])
         self._emit_delete(slots)
+
+    def _write_local(self, slots: np.ndarray, values: Optional[np.ndarray],
+                     tombs: Optional[np.ndarray]) -> None:
+        """Scatter one local batch under the freshly sent stamp: a put,
+        or with ``values=None`` a delete."""
+        t, me = self._canonical_time.logical_time, self._local_ordinal()
+        store, idx = self._writable_store(), self._to_device(slots)
+        if values is None:
+            delete_scatter(store, idx, t, me)
+        else:
+            put_scatter(store, idx, self._to_device(values), t, me,
+                        tombs=None if tombs is None
+                        else self._to_device(tombs))
 
     # --- views (tombstones excluded, crdt.dart:16-29) ---
 
@@ -507,7 +543,7 @@ class DenseCrdt:
         if self._ingest is not None \
                 and self._ingest.pending_value(slot)[0]:
             return True
-        return bool(self._store.occupied[slot])
+        return bool(self._slot_fields(slot, "occupied")[0])
 
     def is_deleted(self, slot: int) -> Optional[bool]:
         """None for never-written slots, else the tombstone flag
@@ -681,10 +717,7 @@ class DenseCrdt:
         ids shift existing ordinals."""
         remap = self._table.intern(list(node_ids))
         if remap is not None:
-            rd = torch.from_numpy(remap).to(self._device)
-            self._store = self._store._replace(
-                node=rd[self._store.node.long()],
-                mod_node=rd[self._store.mod_node.long()])
+            self._store = reencode(self._store, remap)
 
     def _encode_peer(self, cs: DenseChangeset, node_ids: Sequence[Any]
                      ) -> DenseChangeset:
@@ -736,7 +769,7 @@ class DenseCrdt:
               for f in DenseChangeset._fields))
         local = self._local_ordinal()
         pipe = self._pipe
-        if pipe is not None and not pipe.exact:
+        if pipe is not None and not pipe.exact and self._FUSED_COARSE:
             # Both wall reads up front (absorption + send bump): the
             # count and order of the unpipelined path.
             wall_merge = self._wall_clock()
@@ -752,12 +785,20 @@ class DenseCrdt:
 
         wall = self._wall_clock()
         with merge_annotation("crdt_tpu_torch.dense_merge"):
-            new_store, res, seen, voverflow = model_fanin_batch(
-                self._store, cs, self._canonical_lt(), local, wall,
-                value_width=self._value_width)
+            new_store, res, seen, voverflow, cs = self._dispatch_fanin(
+                cs, wall)
         self.stats.add_seen_lazy(seen)
         self._finish_merge(new_store, res, voverflow, wall,
                            lambda: (cs.lt, cs.node, cs.valid))
+
+    def _dispatch_fanin(self, cs: DenseChangeset, wall: int):
+        """One merge of a changeset in this replica's table: ``(new_store,
+        result, seen, val_overflow, guard_cs)``, ``guard_cs`` the
+        changeset whose lanes the exact guards read."""
+        new_store, res, seen, voverflow = model_fanin_batch(
+            self._store, cs, self._canonical_lt(), self._local_ordinal(),
+            wall, value_width=self._value_width)
+        return new_store, res, seen, voverflow, cs
 
     def _finish_coarse(self, out) -> None:
         """Land one fused coarse-window step (`pipelined_model_step` or
@@ -777,30 +818,35 @@ class DenseCrdt:
                       guard_lanes: Callable[[], Tuple[torch.Tensor, ...]]
                       ) -> None:
         """The tail shared by ``merge_many`` and ``merge_split`` outside
-        coarse windows. ``guard_lanes`` returns the ``(lt, node, valid)``
-        lanes the exact guards read, with local ordinals: every merge in
-        an exact window needs them, an unpipelined one only when a flag
-        trips."""
+        fused coarse windows. ``guard_lanes`` returns the ``(lt, node,
+        valid)`` lanes the exact guards read, with local ordinals: every
+        merge in an exact window needs them, an unpipelined one only when
+        a flag trips."""
         local = self._local_ordinal()
         pipe = self._pipe
         if pipe is not None:
-            # Exact window: one guard pass seeded with the threaded
-            # canonical supersedes the kernel's superset flags; nothing
-            # leaves the device.
-            g_lt, g_node, g_valid = guard_lanes()
-            any_b, bad_lt, first_is_dup = _pipe_exact_guards(
-                g_lt, g_node, g_valid, pipe.canonical, local, wall)
-            newly = ~pipe.ex_have & any_b
-            pipe.ex_dup = torch.where(newly, first_is_dup, pipe.ex_dup)
-            pipe.ex_lt = torch.where(newly, bad_lt, pipe.ex_lt)
-            pipe.ex_wall = torch.where(newly, wall, pipe.ex_wall)
-            pipe.ex_have = pipe.ex_have | any_b
-            new_flags = any_b
+            # Nothing leaves the device.
+            if pipe.exact:
+                # One guard pass seeded with the threaded canonical
+                # supersedes the kernel's superset flags.
+                g_lt, g_node, g_valid = guard_lanes()
+                recv, bad_lt, first_is_dup = _pipe_exact_guards(
+                    g_lt, g_node, g_valid, pipe.canonical, local, wall)
+                newly = ~pipe.ex_have & recv
+                pipe.ex_dup = torch.where(newly, first_is_dup, pipe.ex_dup)
+                pipe.ex_lt = torch.where(newly, bad_lt, pipe.ex_lt)
+                pipe.ex_wall = torch.where(newly, wall, pipe.ex_wall)
+                pipe.ex_have = pipe.ex_have | recv
+            else:
+                # A coarse window without the fused step: the superset
+                # flags accumulate as `_pipelined_tail` accumulates them.
+                recv = res.any_dup | res.any_drift
+            new_flags = recv
             if self._value_width == 32:
                 pipe.val_overflow = pipe.val_overflow | voverflow
                 new_flags = new_flags | voverflow
             pipe.note(new_flags, pipe.merges)
-            pipe.any_bad = pipe.any_bad | any_b
+            pipe.any_bad = pipe.any_bad | recv
             pipe.merges += 1
             self._store = new_store
             self._store_escaped = False
@@ -940,3 +986,185 @@ class DenseCrdt:
         pipe.note(overflow | drift, pipe.merges - 1)
         pipe.overflow = pipe.overflow | overflow
         pipe.drift = pipe.drift | drift
+
+
+class ShardedDenseCrdt(DenseCrdt):
+    """`DenseCrdt` with its key space sharded over a device mesh
+    (`parallel.make_fanin_mesh`): each key shard lives on the mesh's key
+    axis, one real copy per replica position. ``merge``/``merge_many``
+    shard the incoming rows over the replica axes and run the sharded
+    step (`parallel.make_sharded_fanin`: K1 per block, then the
+    lexicographic max over the replica axes); flushes commit with one K2
+    launch per key shard and copy (`parallel.make_sharded_ingest`).
+
+    It is one object over one mesh, as in the JAX package: clock,
+    scalars and incoming changesets live on the mesh's first device,
+    global views (``store``, ``values``, exports, snapshots) are gathered
+    there. Value-width masking and the seen count run on the whole
+    changeset before sharding; the sharded step's flags are the
+    closed-form superset flags, and when one trips the exact guards run
+    on the unsharded changeset in row order, so raised exceptions carry
+    the single-device payloads and per-block false positives never
+    reject a merge. Coarse ``pipelined()`` windows take the sharded step
+    too, never the fused single-device step.
+    """
+
+    _FUSED_COARSE = False
+
+    def __init__(self, node_id: Any, n_slots: int, mesh, *,
+                 wall_clock: Optional[Callable[[], int]] = None,
+                 node_ids: Optional[Sequence[Any]] = None,
+                 value_width: int = 64,
+                 store: Optional[DenseStore] = None):
+        self._mesh = mesh
+        self._sharded_step = make_sharded_fanin(mesh)
+        self._sharded_ingest = make_sharded_ingest(mesh)
+        super().__init__(node_id, n_slots, device=mesh.home,
+                         wall_clock=wall_clock, node_ids=node_ids,
+                         value_width=value_width, store=store)
+
+    def _adopt_store(self, n_slots: int, store: Optional[DenseStore]):
+        if store is None:
+            store = empty_dense_store(n_slots, self._device)
+        return shard_store(store, self._mesh)
+
+    @property
+    def store(self) -> DenseStore:
+        """The store gathered in global slot order on the first device
+        (a copy: later writes do not reach it)."""
+        self.drain_ingest()
+        return gather_store(self._store)
+
+    @property
+    def values(self) -> torch.Tensor:
+        """The val lane, gathered (a copy)."""
+        return self.store.val
+
+    def refresh_canonical_time(self) -> None:
+        self.drain_ingest()
+        self._canonical_time = Hlc.from_logical_time(
+            int(sharded_max_logical_time(self._mesh)(self._store)),
+            self._node_id)
+
+    def _slot_fields(self, slot: int, *names: str) -> List[int]:
+        w = self._store.width
+        blk = self._store.blocks[0][slot // w]
+        return torch.stack([getattr(blk, f)[slot % w].long()
+                            for f in names]).tolist()
+
+    def _intern_ids(self, node_ids: Sequence[Any]) -> None:
+        remap = self._table.intern(list(node_ids))
+        if remap is not None:
+            self._store = self._store.map(lambda b: reencode(b, remap))
+
+    def _write_local(self, slots: np.ndarray, values: Optional[np.ndarray],
+                     tombs: Optional[np.ndarray]) -> None:
+        """The local batch scattered into every copy of each key shard
+        it touches, at shard-local slots."""
+        t, me = self._canonical_time.logical_time, self._local_ordinal()
+        w = self._store.width
+        for k in range(len(self._store.blocks[0])):
+            sel = (slots >= k * w) & (slots < (k + 1) * w)
+            if not sel.any():
+                continue
+            for blk in self._store.column(k):
+                dev = blk.lt.device
+                idx = torch.tensor(slots[sel] - k * w, device=dev)
+                if values is None:
+                    delete_scatter(blk, idx, t, me)
+                else:
+                    put_scatter(blk, idx, torch.tensor(values[sel],
+                                                       device=dev), t, me,
+                                tombs=None if tombs is None
+                                else torch.tensor(tombs[sel], device=dev))
+
+    def _commit_scatter(self, slots: np.ndarray, lt: np.ndarray,
+                        vals: np.ndarray, tombs: np.ndarray) -> None:
+        self._sharded_ingest(self._store,
+                             *self._flush_lanes(slots, lt, vals, tombs),
+                             self._local_ordinal())
+
+    def _dispatch_fanin(self, cs: DenseChangeset, wall: int):
+        cs, seen, voverflow = mask_value_width(cs, self._value_width)
+        new_store, res = self._sharded_step(
+            self._store, shard_changeset(cs, self._mesh),
+            self._canonical_lt(), self._local_ordinal(), wall)
+        return new_store, res, seen, voverflow, cs
+
+    def _emit_merge_wins(self, store, win: torch.Tensor) -> None:
+        if self._hub.active:
+            super()._emit_merge_wins(gather_store(store), win)
+
+    def merge_split(self, scs, node_ids: Sequence[Any]) -> None:
+        """A pre-split changeset merged as ``merge`` merges it: the lanes
+        are widened first (the JAX sharded model's route)."""
+        scs = self._fit_split(scs)
+        self.drain_ingest()
+        _, n = _cs_shape(scs)
+        if n != self.n_slots:
+            raise ValueError(
+                f"pre-split changeset covers {n} slots but this replica "
+                f"holds {self.n_slots}; use merge() (the wide path pads "
+                "or refuses capacity mismatches)")
+        self.merge(split_to_wide(scs), node_ids)
+
+    # --- deltas out, through the shard-local delta mask ---
+
+    def _delta_mask(self, modified_since: Optional[Hlc]) -> torch.Tensor:
+        if modified_since is None:
+            return gather_lane(self._store, "occupied")
+        return sharded_delta_mask(self._mesh)(
+            self._store, modified_since.logical_time)
+
+    def _delta_rows(self, modified_since: Optional[Hlc], *names: str
+                    ) -> Tuple[np.ndarray, ...]:
+        idx = torch.nonzero(self._delta_mask(modified_since)).reshape(-1)
+        return (idx.cpu().numpy(),
+                *(gather_lane(self._store, f)[idx].cpu().numpy()
+                  for f in names))
+
+    def export_delta(self, since: Optional[Hlc] = None
+                     ) -> Tuple[DenseChangeset, List[Any]]:
+        self.drain_ingest()
+        store = gather_store(self._store)
+        valid = self._delta_mask(since)
+        return DenseChangeset(lt=store.lt[None], node=store.node[None],
+                              val=store.val[None], tomb=store.tomb[None],
+                              valid=valid[None]), self._table.ids()
+
+    def save(self, path: str) -> None:
+        from ..checkpoint import save_dense
+        save_dense(self.store, path, node_ids=self._table.ids())
+
+    # --- what waits for its base method ---
+
+    def _not_yet(self, op: str, item: str):
+        raise NotImplementedError(
+            f"ShardedDenseCrdt.{op} waits for the unsharded {op} of the port "
+            f"(ROADMAP {item}); it never runs an unsharded path on a "
+            "sharded store")
+
+    def clear(self, *args, **kwargs):
+        self._not_yet("clear", "A3")
+
+    def purge(self, *args, **kwargs):
+        self._not_yet("purge", "A3")
+
+    def grow(self, *args, **kwargs):
+        self._not_yet("grow", "A3")
+
+    def compact(self, *args, **kwargs):
+        self._not_yet("compact", "A4")
+
+    def _digest_levels(self, *args, **kwargs):
+        self._not_yet("_digest_levels", "A4")
+
+
+def sync_dense(local: DenseCrdt, remote: DenseCrdt) -> None:
+    """One anti-entropy round between two dense replicas
+    (test/map_crdt_test.dart:273-279 semantics)."""
+    time = local.canonical_time
+    cs, ids = local.export_delta()
+    remote.merge(cs, ids)
+    cs, ids = remote.export_delta(since=time)
+    local.merge(cs, ids)

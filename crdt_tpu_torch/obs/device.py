@@ -6,14 +6,18 @@ its main path went through the hand-written kernels: one plain integer
 per kernel, bumped by the kernel's wrapper where it launches (never by
 the plain torch version the wrapper takes for CPU tensors).
 ``chip_smoke.py`` zeroes the counts before it drives the main path and
-reads them after.
+reads them after. The K1 kernel is counted under two names: as
+``fanin_batch`` on the unsharded merge, and as ``fanin_batch_sharded``
+where the sharded step (`parallel.fanin`) launches it on one block, once
+per mesh position per merge.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream")
+KERNELS = ("fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream",
+           "fanin_batch_sharded")
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 

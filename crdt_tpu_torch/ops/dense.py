@@ -97,6 +97,29 @@ def check_lanes(kernel: str, lanes: Dict[str, torch.Tensor],
                 f"{lane.dtype} {tuple(lane.shape)} on {lane.device}")
 
 
+def check_rows(kernel: str, lanes: Dict[str, torch.Tensor],
+               dtypes: Dict[str, torch.dtype], shape: Tuple[int, int],
+               device: torch.device) -> int:
+    """`check_lanes` for ``[R, N]`` lanes that may be column blocks of
+    wider lanes (a key shard's block, taken in place): every row
+    contiguous, every lane at one row stride ``ld >= N``. Returns
+    ``ld``. Lanes with no rows hold nothing to read, whatever their
+    strides."""
+    r, n = shape
+    ld = next(iter(lanes.values())).stride(0) if r > 1 else n
+    for name, lane in lanes.items():
+        if lane.device != device or lane.dtype != dtypes[name] \
+                or tuple(lane.shape) != shape or ld < n \
+                or (r and n > 1 and lane.stride(1) != 1) \
+                or (r > 1 and lane.stride(0) != ld):
+            raise ValueError(
+                f"{kernel}: lane {name} must be a {dtypes[name]} tensor of "
+                f"shape {shape} on {device} with contiguous rows at one "
+                f"row stride; got {lane.dtype} {tuple(lane.shape)} strides "
+                f"{lane.stride()} on {lane.device}")
+    return ld
+
+
 def empty_dense_store(n_slots: int, device="cpu") -> DenseStore:
     return DenseStore(**{
         f: torch.zeros((n_slots,), dtype=dt, device=device)

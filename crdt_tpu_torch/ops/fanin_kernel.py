@@ -23,6 +23,10 @@ with the ``node_map`` remap and the value-width masking in the kernel:
 the port of `_model_fanin_split_jit` / `_pipelined_model_step_split_jit`.
 It never widens the lanes in memory first.
 
+The sharded step (K1p, `parallel.fanin`) launches the same kernel on
+each mesh position's block, a column block of the changeset read in
+place through its row stride, and counts it as ``fanin_batch_sharded``.
+
 Each wrapper takes the kernel for CUDA tensors and its plain version
 (`fanin_join_reference`, `fanin_split_join_reference`) for CPU
 tensors, and never falls back from one to the other.
@@ -40,7 +44,7 @@ from .. import _build
 from ..hlc import MAX_COUNTER, MAX_DRIFT, SHIFT
 from ..obs import device as _obs_device
 from .dense import (CHANGESET_DTYPES, STORE_DTYPES, _NEG, DenseChangeset,
-                    DenseStore, check_lanes, reduce_replicas)
+                    DenseStore, check_lanes, check_rows, reduce_replicas)
 from .merge import send_step
 from .split import (I16_NEG, NEG_HI, SPLIT_DTYPES, NarrowSplitChangeset,
                     flat_lanes, join64)
@@ -86,17 +90,22 @@ _VP = ctypes.c_void_p
 def _launcher():
     return _build.load("fanin_batch", "crdt_fanin_batch",
                        [_VP] * 19 + [ctypes.c_int, ctypes.c_int64,
-                                     ctypes.c_int64, _VP])
+                                     ctypes.c_int64, ctypes.c_int64, _VP])
 
 
 def _fanin_cuda(store: DenseStore, cs: DenseChangeset,
-                canonical: torch.Tensor, local_node: int) -> Join:
-    """Launch ``csrc/fanin_batch.cu`` on the current stream."""
+                canonical: torch.Tensor, local_node: int,
+                count_as: str = "fanin_batch") -> Join:
+    """Launch ``csrc/fanin_batch.cu`` on the current stream, counted
+    under ``count_as``. The changeset lanes may be a key shard's column
+    block of wider lanes (contiguous rows at one row stride), read in
+    place."""
     dev = store.lt.device
     n = store.n_slots
     r = cs.lt.shape[0]
     check_lanes("fanin_batch", store._asdict(), STORE_DTYPES, (n,), dev)
-    check_lanes("fanin_batch", cs._asdict(), CHANGESET_DTYPES, (r, n), dev)
+    ld = check_rows("fanin_batch", cs._asdict(), CHANGESET_DTYPES, (r, n),
+                    dev)
     if canonical.device != dev or canonical.dtype != torch.int64 \
             or canonical.dim() != 0:
         raise ValueError("fanin_batch: canonical must be an int64 scalar "
@@ -108,19 +117,21 @@ def _fanin_cuda(store: DenseStore, cs: DenseChangeset,
     basemax = torch.full((), _NEG, dtype=torch.int64, device=dev)
     dup = torch.zeros((), dtype=torch.int32, device=dev)
     if n:
-        rc = _launcher()(
-            store.lt.data_ptr(), store.node.data_ptr(),
-            store.val.data_ptr(), store.tomb.data_ptr(),
-            store.occupied.data_ptr(),
-            *(lane.data_ptr() for lane in cs),
-            *(o.data_ptr() for o in out),
-            basemax.data_ptr(), dup.data_ptr(), canonical.data_ptr(),
-            int(local_node), n, r,
-            torch.cuda.current_stream(dev).cuda_stream)
+        # The launch goes to the current device: make it the lanes' one.
+        with torch.cuda.device(dev):
+            rc = _launcher()(
+                store.lt.data_ptr(), store.node.data_ptr(),
+                store.val.data_ptr(), store.tomb.data_ptr(),
+                store.occupied.data_ptr(),
+                *(lane.data_ptr() for lane in cs),
+                *(o.data_ptr() for o in out),
+                basemax.data_ptr(), dup.data_ptr(), canonical.data_ptr(),
+                int(local_node), n, r, ld,
+                torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"fanin_batch kernel launch failed: CUDA "
                                f"error {rc}")
-        _obs_device.note_launch("fanin_batch")
+        _obs_device.note_launch(count_as)
     return (*out, basemax, dup != 0)
 
 
@@ -171,14 +182,11 @@ def fanin_batch_reference(store: DenseStore, cs: DenseChangeset,
                   local_node, wall_millis)
 
 
-def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
-                      canonical_lt: Scalar, local_node: int,
-                      wall_millis: int, *, value_width: int = 64):
-    """The model layer's merge step: value-width masking, the ``seen``
-    count and `fanin_batch`. With ``value_width=32`` records whose value
-    does not fit int32 are masked INVALID, never truncated, and
-    ``val_overflow`` says so. Returns ``(new_store, BatchResult, seen,
-    val_overflow)``."""
+def mask_value_width(cs: DenseChangeset, value_width: int):
+    """The model layer's checks ahead of a merge: with ``value_width=32``
+    records whose value does not fit int32 are masked INVALID, never
+    truncated, and ``val_overflow`` says so. Returns ``(cs, seen,
+    val_overflow)``, ``seen`` the valid records left."""
     if value_width == 32:
         fits = (cs.val >= -(2 ** 31)) & (cs.val < 2 ** 31)
         val_overflow = (cs.valid & ~fits).any()
@@ -186,7 +194,16 @@ def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
     else:
         val_overflow = torch.zeros((), dtype=torch.bool,
                                    device=cs.valid.device)
-    seen = cs.valid.sum()
+    return cs, cs.valid.sum(), val_overflow
+
+
+def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
+                      canonical_lt: Scalar, local_node: int,
+                      wall_millis: int, *, value_width: int = 64):
+    """The model layer's merge step: `mask_value_width` and
+    `fanin_batch`. Returns ``(new_store, BatchResult, seen,
+    val_overflow)``."""
+    cs, seen, val_overflow = mask_value_width(cs, value_width)
     new_store, res = fanin_batch(store, cs, canonical_lt, local_node,
                                  wall_millis)
     return new_store, res, seen, val_overflow
@@ -329,10 +346,11 @@ def _fanin_split_cuda(store: DenseStore, scs, node_map: torch.Tensor,
                  flags, seen]
         ptrs = (_VP * len(lanes))(*(0 if x is None else x.data_ptr()
                                     for x in lanes))
-        rc = _split_launcher()(
-            ptrs, node_map.data_ptr(), node_map.shape[0],
-            canonical.data_ptr(), int(local_node), n, r, int(narrow),
-            int(check_fit), torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):
+            rc = _split_launcher()(
+                ptrs, node_map.data_ptr(), node_map.shape[0],
+                canonical.data_ptr(), int(local_node), n, r, int(narrow),
+                int(check_fit), torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"fanin_split kernel launch failed: CUDA "
                                f"error {rc}")

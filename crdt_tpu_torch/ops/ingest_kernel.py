@@ -50,11 +50,12 @@ def _ingest_cuda(store: DenseStore, slots: torch.Tensor, lt: torch.Tensor,
                 dict(slots=slots, lt=lt, val=val, tomb=tomb),
                 _ROW_DTYPES, (rows,), dev)
     if rows:
-        rc = _launcher()(
-            *(lane.data_ptr() for lane in store),
-            slots.data_ptr(), lt.data_ptr(), val.data_ptr(),
-            tomb.data_ptr(), int(me), n, rows,
-            torch.cuda.current_stream(dev).cuda_stream)
+        with torch.cuda.device(dev):
+            rc = _launcher()(
+                *(lane.data_ptr() for lane in store),
+                slots.data_ptr(), lt.data_ptr(), val.data_ptr(),
+                tomb.data_ptr(), int(me), n, rows,
+                torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"ingest_scatter kernel launch failed: "
                                f"CUDA error {rc}")

@@ -195,11 +195,13 @@ def launch_stream(store: DenseStore, cs: DenseChangeset, out: DenseStore,
     lanes = [store.lt, store.node, store.val, store.tomb, store.mod_lt,
              store.mod_node, store.occupied, *cs, out.lt, out.node, out.val,
              out.tomb, out.mod_lt, out.mod_node, out.occupied, win, flags]
-    rc = _launcher()(
-        (_VP * len(lanes))(*(x.data_ptr() for x in lanes)),
-        canon0.data_ptr(), basemax.data_ptr(), int(local_node), thresh, n,
-        cs.lt.shape[0], n_chunks, int(exact),
-        torch.cuda.current_stream(store.lt.device).cuda_stream)
+    dev = store.lt.device
+    with torch.cuda.device(dev):
+        rc = _launcher()(
+            (_VP * len(lanes))(*(x.data_ptr() for x in lanes)),
+            canon0.data_ptr(), basemax.data_ptr(), int(local_node), thresh,
+            n, cs.lt.shape[0], n_chunks, int(exact),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"fanin_stream kernel launch failed: CUDA error "
                            f"{rc}")

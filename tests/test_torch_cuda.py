@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import crdt_tpu_torch as port
+from crdt_tpu_torch import parallel
 from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.ops import dense as td
 from crdt_tpu_torch.ops import fanin_kernel, ingest_kernel, stream_kernel
@@ -221,3 +222,80 @@ def test_split_interchange_on_card_matches_host(cuda):
     for x, y in zip(a.store, b.store):
         assert torch.equal(x.cpu(), y)
     assert str(a.canonical_time) == str(b.canonical_time)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (3, 1)])
+def test_sharded_step_matches_plain(cuda, shape):
+    """K1p on a mesh that repeats the card: every block's K1 launch and
+    the combine against the plain per-block join, bit for bit, at odd
+    shard widths, with ties across the replica-shard boundary."""
+    n, rows = 2 * 12_289, 7
+    store, cs = lanes(np.random.default_rng(sum(shape)), n, rows)
+    cs["lt"][4, ::3] = cs["lt"][0, ::3]
+    cs["node"][4, ::3] = cs["node"][0, ::3]
+    cs["valid"][[0, 4], ::3] = True
+    args = (BASE + 3, 2, 1_700_000_010_000)
+    mesh = parallel.make_fanin_mesh(*shape)
+    outs = []
+    for reference in (False, True):
+        s, c = on(cuda, store, cs)
+        obs_device.reset()
+        outs.append(parallel.make_sharded_fanin(mesh, reference=reference)(
+            parallel.shard_store(s, mesh), parallel.shard_changeset(c, mesh),
+            *args))
+        assert obs_device.launches()["fanin_batch_sharded"] == \
+            (0 if reference else shape[0] * shape[1])
+    (k_store, k_res), (p_store, p_res) = outs
+    for k_row, p_row in zip(k_store.blocks, p_store.blocks):
+        for a, b in zip(k_row, p_row):
+            assert a.lt.is_cuda
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+    for x, y in zip(k_res, p_res):
+        assert torch.equal(x, y)
+    u_store, u_res = fanin_kernel.fanin_batch(*on(cuda, store, cs), *args)
+    for x, y in zip(parallel.gather_store(k_store), u_store):
+        assert torch.equal(x, y)
+    assert torch.equal(k_res.win, u_res.win)
+
+
+def test_sharded_dense_crdt_on_card_matches_host(cuda):
+    """The same op script on a sharded card replica (K1p, K2 per shard
+    and copy) and on a host one: identical lanes, clocks, JSON and the
+    same duplicate-node raise."""
+    results = []
+    for devices in (None, ["cpu"] * 4):
+        mesh = parallel.make_fanin_mesh(2, 2, devices)
+        tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
+        c = port.ShardedDenseCrdt("n1", 6002, mesh,
+                                  wall_clock=tick.__next__)
+        assert c.device.type == ("cuda" if devices is None else "cpu")
+        rng = np.random.default_rng(5)
+        obs_device.reset()
+        with c.ingest(auto_flush_rows=100):
+            for _ in range(3):
+                c.put_batch(rng.choice(6002, 60, replace=False),
+                            rng.integers(0, 1 << 40, 60))
+        _, cs = lanes(rng, 6002, 5)
+        cs["lt"] += 50 << 16
+        ids = ["n0", "n2", "n3", "n4"]
+        with c.pipelined():
+            c.merge(td.DenseChangeset(**{k: torch.tensor(v)
+                                         for k, v in cs.items()}), ids)
+        c.merge(*c.export_delta())
+        dup = td.DenseChangeset(*(torch.zeros((1, 6002), dtype=dt)
+                                  for dt in td.CHANGESET_DTYPES.values()))
+        dup.valid[0, 9] = True
+        dup.lt[0, 9] = c.canonical_time.logical_time + (1000 << 16)
+        with pytest.raises(port.DuplicateNodeException):
+            with c.pipelined(exact_guards=True):
+                c.merge(dup, ["n1"])
+        if devices is None:
+            assert obs_device.launches()["fanin_batch_sharded"] == 3 * 4
+            assert obs_device.launches()["ingest_scatter"] == 2 * 4
+        results.append(c)
+    a, b = results
+    for x, y in zip(a.store, b.store):
+        assert torch.equal(x.cpu(), y)
+    assert str(a.canonical_time) == str(b.canonical_time)
+    assert a.to_json() == b.to_json()

@@ -269,4 +269,5 @@ def test_cpu_wrapper_launches_no_kernel():
     tk.fanin_batch(td.store_from_numpy(store), torch_cs(cs), canonical,
                    LOCAL, WALL)
     assert obs_device.launches() == {"fanin_batch": 0, "ingest_scatter": 0,
-                                     "fanin_split": 0, "fanin_stream": 0}
+                                     "fanin_split": 0, "fanin_stream": 0,
+                                     "fanin_batch_sharded": 0}

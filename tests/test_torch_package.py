@@ -49,6 +49,11 @@ def test_default_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         port.DenseCrdt("n0", 16)
     assert port.DenseCrdt("n0", 16, device="cpu").device.type == "cpu"
+    # A mesh takes the cards unless it is given devices.
+    with pytest.raises(RuntimeError, match=r"devices=\['cpu'\] \* 4"):
+        port.parallel.make_fanin_mesh(2, 2)
+    mesh = port.parallel.make_fanin_mesh(2, 2, devices=["cpu"] * 4)
+    assert port.ShardedDenseCrdt("n0", 16, mesh).device.type == "cpu"
 
 
 def test_any_slot_count_works():
@@ -154,6 +159,26 @@ def test_load_refuses_lane_only_snapshot(tmp_path):
         port.DenseCrdt.load("n0", path, device="cpu")
 
 
+def test_row_stride_check_takes_column_blocks():
+    """The K1 wrapper's lane check: a key shard's column block of wider
+    lanes passes with its row stride, lanes with no rows pass whatever
+    their strides, and column-major or mixed strides are refused."""
+    lanes = dict(lt=torch.zeros((6, 40), dtype=torch.int64),
+                 valid=torch.zeros((6, 40), dtype=torch.bool))
+    dtypes = {"lt": torch.int64, "valid": torch.bool}
+    block = {f: x[2:5, 8:24] for f, x in lanes.items()}
+    assert td.check_rows("k", block, dtypes, (3, 16), torch.device("cpu")) \
+        == 40
+    empty = {f: torch.empty((0, 16), dtype=dt).as_strided((0, 16), (0, 0))
+             for f, dt in dtypes.items()}
+    assert td.check_rows("k", empty, dtypes, (0, 16), torch.device("cpu")) \
+        == 16
+    for bad in ({**block, "lt": lanes["lt"].t().contiguous().t()[2:5, :16]},
+                {**block, "valid": block["valid"].contiguous()}):
+        with pytest.raises(ValueError, match="contiguous rows"):
+            td.check_rows("k", bad, dtypes, (3, 16), torch.device("cpu"))
+
+
 def test_written_store_handed_out_stays_unchanged():
     """A store read through `store` is not written in place later."""
     c = port.DenseCrdt("n0", 8, device="cpu", wall_clock=FakeClock())
@@ -211,17 +236,21 @@ def test_launch_counters_and_build_paths():
         assert path.parent == _build.BUILD_DIR
         assert path == _build.library_path(name)   # stable tag
         assert (_build.CSRC / f"{name}.cu").exists()
-    assert set(_build.SOURCES) == set(obs_device.KERNELS) == {
+    # One source per kernel; K1 is counted apart where the sharded step
+    # launches it on a block.
+    assert set(_build.SOURCES) == {
         "fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream"}
+    assert set(obs_device.KERNELS) == set(_build.SOURCES) | {
+        "fanin_batch_sharded"}
     # The AST import check above covers every module of the port.
-    assert {"split.py", "stream_kernel.py", "fanin_kernel.py"} <= {
-        p.name for p in PORT_FILES}
+    assert {"split.py", "stream_kernel.py", "fanin_kernel.py",
+            "fanin.py"} <= {p.name for p in PORT_FILES}
 
 
 def test_cpu_wrappers_of_every_kernel_launch_nothing():
     """On CPU tensors every path — ingest, merge, merge_split in each
-    window, the stream replay — takes the plain versions: no launch
-    counter moves."""
+    window, the stream replay, the sharded model on a CPU mesh — takes
+    the plain versions: no launch counter moves."""
     from crdt_tpu_torch.ops import stream_kernel
     obs_device.reset()
     c = port.DenseCrdt("n0", 64, device="cpu", wall_clock=FakeClock())
@@ -237,6 +266,15 @@ def test_cpu_wrappers_of_every_kernel_launch_nothing():
     _, res = stream_kernel.fanin_stream(
         c.store, td.store_to_changeset(c.store), 0, 1, 1_700_000_000_000,
         n_chunks=3)
+    s = port.ShardedDenseCrdt(
+        "n2", 64, port.parallel.make_fanin_mesh(2, 2, devices=["cpu"] * 4),
+        wall_clock=FakeClock())
+    with s.ingest():
+        s.put_batch([2, 40], [20, 400])
+    s.merge(*c.export_delta())
+    with s.pipelined():
+        s.merge_split(scs, ids)
     assert obs_device.launches() == dict.fromkeys(obs_device.KERNELS, 0)
+    assert (s.get(1), s.get(2), s.get(40)) == (10, 20, 400)
     # From chunk 1 on the replayed records beat their own store slots.
     assert d.get(5) == 50 and int(res.win.sum()) == 3
