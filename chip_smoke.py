@@ -18,7 +18,12 @@ Phases, in order; any failure raises and exits non-zero:
    chunks in both guard modes, with planted dup and drift records and
    one that only the fast flags raise; the sharded step (K1p) on a
    (replica=2, key=2) mesh at 2^20 x 128, against its plain version and
-   the unsharded merge, with ties across the replica-shard boundary.
+   the unsharded merge, with ties across the replica-shard boundary;
+   the kernel probes of ``benchmarks/probe_kernel.py`` at its CLI
+   shapes, with ties, malformed sentinels, stale store records and
+   sums that wrap int32 and int16: the join (P1a), the copy (P1b) and
+   the guardless stream replay (P1c) at 2^20 x 8 rows (128 chunks),
+   the batch copy (P2) at 2^20 x 128 rows, wide and value-ref.
    Timed from replayed CUDA graphs beside the plain version and the
    bound (K1p: its four block launches, and the combine apart).
 3. The paths at full size through the public API, each with the launch
@@ -44,7 +49,15 @@ Phases, in order; any failure raises and exits non-zero:
      raises ``DuplicateNodeException`` and a 4,096-row delta out, held
      against the unsharded ``DenseCrdt`` given the same ops (lanes,
      clock, delta bytes, exception) with every replica copy equal; then
-     the (1, 1) and multislice (2, 1, 2) meshes at 2^16 slots.
+     the (1, 1) and multislice (2, 1, 2) meshes at 2^16 slots;
+   - path D, the probe entry point (``crdt_tpu_torch.bench``) at the JAX
+     CLI's defaults: its seven variants (``full``, ``stream``,
+     ``stream-noguard``, ``nojoin``, ``copy``, ``copy-batch``,
+     ``copy-batch-valref``), the distinct row (wide and value-ref, 2^20
+     x 128, 48 loops) and the stream row (2^20 x 8 x 128 chunks, 64
+     calls); then P2 and K1 timed in turns and ``copy_`` of P2's lanes:
+     P2's achieved rate is the measured copy rate, and each fan-in
+     kernel's counted bytes over it give its time at that rate.
 4. A JSON line per measurement, the ``kernels`` line, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -67,10 +80,14 @@ from crdt_tpu_torch import (DenseCrdt, DuplicateNodeException, Hlc,
                             ShardedDenseCrdt, _build, parallel)
 from crdt_tpu_torch.hlc import MAX_DRIFT, SHIFT
 from crdt_tpu_torch.obs import device as obs_device
-from crdt_tpu_torch.ops import fanin_kernel, ingest_kernel, stream_kernel
-from crdt_tpu_torch.ops.split import (NEG_HI, NarrowSplitChangeset,
+from crdt_tpu_torch.bench import fanin as bench_fanin
+from crdt_tpu_torch.bench import probe_kernel as bench_probe
+from crdt_tpu_torch.ops import (fanin_kernel, ingest_kernel, probe,
+                                stream_kernel)
+from crdt_tpu_torch.ops.split import (NEG_HI, NarrowSplitChangeset, join64,
                                       split_changeset,
-                                      split_changeset_narrow, split_to_wide)
+                                      split_changeset_narrow, split_store,
+                                      split_to_wide)
 from crdt_tpu_torch.ops.dense import (_I32_NEG, _NEG, CHANGESET_DTYPES,
                                       DenseChangeset, DenseStore,
                                       dense_delta_mask, empty_dense_store,
@@ -692,6 +709,188 @@ def stream_traffic(store: DenseStore, cs: DenseChangeset,
             + sector_bytes(~win, 32) + n * (8 + 4 + 8 + 1 + 8 + 4 + 1 + 1))
 
 
+# --- phase 2: the kernel probes (P1, P2) ------------------------------
+
+PROBE_ROWS = 8                   # the probe CLI's --chunk
+PROBE_CHUNKS = 128               # --replicas 1024 // --chunk 8
+BATCH_ROWS = 128                 # the probe CLI's --rows
+OUT_BYTES = 40                   # the ten int32 output words of a slot
+
+
+def probe_inputs(rows: int, seed: int, narrow: bool = False):
+    """A split store and ``[rows, 2^20]`` split lanes at a probe's CLI
+    shape, from the wide generators above, with the ties of
+    `plant_ties`, malformed sentinels (hi = NEG_HI, lo != 0) in the last
+    row, whole-range ``hi`` words every 97th slot and node words near
+    int16's top every 89th (so the sums wrap), and stale store records
+    (node 0, every 10th slot from 2) just over 1 ms above their column's
+    max key, which chunks 0-1 of a replay lose to and chunk 2 beats."""
+    wide = make_store(N_SLOTS, seed)
+    cs = make_changeset(rows, N_SLOTS, seed + 1)
+    plant_ties(wide, cs)
+    store = split_store(wide)
+    scs = (split_changeset_narrow(cs._replace(val=cs.val >> 33))[0]
+           if narrow else split_changeset(cs))
+    del cs
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 2)
+    scs.hi[:, ::97] = torch.randint(-2 ** 31, 2 ** 31, scs.hi[:, ::97].shape,
+                                    generator=g, device="cuda",
+                                    dtype=torch.int32)
+    scs.node[:, ::89] = 30_000 + (scs.node[:, ::89] & 0xFF)
+    bad = torch.zeros_like(scs.hi, dtype=torch.bool)
+    bad[rows - 1, ::4099] = True
+    scs = scs._replace(hi=torch.where(bad, NEG_HI, scs.hi),
+                       lo=torch.where(bad, 9, scs.lo.long()
+                                      ).to(torch.uint32))
+    key = join64(scs.hi, scs.lo)
+    top = key.amax(0)
+    stale = torch.zeros_like(wide.occupied)
+    stale[2::10] = True
+    stale &= (scs.hi != NEG_HI).all(0) & (top < 2 ** 62)
+    top += (1 << SHIFT) + 5
+    store = store._replace(
+        hi=torch.where(stale, (top >> 32).to(torch.int32), store.hi),
+        lo=torch.where(stale, top & 0xFFFFFFFF, store.lo.long()
+                       ).to(torch.uint32),
+        node=torch.where(stale, 0, store.node))
+    return store, scs, stale
+
+
+def probe_traffic(scs, win: torch.Tensor) -> int:
+    """Bytes a probe join must move on these inputs, in 32-B sectors, as
+    `split_traffic` counts them with no node map: hi/lo/node of every
+    entry (10 B), val_hi/val_lo/tomb only of the entry that wins its
+    slot, the store's hi/lo/node, its other six words where it keeps
+    the slot, and the ten outputs once."""
+    r, n = scs.hi.shape
+    key = join64(scs.hi, scs.lo)
+    final = winner_rows(key, scs.node.to(torch.int32),
+                        torch.ones_like(win).expand(r, n), win)
+    return (r * n * 10 + 2 * sector_bytes(final, 8) + sector_bytes(final, 32)
+            + n * 12 + 6 * sector_bytes(~win, 8) + n * OUT_BYTES)
+
+
+def entry_bytes(scs) -> int:
+    return sum(lane.element_size() for lane in scs)
+
+
+def bound_fields(moved: int, ops: int) -> dict:
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / OPS_PER_S * 1e3
+    return dict(bytes_moved=moved, bytes_ms=bytes_ms, ops=ops, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def wraps(total: torch.Tensor, bits: int) -> bool:
+    """Whether some exact sum leaves the signed ``bits``-bit range."""
+    return bool(((total < -2 ** (bits - 1)) | (total >= 2 ** (bits - 1)))
+                .any())
+
+
+PROBE_SITES = {"probe_join": "benchmarks/probe_kernel.py:42",
+               "probe_copy": "benchmarks/probe_kernel.py:82",
+               "probe_stream_noguard": "benchmarks/probe_kernel.py:107",
+               "probe_copy_batch": "benchmarks/probe_kernel.py:278"}
+
+
+def time_probe(name: str, launch, plain, err: int, moved: int, ops: int,
+               **extra) -> dict:
+    """A probe's record: device time from a replayed graph of 20
+    launches, the plain version's time and the bound."""
+    runs = graph_ms(launch, iters=20)
+    return dict(
+        name=name, route="cuda", source=f"crdt_tpu_torch/csrc/{name}.cu",
+        replaces=PROBE_SITES[name], max_abs_err=err,
+        ms=float(np.median(runs)), plain_ms=cuda_ms(plain, iters=2,
+                                                    warmup=1),
+        library_ms=None, ms_runs=runs, **bound_fields(moved, ops), **extra)
+
+
+def check_probe(name: str, k, p) -> int:
+    torch.cuda.synchronize()
+    err = max_abs_err(list(k[0]) + [k[1]], list(p[0]) + [p[1]])
+    check(err == 0, f"{name} kernel != plain version (max |err| {err})")
+    return err
+
+
+def kernel_probes(results: dict) -> None:
+    """P1a, P1b and P1c at the probe CLI's shape (2^20 x 8 rows, 128
+    chunks) and P2 at its batch shape (2^20 x 128 rows in groups of 16,
+    wide and value-ref), each against its plain version bit for bit."""
+    canonical = (MILLIS + 500) << SHIFT
+    scalars = probe.probe_scalars(canonical, 3,
+                                  canonical + (0x7ABC << SHIFT) + 0xFFFF)
+    store, scs, stale = probe_inputs(PROBE_ROWS, 50)
+    r, n = scs.hi.shape
+    # Per entry, as int32 instructions: the lex compare (hi >, hi ==,
+    # lo >, lo ==, node > and their combination: 8) and the selects of
+    # hi, lo, node and row (4); the stream probe adds the offset add and
+    # its carry (3) and, as K3's bound, needs one pass over the rows, not
+    # one per chunk. Per slot: loads, the stamp selects and stores (12).
+    # The copy: two adds per entry, ten per slot.
+    per_entry = dict(probe_join=12, probe_copy=2, probe_stream_noguard=15)
+    for name, args in (("probe_join", (scalars,)),
+                       ("probe_copy", (scalars,)),
+                       ("probe_stream_noguard", (scalars, PROBE_CHUNKS))):
+        fn = getattr(probe, name)
+        plain = getattr(probe, f"{name}_reference")
+        k = fn(store, scs, *args)
+        err = check_probe(name, k, plain(store, scs, *args))
+        win = k[1] != 0
+        extra = dict(shape=[r, n])
+        if name == "probe_copy":
+            check(wraps(scs.hi.long().sum(0) + store.hi, 32),
+                  "probe_copy: no int32 hi sum wrapped")
+            moved = n * (r * 8 + 11 + 36 + OUT_BYTES)
+        else:
+            check(bool(win.any()) and not bool(win.all()),
+                  f"{name}: degenerate win mask")
+            moved = probe_traffic(scs, win)
+        if name == "probe_join":
+            check(not bool(win[stale].any()),
+                  "probe_join: a stale store record lost")
+        if name == "probe_stream_noguard":
+            check(bool(stale.any()) and bool(win[stale].all()) and bool(
+                (k[0].mod_hi[stale] == scalars[5]).all()),
+                  "probe_stream_noguard: stale store records were not "
+                  "beaten by a later chunk")
+            extra.update(n_chunks=PROBE_CHUNKS, ops_kernel=(
+                r * n * per_entry[name] * PROBE_CHUNKS + n * 12))
+        results[name] = time_probe(
+            name, lambda: fn(store, scs, *args),
+            lambda: plain(store, scs, *args), err, moved,
+            r * n * per_entry[name] + n * 12, **extra)
+        print(f"  {name} [{r}, {n}]: bit-exact, {results[name]['ms']:.4f} ms")
+    del store, scs
+    forms = {}
+    for form in ("wide", "valref"):
+        store, scs, _ = probe_inputs(BATCH_ROWS, 60, narrow=form == "valref")
+        r, n = scs.hi.shape
+        err = check_probe(f"probe_copy_batch ({form})",
+                          probe.probe_copy_batch(store, scs),
+                          probe.probe_copy_batch_reference(store, scs))
+        check(wraps(scs.node.long().reshape(
+            r // probe.CHUNK_ROWS, probe.CHUNK_ROWS, n).sum(1), 16),
+              "probe_copy_batch: no int16 node sum wrapped")
+        moved = n * (r * entry_bytes(scs) + 36 + OUT_BYTES)
+        # Per entry one add per lane (5 or 6) and the tomb widening.
+        forms[form] = time_probe(
+            "probe_copy_batch", lambda: probe.probe_copy_batch(store, scs),
+            lambda: probe.probe_copy_batch_reference(store, scs), err,
+            moved, r * n * (len(scs) + 1) + n * 12, shape=[r, n],
+            chunk_rows=probe.CHUNK_ROWS)
+        forms[form]["bytes_per_s"] = moved / forms[form]["ms"] * 1e3
+        print(f"  probe_copy_batch {form} [{r}, {n}]: bit-exact, "
+              f"{forms[form]['ms']:.4f} ms")
+        del store, scs
+    results["probe_copy_batch"] = dict(
+        forms["wide"], max_abs_err=max(d["max_abs_err"]
+                                       for d in forms.values()),
+        forms=forms)
+
+
 # --- phase 3: the main path ------------------------------------------
 
 
@@ -1161,6 +1360,101 @@ def path_c(card: str) -> dict:
     return dict(card=card, launches=head["launches"], runs=runs)
 
 
+# Path D: the probe entry point and the fan-in rows at the JAX CLI's
+# defaults, then the copy rate they are read against.
+LOOPS = 48                       # the probe CLI's --loops
+STREAM_REPEATS = 64              # bench.py's --repeats
+
+
+def path_d(card: str, results: dict) -> dict:
+    """Every variant of ``python -m crdt_tpu_torch.bench.probe_kernel``
+    at its defaults (2^20 keys, 1024 replicas in chunks of 8; 128 rows,
+    48 loops), the distinct row wide and value-ref and the stream row
+    (`bench.fanin`), counted; then P2 and K1 timed in turns from replayed
+    graphs and ``copy_`` of P2's lanes: P2's achieved rate is the
+    measured copy rate, and each fan-in kernel's counted bytes over it
+    its time at that rate."""
+    replicas = PROBE_ROWS * PROBE_CHUNKS
+    torch.cuda.synchronize()
+    obs_device.reset()
+    variants = [bench_probe.run_variant(v, N_SLOTS, replicas, PROBE_ROWS)
+                for v in bench_probe.VARIANTS]
+    batch = [bench_probe.run_batch_copy(N_SLOTS, BATCH_ROWS, loops=LOOPS,
+                                        value_width=w) for w in (64, 32)]
+    distinct = [bench_fanin.bench_distinct(N_SLOTS, BATCH_ROWS, loops=LOOPS,
+                                           value_width=w) for w in (64, 32)]
+    stream = bench_fanin.bench(N_SLOTS, replicas, PROBE_ROWS,
+                               repeats=STREAM_REPEATS)
+    torch.cuda.synchronize()
+    launches = obs_device.launches()
+    runs = 1 + 3                 # each probe variant: warm-up + repeats
+    want = dict(probe_join=runs * PROBE_CHUNKS, probe_copy=runs * PROBE_CHUNKS,
+                probe_stream_noguard=runs,
+                probe_copy_batch=2 * runs * LOOPS,
+                fanin_split=2 * (1 + LOOPS),
+                fanin_stream=runs * (PROBE_CHUNKS + 1) + 1 + STREAM_REPEATS)
+    check(all(launches[k] == v for k, v in want.items()),
+          f"path D: launches {launches}, expected {want}")
+    check(all(d["merges"] > 0 for d in distinct) and stream["merges"] > 0,
+          "path D: a row counted no merges")
+
+    store, scs, _ = probe_inputs(BATCH_ROWS, 60)
+    wstore = make_store(N_SLOTS, 1)
+    wcs = make_changeset(ROWS_PER_PASS, N_SLOTS, 2)
+    plant_ties(wstore, wcs)
+    canonical = torch.tensor((MILLIS + 500) << SHIFT, device="cuda")
+    p2_runs, k1_runs = [], []
+    for _ in range(2):                       # P2, K1, P2, K1
+        p2_runs += graph_ms(lambda: probe.probe_copy_batch(store, scs),
+                            iters=20)
+        k1_runs += graph_ms(lambda: fanin_kernel._fanin_cuda(
+            wstore, wcs, canonical, 3), iters=20)
+    del wstore, wcs
+    dst = type(scs)(*(torch.empty_like(x) for x in scs))
+    copy_runs = graph_ms(lambda: [d.copy_(s) for d, s in zip(dst, scs)],
+                         iters=20)
+    r, n = scs.hi.shape
+    copy_bytes = 2 * entry_bytes(scs) * r * n
+    p2_bytes = results["probe_copy_batch"]["bytes_moved"]
+    p2_ms = float(np.median(p2_runs))
+    rate = p2_bytes / p2_ms * 1e3
+    copy_ms = float(np.median(copy_runs))
+    counted = (("fanin_batch", results["fanin_batch"]),
+               ("fanin_split", results["fanin_split"]["forms"]["wide"]),
+               ("fanin_split_narrow",
+                results["fanin_split"]["forms"]["narrow"]),
+               ("fanin_stream", results["fanin_stream"]["guards"]["fast"]),
+               ("fanin_batch_sharded", results["fanin_batch_sharded"]),
+               ("ingest_scatter", results["ingest_scatter"]),
+               ("probe_join", results["probe_join"]),
+               ("probe_copy", results["probe_copy"]),
+               ("probe_stream_noguard", results["probe_stream_noguard"]),
+               ("probe_copy_batch_valref",
+                results["probe_copy_batch"]["forms"]["valref"]))
+    at_rate = {}
+    for name, row in counted:
+        ms_at = row["bytes_moved"] / rate * 1e3
+        at_rate[name] = dict(bytes_moved=row["bytes_moved"], ms=row["ms"],
+                             bound_ms=row["bound_ms"],
+                             ms_at_measured_rate=ms_at,
+                             share_of_measured=ms_at / row["ms"])
+    del store, scs, dst
+    return dict(
+        card=card, variants=variants, batch_copy=batch, distinct=distinct,
+        stream=stream, launches=launches,
+        p2=dict(bytes_moved=p2_bytes, ms=p2_ms, ms_runs=p2_runs,
+                bytes_per_s=rate, tb_per_s=rate / 1e12,
+                share_of_data_sheet=rate / HBM_BYTES_PER_S),
+        k1_again=dict(ms=float(np.median(k1_runs)), ms_runs=k1_runs,
+                      phase2_ms=results["fanin_batch"]["ms"]),
+        copy_rate=dict(bytes_moved=copy_bytes, ms=copy_ms,
+                       ms_runs=copy_runs,
+                       bytes_per_s=copy_bytes / copy_ms * 1e3,
+                       tb_per_s=copy_bytes / copy_ms / 1e9,
+                       lanes="the P2 wide lanes, dst.copy_(src) each"),
+        at_measured_rate=at_rate)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
@@ -1186,8 +1480,9 @@ def main() -> int:
     kernel_split(results)
     kernel_stream(results)
     kernel_fanin_sharded(results)
-    print("phase 2: all five kernels equal their plain versions on the "
-          "card")
+    kernel_probes(results)
+    print(f"phase 2: all {len(obs_device.KERNELS)} kernels equal their "
+          f"plain versions on the card")
     guard_path()
     path = main_path(card)
     print("phase 3: main path equals the plain fold; deltas match")
@@ -1203,11 +1498,19 @@ def main() -> int:
     print("phase 3: path C (ShardedDenseCrdt on (2, 2), (1, 1) and "
           "(2, 1, 2) meshes) equals the unsharded model; replica copies "
           "equal")
+    probes = path_d(card, results)
+    print(f"phase 3: path D (the probe entry point's seven variants, the "
+          f"distinct and stream rows) ran; P2 "
+          f"{probes['p2']['tb_per_s']:.4f} TB/s, copy_ "
+          f"{probes['copy_rate']['tb_per_s']:.4f} TB/s")
     # Each kernel's launches on the path it serves.
     for name, counts in (("fanin_batch", path), ("ingest_scatter", path),
                          ("fanin_split", interchange),
                          ("fanin_stream", stream),
-                         ("fanin_batch_sharded", sharded)):
+                         ("fanin_batch_sharded", sharded),
+                         ("probe_join", probes), ("probe_copy", probes),
+                         ("probe_stream_noguard", probes),
+                         ("probe_copy_batch", probes)):
         results[name]["launches"] = counts["launches"][name]
 
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1217,6 +1520,7 @@ def main() -> int:
                            for n in obs_device.KERNELS]}
     record = dict(card=card, build_s=build_s, main_path=path,
                   path_a=interchange, path_b=stream, path_c=sharded,
+                  path_d=probes,
                   kernel_detail=results, torch=torch.__version__,
                   held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -1226,6 +1530,7 @@ def main() -> int:
     print(json.dumps({"path_a": interchange}))
     print(json.dumps({"path_b": stream}))
     print(json.dumps({"path_c": sharded}))
+    print(json.dumps({"path_d": probes}))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,9 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream")
+SOURCES = ("fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream",
+           "probe_join", "probe_copy", "probe_stream_noguard",
+           "probe_copy_batch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

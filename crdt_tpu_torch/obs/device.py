@@ -9,7 +9,8 @@ the plain torch version the wrapper takes for CPU tensors).
 reads them after. The K1 kernel is counted under two names: as
 ``fanin_batch`` on the unsharded merge, and as ``fanin_batch_sharded``
 where the sharded step (`parallel.fanin`) launches it on one block, once
-per mesh position per merge.
+per mesh position per merge. The four kernel probes (`ops.probe`) count
+under their source names.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from __future__ import annotations
 from typing import Dict
 
 KERNELS = ("fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream",
-           "fanin_batch_sharded")
+           "fanin_batch_sharded", "probe_join", "probe_copy",
+           "probe_stream_noguard", "probe_copy_batch")
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 

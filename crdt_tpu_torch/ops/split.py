@@ -12,7 +12,9 @@ same arrays:
 - `SplitChangeset`: ``hi`` int32, ``lo`` uint32, ``node`` int16,
   ``val_hi`` int32, ``val_lo`` uint32, ``tomb`` int8;
 - `NarrowSplitChangeset` (value-ref mode, ``value_width=32``): one
-  int32 ``val`` lane, sign-extended into the 64-bit payload.
+  int32 ``val`` lane, sign-extended into the 64-bit payload;
+- `SplitStore`: the store in the same words (``tomb`` as int32), the
+  form the kernel probes (`ops.probe`) read and write.
 
 There is no valid lane: an invalid entry is the sentinel ``hi ==
 NEG_HI`` (with ``lo == 0``, ``node == I16_NEG``). Lanes are ``[R, N]``
@@ -29,7 +31,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .dense import _NEG, DenseChangeset
+from .dense import _NEG, DenseChangeset, DenseStore
 
 # Sentinel words of _NEG = -(2**62): anything real compares greater.
 NEG_HI = _NEG >> 32
@@ -67,6 +69,25 @@ class NarrowSplitChangeset(NamedTuple):
     tomb: torch.Tensor  # int8
 
 
+class SplitStore(NamedTuple):
+    """`DenseStore` with its 64-bit lanes split into 32-bit words.
+    Slot empty iff ``hi == NEG_HI``."""
+    hi: torch.Tensor        # int32 lt >> 32 (NEG_HI = empty)
+    lo: torch.Tensor        # uint32 lt & 0xFFFFFFFF
+    node: torch.Tensor      # int32
+    val_hi: torch.Tensor    # int32
+    val_lo: torch.Tensor    # uint32
+    tomb: torch.Tensor      # int32 0/1
+    mod_hi: torch.Tensor    # int32
+    mod_lo: torch.Tensor    # uint32
+    mod_node: torch.Tensor  # int32
+
+
+SPLIT_STORE_DTYPES = {
+    "hi": torch.int32, "lo": torch.uint32, "node": torch.int32,
+    "val_hi": torch.int32, "val_lo": torch.uint32, "tomb": torch.int32,
+    "mod_hi": torch.int32, "mod_lo": torch.uint32, "mod_node": torch.int32}
+
 SPLIT_DTYPES = {"hi": torch.int32, "lo": torch.uint32, "node": torch.int16,
                 "val_hi": torch.int32, "val_lo": torch.uint32,
                 "val": torch.int32, "tomb": torch.int8}
@@ -79,6 +100,27 @@ def _split64(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def join64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """``(hi << 32) | lo`` as int64 (``lo`` widened first)."""
     return (hi.long() << 32) | lo.long()
+
+
+def split_store(store: DenseStore) -> SplitStore:
+    """Wide store -> split words; an unoccupied slot's key becomes the
+    sentinel ``_NEG``."""
+    hi, lo = _split64(torch.where(store.occupied, store.lt, _NEG))
+    val_hi, val_lo = _split64(store.val)
+    mod_hi, mod_lo = _split64(store.mod_lt)
+    return SplitStore(hi=hi, lo=lo, node=store.node, val_hi=val_hi,
+                      val_lo=val_lo, tomb=store.tomb.to(torch.int32),
+                      mod_hi=mod_hi, mod_lo=mod_lo, mod_node=store.mod_node)
+
+
+def join_store(s: SplitStore) -> DenseStore:
+    """The inverse of `split_store`: a slot is occupied iff ``hi !=
+    NEG_HI``, and an empty slot's lt reads 0."""
+    occupied = s.hi != NEG_HI
+    return DenseStore(
+        lt=torch.where(occupied, join64(s.hi, s.lo), 0), node=s.node,
+        val=join64(s.val_hi, s.val_lo), mod_lt=join64(s.mod_hi, s.mod_lo),
+        mod_node=s.mod_node, occupied=occupied, tomb=s.tomb.bool())
 
 
 def split_changeset(cs: DenseChangeset) -> SplitChangeset:

@@ -18,7 +18,8 @@ import crdt_tpu_torch as port
 from crdt_tpu_torch import parallel
 from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.ops import dense as td
-from crdt_tpu_torch.ops import fanin_kernel, ingest_kernel, stream_kernel
+from crdt_tpu_torch.ops import (fanin_kernel, ingest_kernel, probe,
+                                stream_kernel)
 from crdt_tpu_torch.ops import split as ts
 
 pytestmark = pytest.mark.cuda
@@ -299,3 +300,86 @@ def test_sharded_dense_crdt_on_card_matches_host(cuda):
         assert torch.equal(x.cpu(), y)
     assert str(a.canonical_time) == str(b.canonical_time)
     assert a.to_json() == b.to_json()
+
+
+def probe_lanes(rng, n, rows, narrow=False):
+    """Split lanes and a split store for the probes: close keys (ties),
+    planted row ties, invalid and malformed sentinels, carrying ``lo``
+    words, whole-range ``hi`` words and node words near int16's top (so
+    the sums wrap), int8 tombs of both signs."""
+    hi = ((BASE >> 32) + rng.integers(0, 3, (rows, n))).astype(np.int32)
+    hi[:, ::3] = rng.integers(-2 ** 31, 2 ** 31, (rows, len(hi[0, ::3])))
+    lo = rng.choice(np.array([0, 1 << 16, 0xFFFF0000, 0xFFFFFFFF],
+                             np.uint32), (rows, n))
+    node = rng.integers(1, 9, (rows, n)).astype(np.int16)
+    node[:, ::4] = rng.integers(30_000, 2 ** 15, (rows, len(node[0, ::4])))
+    if rows > 1:
+        for a in (hi, lo, node):
+            a[1, ::7] = a[0, ::7]
+    invalid = rng.random((rows, n)) < 0.2
+    hi[invalid], lo[invalid], node[invalid] = ts.NEG_HI, 0, ts.I16_NEG
+    hi[-1, 11::41], lo[-1, 11::41] = ts.NEG_HI, 9
+    vhi = rng.integers(-2 ** 31, 2 ** 31, (rows, n)).astype(np.int32)
+    tomb = rng.integers(-128, 128, (rows, n)).astype(np.int8)
+    if narrow:
+        cs = ts.NarrowSplitChangeset(hi, lo, node, vhi, tomb)
+    else:
+        cs = ts.SplitChangeset(hi, lo, node, vhi, rng.integers(
+            0, 2 ** 32, (rows, n)).astype(np.uint32), tomb)
+    st = {f: rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+          for f in ts.SplitStore._fields}
+    for f in ("lo", "val_lo", "mod_lo"):
+        st[f] = st[f].view(np.uint32)
+    empty = rng.random(n) < 0.3
+    st["hi"][empty], st["lo"][empty] = ts.NEG_HI, 0
+    st["hi"][::10], st["lo"][::10] = hi[0, ::10], lo[0, ::10]
+    st["node"][::10] = node[0, ::10]
+    return ts.SplitStore(**st), cs
+
+
+def probe_on(device, st, cs):
+    return (type(st)(*(torch.tensor(x, device=device) for x in st)),
+            type(cs)(*(torch.tensor(x, device=device) for x in cs)))
+
+
+SCALARS = probe.probe_scalars(BASE + (5 << 16), 3, BASE + (9 << 16) + 0xFFFF)
+
+
+@pytest.mark.parametrize("name,n,rows,n_chunks", [
+    ("probe_join", 5000, 3, None), ("probe_join", 257, 1, None),
+    ("probe_join", 40_001, 9, None), ("probe_copy", 5000, 3, None),
+    ("probe_copy", 257, 1, None), ("probe_copy", 40_001, 9, None),
+    ("probe_stream_noguard", 5000, 3, 5),
+    ("probe_stream_noguard", 257, 1, 1),
+    ("probe_stream_noguard", 40_001, 9, 3)])
+def test_probe_kernels_match_plain(cuda, name, n, rows, n_chunks):
+    """P1a, P1b and P1c at odd n (not a multiple of the block or of the
+    TPU tile) and odd row counts; 9 rows take the stream probe past its
+    register-held column."""
+    st, cs = probe_lanes(np.random.default_rng(n + rows), n, rows)
+    fn = getattr(probe, name)
+    args = (SCALARS,) if n_chunks is None else (SCALARS, n_chunks)
+    obs_device.reset()
+    k = fn(*probe_on(cuda, st, cs), *args)
+    assert obs_device.launches()[name] == 1
+    p = fn(*probe_on("cpu", st, cs), *args)
+    for a, b in zip(list(k[0]) + [k[1]], list(p[0]) + [p[1]]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n,rows,narrow", [(5000, 16, False),
+                                           (40_001, 48, False),
+                                           (257, 48, True),
+                                           (5000, 32, True)])
+def test_probe_copy_batch_kernel_matches_plain(cuda, n, rows, narrow):
+    """P2 in groups of 16 rows, wide and narrow, at odd n; the wrapper
+    refuses rows that are not whole groups."""
+    st, cs = probe_lanes(np.random.default_rng(n + rows), n, rows, narrow)
+    obs_device.reset()
+    k = probe.probe_copy_batch(*probe_on(cuda, st, cs))
+    assert obs_device.launches()["probe_copy_batch"] == 1
+    p = probe.probe_copy_batch(*probe_on("cpu", st, cs))
+    for a, b in zip(list(k[0]) + [k[1]], list(p[0]) + [p[1]]):
+        assert torch.equal(a.cpu(), b)
+    with pytest.raises(ValueError, match="whole groups"):
+        probe.probe_copy_batch(*probe_on(cuda, st, cs), chunk_rows=rows + 1)

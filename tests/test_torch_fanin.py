@@ -270,4 +270,7 @@ def test_cpu_wrapper_launches_no_kernel():
                    LOCAL, WALL)
     assert obs_device.launches() == {"fanin_batch": 0, "ingest_scatter": 0,
                                      "fanin_split": 0, "fanin_stream": 0,
-                                     "fanin_batch_sharded": 0}
+                                     "fanin_batch_sharded": 0,
+                                     "probe_join": 0, "probe_copy": 0,
+                                     "probe_stream_noguard": 0,
+                                     "probe_copy_batch": 0}

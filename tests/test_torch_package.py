@@ -41,7 +41,9 @@ def imported_modules(path):
 def test_port_imports_neither_jax_nor_crdt_tpu(path):
     for mod in imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "crdt_tpu"), (path, mod)
+        # The root modules bench and benchmarks import jax too.
+        assert top not in ("jax", "jaxlib", "crdt_tpu", "bench",
+                           "benchmarks"), (path, mod)
 
 
 def test_default_device_needs_cuda(monkeypatch):
@@ -239,12 +241,15 @@ def test_launch_counters_and_build_paths():
     # One source per kernel; K1 is counted apart where the sharded step
     # launches it on a block.
     assert set(_build.SOURCES) == {
-        "fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream"}
+        "fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream",
+        "probe_join", "probe_copy", "probe_stream_noguard",
+        "probe_copy_batch"}
     assert set(obs_device.KERNELS) == set(_build.SOURCES) | {
         "fanin_batch_sharded"}
     # The AST import check above covers every module of the port.
     assert {"split.py", "stream_kernel.py", "fanin_kernel.py",
-            "fanin.py"} <= {p.name for p in PORT_FILES}
+            "fanin.py", "probe.py", "probe_kernel.py", "data.py"} <= {
+        p.name for p in PORT_FILES}
 
 
 def test_cpu_wrappers_of_every_kernel_launch_nothing():
