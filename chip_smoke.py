@@ -16,16 +16,20 @@ Phases, in order; any failure raises and exits non-zero:
    wide, the value_width=32 wide and the narrow wire form, with a
    remapping node map; the stream replay at 2^20 x 8 rows x 128
    chunks in both guard modes, with planted dup and drift records and
-   one that only the fast flags raise; the sharded step (K1p) on a
-   (replica=2, key=2) mesh at 2^20 x 128, against its plain version and
-   the unsharded merge, with ties across the replica-shard boundary;
+   one that only the fast flags raise, and at the planted inputs of
+   ``tests/torch_stream_cases.py`` (4,097 slots x 13 rows x 128
+   chunks); the sharded step (K1p) on a (replica=2, key=2) mesh at
+   2^20 x 128, against its plain version and the unsharded merge, with
+   ties across the replica-shard boundary;
    the kernel probes of ``benchmarks/probe_kernel.py`` at its CLI
    shapes, with ties, malformed sentinels, stale store records and
    sums that wrap int32 and int16: the join (P1a), the copy (P1b) and
    the guardless stream replay (P1c) at 2^20 x 8 rows (128 chunks),
    the batch copy (P2) at 2^20 x 128 rows, wide and value-ref.
    Timed from replayed CUDA graphs beside the plain version and the
-   bound (K1p: its four block launches, and the combine apart).
+   bound (K1: the whole merge, and one K1p block alone; K3: the launch
+   alone and the whole call; K1p: its one launch over the four blocks
+   beside four one-block launches, and the combine apart).
 3. The paths at full size through the public API, each with the launch
    counters zeroed just before it and read just after, each held bit
    for bit against the same inputs folded by the plain ``ops.dense``
@@ -48,8 +52,9 @@ Phases, in order; any failure raises and exits non-zero:
      path's flushes and window, a ``merge_many``, an exact window that
      raises ``DuplicateNodeException`` and a 4,096-row delta out, held
      against the unsharded ``DenseCrdt`` given the same ops (lanes,
-     clock, delta bytes, exception) with every replica copy equal; then
-     the (1, 1) and multislice (2, 1, 2) meshes at 2^16 slots;
+     clock, delta bytes, exception) with every replica copy equal, and
+     one K1p launch per device and merge; then the (1, 1) and
+     multislice (2, 1, 2) meshes at 2^16 slots;
    - path D, the probe entry point (``crdt_tpu_torch.bench``) at the JAX
      CLI's defaults: its seven variants (``full``, ``stream``,
      ``stream-noguard``, ``nojoin``, ``copy``, ``copy-batch``,
@@ -257,31 +262,17 @@ def fanin_traffic(store: DenseStore, cs: DenseChangeset,
     val/tomb only of the entry that wins its slot, the store's
     lt/node/occupied, its val/tomb where it keeps the slot, and the six
     outputs once. ``fetched`` is what ``csrc/fanin_batch.cu`` loads:
-    lt/node/valid of every entry, val/tomb of each new running best,
-    and the whole store."""
+    lt/node/valid of every entry, the winner's val/tomb, and the store
+    as the function needs it."""
     r, n = cs.lt.shape
     check(n % SECTOR == 0, "fanin_traffic needs whole sectors per row")
-    masked = torch.where(cs.valid, cs.lt, _NEG)
     final = winner_rows(cs.lt, cs.node, cs.valid, win)
-    best = torch.zeros_like(cs.valid)
-    b_lt, b_node = masked[0].clone(), torch.where(cs.valid[0], cs.node[0],
-                                                  _I32_NEG)
-    best[0] = cs.valid[0]
-    for row in range(1, r):
-        lt, node = cs.lt[row], cs.node[row]
-        better = cs.valid[row] & ((lt > b_lt) | ((lt == b_lt)
-                                                 & (node > b_node)))
-        best[row] = better
-        b_lt = torch.where(better, lt, b_lt)
-        b_node = torch.where(better, node, b_node)
     out = n * (8 + 4 + 8 + 1 + 1 + 1)
+    payload = (sector_bytes(final, 4) + sector_bytes(final, 32) + n * 13
+               + sector_bytes(~win, 4) + sector_bytes(~win, 32) + out)
     needed = (r * n + sector_bytes(cs.valid, 4) + sector_bytes(cs.valid, 8)
-              + sector_bytes(final, 4) + sector_bytes(final, 32)
-              + n * (8 + 4 + 1) + sector_bytes(~win, 4)
-              + sector_bytes(~win, 32) + out)
-    fetched = (r * n * (8 + 4 + 1) + sector_bytes(best, 4)
-               + sector_bytes(best, 32) + n * (8 + 4 + 8 + 1 + 1) + out)
-    return needed, fetched
+              + payload)
+    return needed, r * n * (8 + 4 + 1) + payload
 
 
 def plant_ties(store: DenseStore, cs: DenseChangeset, node_of=None) -> None:
@@ -323,13 +314,22 @@ def kernel_fanin(results: dict) -> None:
     check(bool(k_res.win.any()) and not bool(k_res.win.all()),
           "fanin_batch: degenerate win mask")
 
-    launch = lambda: fanin_kernel._fanin_cuda(store, cs, canonical, local)
+    launch = lambda: fanin_kernel.fanin_cuda_many([store], [cs], canonical,
+                                                  local)
     runs = graph_ms(launch, iters=20)
     call_ms = cuda_ms(launch, iters=20)
     plain_ms = cuda_ms(lambda: fanin_kernel.fanin_join_reference(
         store, cs, canonical, local), iters=3, warmup=1)
     r, n = cs.lt.shape
     moved, fetched = fanin_traffic(store, cs, k_res.win)
+    # K1 on one K1p block of a (2, 2) mesh: the first 64 rows x 2^19
+    # slots, read in place at the row stride 2^20, one launch alone.
+    half = N_SLOTS // 2
+    blk = DenseStore(*(x[:half] for x in store))
+    cblk = DenseChangeset(*(x[:ROWS_PER_PASS // 2, :half] for x in cs))
+    check(cblk.lt.stride(0) == N_SLOTS, "K1 block: not read in place")
+    block_runs = graph_ms(lambda: fanin_kernel.fanin_cuda_many(
+        [blk], [cblk], canonical, local), iters=20)
     # Per valid entry, as int32 instructions: two int64 compares and a
     # max select for basemax and the canonical test, the lex compare
     # (int64 >, int64 ==, int32 >) and the node test, with their ands.
@@ -345,8 +345,10 @@ def kernel_fanin(results: dict) -> None:
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None, shape=[r, n], bytes_moved=moved,
         bytes_fetched=fetched, ops=ops, ops_ms=ops_ms, ms_runs=runs,
-        call_ms=call_ms)
-    del cs, store, k_store, p_store
+        call_ms=call_ms,
+        one_block=dict(shape=[ROWS_PER_PASS // 2, half], ld=N_SLOTS,
+                       ms=float(np.median(block_runs)), ms_runs=block_runs))
+    del cs, store, k_store, p_store, blk, cblk
 
 
 def kernel_ingest(results: dict) -> None:
@@ -545,14 +547,29 @@ def kernel_stream(results: dict) -> None:
             if shielded_only:
                 continue
             out = DenseStore(*(torch.empty_like(x) for x in store))
-            win = torch.empty_like(store.occupied)
-            flags = torch.zeros(2, dtype=torch.int32, device="cuda")
-            basemax = torch.where(cs.valid, cs.lt, _NEG).amax()
+            res = stream_kernel.StreamResult(
+                torch.empty((), dtype=torch.int64, device="cuda"),
+                torch.empty_like(store.occupied),
+                *(torch.empty((), dtype=torch.bool, device="cuda")
+                  for _ in range(2)))
+            scratch = torch.empty(3, dtype=torch.int64, device="cuda")
             thresh = ((wall + MAX_DRIFT) << SHIFT) | 0xFFFF
             launch = lambda: stream_kernel.launch_stream(
-                store, cs, out, win, flags, canon, basemax, local, thresh,
+                store, cs, out, res, scratch, canon, local, thresh,
                 STREAM_CHUNKS, guards == "exact")
-            runs = graph_ms(launch, iters=5)
+            launch()
+            torch.cuda.synchronize()
+            check(max_abs_err(list(out) + list(res),
+                              list(k_store) + list(k_res)) == 0,
+                  f"fanin_stream ({guards}): the launch alone differs from "
+                  f"the call")
+            call = lambda: stream_kernel.fanin_stream(
+                store, cs, canon, local, wall, n_chunks=STREAM_CHUNKS,
+                guards=guards)
+            runs, call_runs = [], []
+            for _ in range(2):               # launch, call, in turns
+                runs += graph_ms(launch, iters=100)
+                call_runs += graph_ms(call, iters=100)
             plain_ms = cuda_ms(lambda: stream_kernel.fanin_stream_reference(
                 store, cs, canon, local, wall, n_chunks=STREAM_CHUNKS,
                 guards=guards), iters=1, warmup=0)
@@ -578,28 +595,79 @@ def kernel_stream(results: dict) -> None:
             ops_ms = ops / OPS_PER_S * 1e3
             detail[guards] = dict(
                 max_abs_err=err, ms=float(np.median(runs)), ms_runs=runs,
+                call_ms=float(np.median(call_runs)), call_ms_runs=call_runs,
+                chunk_walk_ms_quoted=CHUNK_WALK_MS_QUOTED[guards],
                 plain_ms=plain_ms, bytes_moved=moved, bytes_ms=bytes_ms,
                 valid_entries=valid_entries, ops=ops, ops_ms=ops_ms,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 shape=[STREAM_ROWS, N_SLOTS, STREAM_CHUNKS])
         del store, cs
+    planted = kernel_stream_planted()
     fast = detail["fast"]                 # bench.py's stream mode
     results["fanin_stream"] = dict(
         name="fanin_stream", route="cuda",
         source="crdt_tpu_torch/csrc/fanin_stream.cu",
         replaces="crdt_tpu/ops/pallas_merge.py:572",
-        max_abs_err=max(d["max_abs_err"] for d in detail.values()),
+        max_abs_err=max(*(d["max_abs_err"] for d in detail.values()),
+                        *planted.values()),
         ms=fast["ms"], plain_ms=fast["plain_ms"], bound_ms=fast["bound_ms"],
-        bound_by=fast["bound_by"], library_ms=None, guards=detail)
+        bound_by=fast["bound_by"], library_ms=None, guards=detail,
+        planted=planted)
+
+
+# Quoted, not measured here: the chunk-walk design of
+# csrc/fanin_stream.cu that the closed form replaced, as an earlier
+# version of this phase timed it (PERF.md) on an NVIDIA H100 80GB HBM3 at
+# 700 W (2^20 slots x 8 rows x 128 chunks, the launch in a replayed
+# graph). The chunk walk is no longer built, so no run can time it again.
+CHUNK_WALK_MS_QUOTED = {"fast": 0.7338, "exact": 1.5766}
+
+
+def kernel_stream_planted() -> dict:
+    """K3 against the chunk walk on the card at the planted inputs of
+    ``tests/torch_stream_cases.py`` (store slots ahead of and tied with
+    their column, row ties, shielded entries, each guard boundary, an
+    empty column and an empty changeset), 13 rows x 128 chunks at an odd
+    slot count, in both guard modes. Returns max |err| per case."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_stream_cases import (CLOSED_CASES, LOCAL, WALL,
+                                    closed_inputs, exact_flags)
+    errs = {}
+    for case in CLOSED_CASES:
+        store, cs, canonical = closed_inputs(case, 13, STREAM_CHUNKS,
+                                             n=4097)
+        store = DenseStore(*(torch.tensor(store[f], device="cuda")
+                             for f in DenseStore._fields))
+        cs = DenseChangeset(*(torch.tensor(cs[f], device="cuda")
+                              for f in DenseChangeset._fields))
+        for guards in ("fast", "exact"):
+            args = (store, cs, canonical, LOCAL, WALL)
+            k_store, k_res = stream_kernel.fanin_stream(
+                *args, n_chunks=STREAM_CHUNKS, guards=guards)
+            p_store, p_res = stream_kernel.fanin_stream_reference(
+                *args, n_chunks=STREAM_CHUNKS, guards=guards)
+            torch.cuda.synchronize()
+            err = max_abs_err(list(k_store) + list(k_res),
+                              list(p_store) + list(p_res))
+            check(err == 0, f"fanin_stream ({guards}, {case}) kernel != "
+                            f"plain version (max |err| {err})")
+            if guards == "exact":
+                check((bool(k_res.any_dup), bool(k_res.any_drift))
+                      == exact_flags(case, STREAM_CHUNKS),
+                      f"fanin_stream ({case}): exact flags")
+            errs[f"{case}/{guards}"] = err
+    return errs
 
 
 def kernel_fanin_sharded(results: dict) -> None:
     """K1p: the sharded step on a (replica=2, key=2) mesh on the card,
-    its four K1 launches (each a block of 64 rows x 2^19 slots read in
-    place, row stride 2^20) and the combine, against the step with the
-    plain per-block join and against the unsharded K1 merge of the same
-    inputs, with ties planted across the replica-shard boundary."""
+    its one K1 launch over the four blocks (each 64 rows x 2^19 slots
+    read in place, row stride 2^20) and the combine, against the step
+    with the plain per-block join and against the unsharded K1 merge of
+    the same inputs, with ties planted across the replica-shard
+    boundary; timed beside the same blocks as four one-block launches."""
     mesh = parallel.make_fanin_mesh(2, 2)
     store = make_store(N_SLOTS, 11)
     cs = make_changeset(ROWS_PER_PASS, N_SLOTS, 12)
@@ -645,16 +713,27 @@ def kernel_fanin_sharded(results: dict) -> None:
 
     joins = lambda: parallel.fanin.block_joins(sstore, scs, canonical,
                                                local)
-    runs = graph_ms(joins, iters=5)
-    call_ms = cuda_ms(joins, iters=10)
+    obs_device.reset()
     parts = joins()
+    launches = obs_device.launches()["fanin_batch_sharded"]
+    check(launches == 1, f"K1p: {launches} launches for one merge on one "
+                         f"card")
+    pairs = [(b, c) for s_row, c_row in zip(sstore.blocks, scs.blocks)
+             for b, c in zip(s_row, c_row)]
+    separate = lambda: [fanin_kernel.fanin_cuda_many([b], [c], canonical,
+                                                     local)
+                        for b, c in pairs]
+    runs, sep_runs = [], []
+    for _ in range(2):                       # one launch, four, in turns
+        runs += graph_ms(joins, iters=10)
+        sep_runs += graph_ms(separate, iters=10)
+    call_ms = cuda_ms(joins, iters=10)
     comb_runs = graph_ms(lambda: parallel.fanin.combine_blocks(
         sstore, parts, canonical, local, wall), iters=5)
     step = parallel.make_sharded_fanin(mesh)
     step_ms = cuda_ms(lambda: step(sstore, scs, *args), iters=5)
-    k1_runs = graph_ms(lambda: fanin_kernel._fanin_cuda(store, cs,
-                                                         canonical, local),
-                       iters=5)
+    k1_runs = graph_ms(lambda: fanin_kernel.fanin_cuda_many(
+        [store], [cs], canonical, local), iters=5)
     plain_ms = cuda_ms(lambda: parallel.fanin.block_joins(
         sstore, scs, canonical, local,
         join=fanin_kernel.fanin_join_reference), iters=2, warmup=1)
@@ -667,7 +746,6 @@ def kernel_fanin_sharded(results: dict) -> None:
     ops = int(cs.valid.sum()) * 16
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / OPS_PER_S * 1e3
-    launches = len(mesh.devices.flat)
     ms = float(np.median(runs))
     results["fanin_batch_sharded"] = dict(
         name="fanin_batch_sharded", route="cuda",
@@ -677,9 +755,10 @@ def kernel_fanin_sharded(results: dict) -> None:
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         library_ms=None, mesh=dict(mesh.shape), shape=list(cs.lt.shape),
-        ms_is="the four block launches of one merge",
-        launches_per_merge=launches, ms_per_launch=ms / launches,
-        ms_runs=runs, call_ms=call_ms,
+        ms_is="the one launch over the four blocks of one merge",
+        launches_per_merge=launches, ms_runs=runs,
+        four_launches_ms=float(np.median(sep_runs)),
+        four_launches_ms_runs=sep_runs, call_ms=call_ms,
         combine_ms=float(np.median(comb_runs)), combine_ms_runs=comb_runs,
         step_ms=step_ms, unsharded_k1_ms=float(np.median(k1_runs)),
         bytes_moved=moved, bytes_fetched=fetched, ops=ops, ops_ms=ops_ms)
@@ -1320,8 +1399,10 @@ def path_c(card: str) -> dict:
         torch.cuda.synchronize()
         launches = obs_device.launches()
         positions = len(mesh.devices.flat)
+        devices = len(set(mesh.devices.flat))
         k_shards = mesh.shape[parallel.KEY_AXIS]
-        want = dict(fanin_batch_sharded=positions * (passes + 3),
+        # K1p: one launch per device and merge; K2: one per copy and flush.
+        want = dict(fanin_batch_sharded=devices * (passes + 3),
                     ingest_scatter=positions * (flushes + 1))
         check(all(launches[k] == v for k, v in want.items())
               and launches["fanin_batch"] == 0,
@@ -1407,8 +1488,8 @@ def path_d(card: str, results: dict) -> dict:
     for _ in range(2):                       # P2, K1, P2, K1
         p2_runs += graph_ms(lambda: probe.probe_copy_batch(store, scs),
                             iters=20)
-        k1_runs += graph_ms(lambda: fanin_kernel._fanin_cuda(
-            wstore, wcs, canonical, 3), iters=20)
+        k1_runs += graph_ms(lambda: fanin_kernel.fanin_cuda_many(
+            [wstore], [wcs], canonical, 3), iters=20)
     del wstore, wcs
     dst = type(scs)(*(torch.empty_like(x) for x in scs))
     copy_runs = graph_ms(lambda: [d.copy_(s) for d, s in zip(dst, scs)],
@@ -1424,6 +1505,8 @@ def path_d(card: str, results: dict) -> dict:
                ("fanin_split_narrow",
                 results["fanin_split"]["forms"]["narrow"]),
                ("fanin_stream", results["fanin_stream"]["guards"]["fast"]),
+               ("fanin_stream_exact",
+                results["fanin_stream"]["guards"]["exact"]),
                ("fanin_batch_sharded", results["fanin_batch_sharded"]),
                ("ingest_scatter", results["ingest_scatter"]),
                ("probe_join", results["probe_join"]),

@@ -8,9 +8,9 @@ the plain torch version the wrapper takes for CPU tensors).
 ``chip_smoke.py`` zeroes the counts before it drives the main path and
 reads them after. The K1 kernel is counted under two names: as
 ``fanin_batch`` on the unsharded merge, and as ``fanin_batch_sharded``
-where the sharded step (`parallel.fanin`) launches it on one block, once
-per mesh position per merge. The four kernel probes (`ops.probe`) count
-under their source names.
+where the sharded step (`parallel.fanin`) launches it over a device's
+blocks, once per device per merge. The four kernel probes (`ops.probe`)
+count under their source names.
 """
 
 from __future__ import annotations

@@ -23,9 +23,10 @@ with the ``node_map`` remap and the value-width masking in the kernel:
 the port of `_model_fanin_split_jit` / `_pipelined_model_step_split_jit`.
 It never widens the lanes in memory first.
 
-The sharded step (K1p, `parallel.fanin`) launches the same kernel on
-each mesh position's block, a column block of the changeset read in
-place through its row stride, and counts it as ``fanin_batch_sharded``.
+The sharded step (K1p, `parallel.fanin`) runs the same kernel on every
+mesh position's block, a column block of the changeset read in place
+through its row stride: one launch per device over all of its blocks
+(`fanin_cuda_many`), counted as ``fanin_batch_sharded``.
 
 Each wrapper takes the kernel for CUDA tensors and its plain version
 (`fanin_join_reference`, `fanin_split_join_reference`) for CPU
@@ -36,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple, Union
+from typing import List, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -89,50 +90,62 @@ _VP = ctypes.c_void_p
 @functools.cache
 def _launcher():
     return _build.load("fanin_batch", "crdt_fanin_batch",
-                       [_VP] * 19 + [ctypes.c_int, ctypes.c_int64,
-                                     ctypes.c_int64, ctypes.c_int64, _VP])
+                       [ctypes.POINTER(_VP), ctypes.POINTER(ctypes.c_int64),
+                        ctypes.c_int, _VP, ctypes.c_int, _VP])
 
 
-def _fanin_cuda(store: DenseStore, cs: DenseChangeset,
-                canonical: torch.Tensor, local_node: int,
-                count_as: str = "fanin_batch") -> Join:
-    """Launch ``csrc/fanin_batch.cu`` on the current stream, counted
-    under ``count_as``. The changeset lanes may be a key shard's column
-    block of wider lanes (contiguous rows at one row stride), read in
-    place."""
-    dev = store.lt.device
-    n = store.n_slots
-    r = cs.lt.shape[0]
-    check_lanes("fanin_batch", store._asdict(), STORE_DTYPES, (n,), dev)
-    ld = check_rows("fanin_batch", cs._asdict(), CHANGESET_DTYPES, (r, n),
-                    dev)
-    if canonical.device != dev or canonical.dtype != torch.int64 \
-            or canonical.dim() != 0:
+MAX_ENTRIES = 16     # merges per launch: the kernel's parameter table
+
+
+def fanin_cuda_many(stores: Sequence[DenseStore],
+                    css: Sequence[DenseChangeset], canonical: torch.Tensor,
+                    local_node: int, count_as: str = "fanin_batch"
+                    ) -> List[Join]:
+    """The kernel's own outputs (`fanin_join_reference`'s tuple) for
+    several merges on one device: one launch per `MAX_ENTRIES` merges,
+    each counted under ``count_as``. A changeset may be a key shard's
+    column block of wider lanes (contiguous rows at one row stride),
+    read in place."""
+    dev = canonical.device
+    if canonical.dtype != torch.int64 or canonical.dim() != 0:
         raise ValueError("fanin_batch: canonical must be an int64 scalar "
                          f"tensor on {dev}")
-    out = [torch.empty_like(store.lt), torch.empty_like(store.node),
-           torch.empty_like(store.val), torch.empty_like(store.tomb),
-           torch.empty_like(store.occupied),
-           torch.empty_like(store.occupied)]
-    basemax = torch.full((), _NEG, dtype=torch.int64, device=dev)
-    dup = torch.zeros((), dtype=torch.int32, device=dev)
-    if n:
-        # The launch goes to the current device: make it the lanes' one.
-        with torch.cuda.device(dev):
+    m = len(stores)
+    basemax = torch.full((m,), _NEG, dtype=torch.int64, device=dev)
+    dup = torch.zeros((m,), dtype=torch.int32, device=dev)
+    outs, todo = [], []
+    for j, (store, cs) in enumerate(zip(stores, css)):
+        n = store.n_slots
+        r = cs.lt.shape[0]
+        check_lanes("fanin_batch", store._asdict(), STORE_DTYPES, (n,), dev)
+        ld = check_rows("fanin_batch", cs._asdict(), CHANGESET_DTYPES,
+                        (r, n), dev)
+        out = [torch.empty_like(store.lt), torch.empty_like(store.node),
+               torch.empty_like(store.val), torch.empty_like(store.tomb),
+               torch.empty_like(store.occupied),
+               torch.empty_like(store.occupied)]
+        outs.append(out)
+        if n:
+            todo.append(([store.lt, store.node, store.val, store.tomb,
+                          store.occupied, *cs, *out, basemax[j], dup[j]],
+                         (n, r, ld)))
+    # The launch goes to the current device: make it the lanes' one.
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for g in range(0, len(todo), MAX_ENTRIES):
+            group = todo[g:g + MAX_ENTRIES]
+            lanes = [x.data_ptr() for ptrs, _ in group for x in ptrs]
+            dims = [d for _, ds in group for d in ds]
             rc = _launcher()(
-                store.lt.data_ptr(), store.node.data_ptr(),
-                store.val.data_ptr(), store.tomb.data_ptr(),
-                store.occupied.data_ptr(),
-                *(lane.data_ptr() for lane in cs),
-                *(o.data_ptr() for o in out),
-                basemax.data_ptr(), dup.data_ptr(), canonical.data_ptr(),
-                int(local_node), n, r, ld,
-                torch.cuda.current_stream(dev).cuda_stream)
-        if rc:
-            raise RuntimeError(f"fanin_batch kernel launch failed: CUDA "
-                               f"error {rc}")
-        _obs_device.note_launch(count_as)
-    return (*out, basemax, dup != 0)
+                (_VP * len(lanes))(*lanes),
+                (ctypes.c_int64 * len(dims))(*dims), len(group),
+                canonical.data_ptr(), int(local_node), stream)
+            if rc:
+                raise RuntimeError(f"fanin_batch kernel launch failed: "
+                                   f"CUDA error {rc}")
+            _obs_device.note_launch(count_as)
+    any_dup = dup != 0
+    return [(*out, basemax[j], any_dup[j]) for j, out in enumerate(outs)]
 
 
 def _stamp(store: DenseStore, outs: Join, canonical: torch.Tensor,
@@ -153,13 +166,16 @@ def _stamp(store: DenseStore, outs: Join, canonical: torch.Tensor,
                                   basemax > thresh)
 
 
-def _fanin(join, store: DenseStore, cs: DenseChangeset,
-           canonical_lt: Scalar, local_node: int, wall_millis: int
+def _fanin(store: DenseStore, cs: DenseChangeset, canonical_lt: Scalar,
+           local_node: int, wall_millis: int, plain: bool
            ) -> Tuple[DenseStore, BatchResult]:
     canonical = torch.as_tensor(canonical_lt, dtype=torch.int64,
                                 device=store.lt.device)
-    return _stamp(store, join(store, cs, canonical, local_node), canonical,
-                  local_node, wall_millis)
+    if plain:
+        outs = fanin_join_reference(store, cs, canonical, local_node)
+    else:
+        outs = fanin_cuda_many([store], [cs], canonical, local_node)[0]
+    return _stamp(store, outs, canonical, local_node, wall_millis)
 
 
 def fanin_batch(store: DenseStore, cs: DenseChangeset,
@@ -168,8 +184,8 @@ def fanin_batch(store: DenseStore, cs: DenseChangeset,
     """ONE logical merge of ``cs`` into a fresh copy of ``store``: the
     hand kernel for CUDA tensors, the plain version for CPU tensors.
     See the module docstring for the contract."""
-    join = _fanin_cuda if store.lt.is_cuda else fanin_join_reference
-    return _fanin(join, store, cs, canonical_lt, local_node, wall_millis)
+    return _fanin(store, cs, canonical_lt, local_node, wall_millis,
+                  plain=not store.lt.is_cuda)
 
 
 def fanin_batch_reference(store: DenseStore, cs: DenseChangeset,
@@ -178,8 +194,8 @@ def fanin_batch_reference(store: DenseStore, cs: DenseChangeset,
                           ) -> Tuple[DenseStore, BatchResult]:
     """`fanin_batch` through the plain version on any device — what the
     kernel is held against on the card."""
-    return _fanin(fanin_join_reference, store, cs, canonical_lt,
-                  local_node, wall_millis)
+    return _fanin(store, cs, canonical_lt, local_node, wall_millis,
+                  plain=True)
 
 
 def mask_value_width(cs: DenseChangeset, value_width: int):

@@ -22,10 +22,16 @@ canonical and ``win`` are the same either way):
   the changeset's max local-node lt and its basemax.
 
 The TPU kernel took split lanes, ``n_slots % TILE == 0`` and a VMEM-
-resident store block; the Hopper kernel (``csrc/fanin_stream.cu``)
-takes the wide `DenseStore`/`DenseChangeset` for any ``n_slots`` and R.
-`fanin_stream` launches it for CUDA tensors and takes
-`fanin_stream_reference` for CPU tensors.
+resident store block, and walked the rows once per chunk. The Hopper
+kernel (``csrc/fanin_stream.cu``) takes the wide
+`DenseStore`/`DenseChangeset` for any ``n_slots`` and R, and computes
+the chunks in closed form: one pass over the changeset and one small
+pass over the slots, whatever ``n_chunks``, in both guard modes; the
+stamp, the canonical and the flags come out of the launch, with no
+other device work. `fanin_stream` launches it for CUDA tensors and
+takes `fanin_stream_reference`, the chunk walk, for CPU tensors;
+`fanin_stream_closed_reference` renders the closed form in plain torch
+for the tests.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from .. import _build
 from ..hlc import MAX_COUNTER, MAX_DRIFT, SHIFT
 from ..obs import device as _obs_device
 from .dense import (CHANGESET_DTYPES, STORE_DTYPES, _NEG, DenseChangeset,
-                    DenseStore, check_lanes, lex_fold)
+                    DenseStore, check_lanes, lex_fold, reduce_replicas)
 
 Scalar = Union[int, torch.Tensor]
 
@@ -139,15 +145,76 @@ def _fast_flags(cs, canon0, basemax, local_node, wall_millis, n_chunks):
     return dup, basemax + final_off > _thresh(wall_millis)
 
 
+_NONE = torch.iinfo(torch.int64).min
+
+
+def fanin_stream_closed_reference(store: DenseStore, cs: DenseChangeset,
+                                  canonical_lt: Scalar, local_node: int,
+                                  wall_millis: int, *, n_chunks: int,
+                                  guards: str = "exact"
+                                  ) -> Tuple[DenseStore, StreamResult]:
+    """Plain torch rendering of the closed form the kernel computes (the
+    derivation is in ``csrc/fanin_stream.cu``): each column's winner
+    found once and tested at the last chunk against the store, and the
+    exact flags from the maxima of the local and the other prefix
+    records. The tests hold it against `fanin_stream_reference`."""
+    _check_args(n_chunks, guards)
+    dev = store.lt.device
+    canon0 = torch.as_tensor(canonical_lt, dtype=torch.int64, device=dev)
+    basemax = _basemax(cs)
+    off = (n_chunks - 1) << SHIFT
+    final = torch.maximum(canon0, basemax + off)
+    top, node, val, tomb, _ = reduce_replicas(cs)
+    has = cs.valid.any(0)
+    s_lt = torch.where(store.occupied, store.lt, _NEG)
+    win = has & ((top + off > s_lt)
+                 | ((top + off == s_lt) & (node > store.node)))
+    new_store = DenseStore(
+        lt=torch.where(win, top + off, store.lt),
+        node=torch.where(win, node, store.node),
+        val=torch.where(win, val, store.val),
+        mod_lt=store.mod_lt.masked_fill(win, final),
+        mod_node=store.mod_node.masked_fill(win, local_node),
+        occupied=store.occupied | win,
+        tomb=torch.where(win, tomb, store.tomb))
+    if guards == "fast":
+        dup, drift = _fast_flags(cs, canon0, basemax, local_node,
+                                 wall_millis, n_chunks)
+        return new_store, StreamResult(final, win, dup, drift)
+    masked = torch.where(cs.valid, cs.lt, _NONE)
+    before = torch.cat([torch.full_like(masked[:1], _NONE),
+                        torch.cummax(masked, 0).values[:-1]])
+    prefix = cs.valid & (cs.lt > before)
+    is_local = cs.node == local_node
+    thresh = _thresh(wall_millis)
+
+    def any_slow(x: torch.Tensor, bound: int = _NONE) -> torch.Tensor:
+        """Some chunk puts a prefix record of lt ``x`` on the slow path
+        above ``bound`` (monotone in ``x``)."""
+        slow = (x > canon0) & (x > bound)
+        if n_chunks > 1:
+            slow = slow | ((x > basemax - (1 << SHIFT)) & (x + off > canon0)
+                           & (x + off > bound))
+        return slow
+
+    d = torch.where(prefix & is_local, cs.lt, _NONE)
+    f = torch.where(prefix & ~is_local, cs.lt, _NONE)
+    d, f = ((x.amax() if x.numel() else torch.tensor(_NONE, device=dev))
+            for x in (d, f))
+    dup = (d != _NONE) & any_slow(d)
+    drift = (f != _NONE) & any_slow(f, thresh)
+    return new_store, StreamResult(final, win, dup, drift)
+
+
 _VP = ctypes.c_void_p
 
 
 @functools.cache
 def _launcher():
     return _build.load("fanin_stream", "crdt_fanin_stream",
-                       [ctypes.POINTER(_VP), _VP, _VP, ctypes.c_int,
-                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_int, _VP])
+                       [ctypes.POINTER(_VP), _VP, ctypes.POINTER(_VP), _VP,
+                        ctypes.c_int, ctypes.c_int64, ctypes.c_int64,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP])
 
 
 def _fanin_stream_cuda(store: DenseStore, cs: DenseChangeset,
@@ -155,8 +222,9 @@ def _fanin_stream_cuda(store: DenseStore, cs: DenseChangeset,
                        wall_millis: int, *, n_chunks: int,
                        guards: str = "exact"
                        ) -> Tuple[DenseStore, StreamResult]:
-    """Check the lanes, reduce basemax (before the launch, as on the
-    TPU), launch ``csrc/fanin_stream.cu``, derive the fast flags."""
+    """Check the lanes, allocate the outputs and launch
+    ``csrc/fanin_stream.cu``: its pass, its stamp and its flags, with
+    no other device work and no host sync."""
     _check_args(n_chunks, guards)
     dev = store.lt.device
     n = store.n_slots
@@ -166,41 +234,35 @@ def _fanin_stream_cuda(store: DenseStore, cs: DenseChangeset,
     canon0 = torch.as_tensor(canonical_lt, dtype=torch.int64, device=dev)
     if canon0.dim() != 0:
         raise ValueError("fanin_stream: canonical must be a scalar")
-    basemax = _basemax(cs)
     out = DenseStore(*(torch.empty_like(lane) for lane in store))
-    win = torch.empty_like(store.occupied)
-    flags = torch.zeros(2, dtype=torch.int32, device=dev)
-    launch_stream(store, cs, out, win, flags, canon0, basemax, local_node,
+    flag = functools.partial(torch.empty, (), dtype=torch.bool, device=dev)
+    res = StreamResult(torch.empty((), dtype=torch.int64, device=dev),
+                       torch.empty_like(store.occupied), flag(), flag())
+    scratch = torch.empty(3, dtype=torch.int64, device=dev)
+    launch_stream(store, cs, out, res, scratch, canon0, local_node,
                   _thresh(wall_millis), n_chunks, guards == "exact")
-    if guards == "exact":
-        dup, drift = flags[0] != 0, flags[1] != 0
-    else:
-        dup, drift = _fast_flags(cs, canon0, basemax, local_node,
-                                 wall_millis, n_chunks)
-    final = torch.maximum(canon0, basemax + ((n_chunks - 1) << SHIFT))
-    return out, StreamResult(final, win, dup, drift)
+    return out, res
 
 
 def launch_stream(store: DenseStore, cs: DenseChangeset, out: DenseStore,
-                  win: torch.Tensor, flags: torch.Tensor,
-                  canon0: torch.Tensor, basemax: torch.Tensor,
-                  local_node: int, thresh: int, n_chunks: int,
-                  exact: bool) -> None:
-    """The kernel launch alone, on the current stream, into ``out``,
-    ``win`` and ``flags`` (checked, allocated and zeroed by the
-    caller)."""
-    n = store.n_slots
-    if not n:
-        return
+                  res: StreamResult, scratch: torch.Tensor,
+                  canon0: torch.Tensor, local_node: int, thresh: int,
+                  n_chunks: int, exact: bool) -> None:
+    """The kernels' launch alone, on the current stream: the pass into
+    ``out`` and ``res.win``, the stamp of ``out.mod_lt`` and the scalars
+    of ``res`` (all checked and allocated by the caller; ``scratch``
+    holds three int64 words, zeroed by the launch)."""
     lanes = [store.lt, store.node, store.val, store.tomb, store.mod_lt,
              store.mod_node, store.occupied, *cs, out.lt, out.node, out.val,
-             out.tomb, out.mod_lt, out.mod_node, out.occupied, win, flags]
+             out.tomb, out.mod_lt, out.mod_node, out.occupied, res.win]
+    scalars = (res.new_canonical, res.any_dup, res.any_drift)
     dev = store.lt.device
     with torch.cuda.device(dev):
         rc = _launcher()(
             (_VP * len(lanes))(*(x.data_ptr() for x in lanes)),
-            canon0.data_ptr(), basemax.data_ptr(), int(local_node), thresh,
-            n, cs.lt.shape[0], n_chunks, int(exact),
+            scratch.data_ptr(), (_VP * 3)(*(x.data_ptr() for x in scalars)),
+            canon0.data_ptr(), int(local_node), thresh, store.n_slots,
+            cs.lt.shape[0], n_chunks, int(exact),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"fanin_stream kernel launch failed: CUDA error "

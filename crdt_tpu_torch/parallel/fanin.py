@@ -6,7 +6,8 @@ other axes; an incoming ``[R, N]`` changeset is sharded over both, its
 rows over the replica axes (``replica``, or ``slice`` then ``replica``
 on a multislice mesh) and its slots over ``key``. One merge is the
 sharded step (K1p): the K1 kernel (``csrc/fanin_batch.cu``) folds each
-mesh position's block of rows into its copy of the store shard, then a
+mesh position's block of rows into its copy of the store shard, in one
+launch per device over all of that device's blocks, then a
 lexicographic ``(lt, node)`` max combines the partial stores of each key
 column, the lowest flat rank keeping exact ties — the earliest rows, as
 in the sequential merge.
@@ -17,8 +18,8 @@ is a grid of ``torch.device`` s (one device may appear several times —
 one card, or ``"cpu"`` in the tests), and each replica-axis reduction
 copies the column's blocks to the column's first device with ``.to``,
 reduces there, and copies the result back to every copy. On one card
-every block queues on one stream in turn and nothing syncs with the
-host between blocks.
+the blocks' joins are one launch and the combine queues on the same
+stream; nothing syncs with the host between them.
 
 Representation: a sharded store holds ``blocks[rank][k]``, the copy at
 replica flat rank ``rank`` (outer-major over the replica axes,
@@ -45,7 +46,7 @@ import torch
 from ..hlc import MAX_COUNTER, MAX_DRIFT, SHIFT
 from ..ops.dense import (_I32_NEG, _NEG, DenseChangeset, DenseStore,
                          dense_delta_mask, dense_max_logical_time)
-from ..ops.fanin_kernel import _fanin_cuda, fanin_join_reference
+from ..ops.fanin_kernel import fanin_cuda_many, fanin_join_reference
 from ..ops.ingest_kernel import ingest_scatter
 
 REPLICA_AXIS = "replica"
@@ -244,18 +245,27 @@ def block_joins(store: ShardedStore, cs: ShardedChangeset,
     """K1 on every mesh position's block against its store copy: the
     kernel's own outputs ``(lt, node, val, tomb, occupied, win,
     basemax, any_dup)`` per position. ``join=None`` takes the K1 kernel
-    for CUDA blocks (counted as ``fanin_batch_sharded``) and the plain
-    version for CPU blocks."""
-    out = []
-    for s_row, c_row in zip(store.blocks, cs.blocks):
-        row = []
-        for blk, cblk in zip(s_row, c_row):
+    for CUDA blocks, one launch per device over all of that device's
+    blocks (counted as ``fanin_batch_sharded``), and the plain version
+    for CPU blocks; a ``join`` given is called per position."""
+    out: List[List[Optional[tuple]]] = [[None] * len(row)
+                                        for row in store.blocks]
+    by_device = {}
+    for rank, (s_row, c_row) in enumerate(zip(store.blocks, cs.blocks)):
+        for k, (blk, cblk) in enumerate(zip(s_row, c_row)):
             dev = blk.lt.device
-            fn = join or (functools.partial(
-                _fanin_cuda, count_as="fanin_batch_sharded")
-                if blk.lt.is_cuda else fanin_join_reference)
-            row.append(fn(blk, cblk, canonical.to(dev), local_node))
-        out.append(row)
+            if join is None and blk.lt.is_cuda:
+                by_device.setdefault(dev, []).append((rank, k))
+            else:
+                out[rank][k] = (join or fanin_join_reference)(
+                    blk, cblk, canonical.to(dev), local_node)
+    for dev, where in by_device.items():
+        joins = fanin_cuda_many(
+            [store.blocks[r][k] for r, k in where],
+            [cs.blocks[r][k] for r, k in where], canonical.to(dev),
+            local_node, count_as="fanin_batch_sharded")
+        for (r, k), part in zip(where, joins):
+            out[r][k] = part
     return out
 
 

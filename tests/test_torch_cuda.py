@@ -22,6 +22,9 @@ from crdt_tpu_torch.ops import (fanin_kernel, ingest_kernel, probe,
                                 stream_kernel)
 from crdt_tpu_torch.ops import split as ts
 
+from torch_stream_cases import CLOSED_CASES, LOCAL, WALL, closed_inputs, \
+    exact_flags
+
 pytestmark = pytest.mark.cuda
 
 BASE = 1_700_000_000_000 << 16
@@ -58,10 +61,25 @@ def on(device, store, cs):
                                  for k, v in cs.items()}))
 
 
-@pytest.mark.parametrize("n,rows", [(5000, 3), (257, 1), (1000, 0),
-                                    (40_000, 64)])
-def test_fanin_kernel_matches_plain(cuda, n, rows):
+def plant_row_ties(cs, rows):
+    """Rows 1 and ``rows - 1`` repeat row 0's (lt, node) on every 3rd
+    slot with payloads of their own: the lowest row's must land."""
+    for row in (1, rows - 1):
+        cs["lt"][row, ::3] = cs["lt"][0, ::3]
+        cs["node"][row, ::3] = cs["node"][0, ::3]
+        cs["val"][row, ::3] = cs["val"][0, ::3] + 1 + row
+        cs["tomb"][row, ::3] = ~cs["tomb"][0, ::3]
+    cs["valid"][[0, 1, rows - 1], ::3] = True
+
+
+@pytest.mark.parametrize("n,rows,ties", [(5000, 3, False), (257, 1, False),
+                                         (1000, 0, False),
+                                         (40_000, 64, False),
+                                         (4097, 9, True), (40_000, 64, True)])
+def test_fanin_kernel_matches_plain(cuda, n, rows, ties):
     store, cs = lanes(np.random.default_rng(n + rows), n, rows)
+    if ties:
+        plant_row_ties(cs, rows)
     obs_device.reset()
     k = fanin_kernel.fanin_batch(*on(cuda, store, cs), BASE + 3, 2,
                                  1_700_000_010_000)
@@ -70,6 +88,28 @@ def test_fanin_kernel_matches_plain(cuda, n, rows):
                                  1_700_000_010_000)
     for a, b in zip(list(k[0]) + list(k[1]), list(p[0]) + list(p[1])):
         assert torch.equal(a.cpu(), b)
+
+
+def test_fanin_kernel_block_table_matches_plain(cuda):
+    """One launch of ``csrc/fanin_batch.cu`` over a table of two merges,
+    each a column block read in place at the full row stride, computes
+    each block's join."""
+    n, rows = 6000, 11
+    store, cs = lanes(np.random.default_rng(7), 2 * n, rows)
+    plant_row_ties(cs, rows)
+    s, c = on(cuda, store, cs)
+    stores = [td.DenseStore(*(x[k * n:(k + 1) * n] for x in s))
+              for k in range(2)]
+    css = [td.DenseChangeset(*(x[:, k * n:(k + 1) * n] for x in c))
+           for k in range(2)]
+    canonical = torch.tensor(BASE + 3, device=cuda)
+    obs_device.reset()
+    got = fanin_kernel.fanin_cuda_many(stores, css, canonical, 2)
+    assert obs_device.launches()["fanin_batch"] == 1
+    for st, cb, g in zip(stores, css, got):
+        want = fanin_kernel.fanin_join_reference(st, cb, canonical, 2)
+        for a, b in zip(g, want):
+            assert torch.equal(a, b)
 
 
 def test_ingest_kernel_matches_plain(cuda):
@@ -167,24 +207,40 @@ def test_fanin_split_kernel_matches_plain(cuda, n, rows, narrow, value_width,
         assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("n,rows,n_chunks", [(5000, 3, 4), (257, 1, 1),
-                                             (1000, 0, 2), (4099, 8, 5),
-                                             (3001, 13, 3)])
+STREAM_SHAPES = [("random", 5000, 3, 4), ("random", 257, 1, 1),
+                 ("random", 1000, 0, 2), ("random", 4099, 8, 5),
+                 ("random", 3001, 13, 3), ("random", 4097, 13, 128)] + [
+    (case, 4097, rows, n_chunks) for case in CLOSED_CASES
+    for rows in (1, 13) for n_chunks in (1, 5, 128)]
+
+
+@pytest.mark.parametrize("case,n,rows,n_chunks", STREAM_SHAPES)
 @pytest.mark.parametrize("guards", ["exact", "fast"])
-def test_fanin_stream_kernel_matches_plain(cuda, n, rows, n_chunks, guards):
-    rng = np.random.default_rng(n + rows + n_chunks)
-    store, cs = lanes(rng, n, rows)
-    cs["node"][:, ::5] = 2                   # local-node records: dup
-    canonical = BASE + 2
-    wall = (BASE >> 16) - port.MAX_DRIFT + 1   # chunk 2 on drifts
+def test_fanin_stream_kernel_matches_plain(cuda, case, n, rows, n_chunks,
+                                           guards):
+    """The closed-form kernel against the chunk walk: random lanes with
+    local-node records past a drifting wall, and the planted cases of
+    `torch_stream_cases` at an odd slot count."""
+    if case == "random":
+        rng = np.random.default_rng(n + rows + n_chunks)
+        store, cs = lanes(rng, n, rows)
+        cs["node"][:, ::5] = 2               # local-node records: dup
+        canonical, local = BASE + 2, 2
+        wall = (BASE >> 16) - port.MAX_DRIFT + 1   # chunk 2 on drifts
+    else:
+        store, cs, canonical = closed_inputs(case, rows, n_chunks, n=n)
+        local, wall = LOCAL, WALL
     obs_device.reset()
-    k = stream_kernel.fanin_stream(*on(cuda, store, cs), canonical, 2, wall,
-                                   n_chunks=n_chunks, guards=guards)
-    assert obs_device.launches()["fanin_stream"] == (1 if n else 0)
-    p = stream_kernel.fanin_stream(*on("cpu", store, cs), canonical, 2, wall,
-                                   n_chunks=n_chunks, guards=guards)
+    k = stream_kernel.fanin_stream(*on(cuda, store, cs), canonical, local,
+                                   wall, n_chunks=n_chunks, guards=guards)
+    assert obs_device.launches()["fanin_stream"] == 1
+    p = stream_kernel.fanin_stream(*on("cpu", store, cs), canonical, local,
+                                   wall, n_chunks=n_chunks, guards=guards)
     for a, b in zip(list(k[0]) + list(k[1]), list(p[0]) + list(p[1])):
         assert torch.equal(a.cpu(), b)
+    if case != "random" and guards == "exact":
+        assert (bool(k[1].any_dup), bool(k[1].any_drift)) == \
+            exact_flags(case, n_chunks)
 
 
 def test_split_interchange_on_card_matches_host(cuda):
@@ -225,12 +281,14 @@ def test_split_interchange_on_card_matches_host(cuda):
     assert str(a.canonical_time) == str(b.canonical_time)
 
 
-@pytest.mark.parametrize("shape", [(2, 2), (3, 1)])
+@pytest.mark.parametrize("shape", [(2, 2), (3, 1), (5, 4)])
 def test_sharded_step_matches_plain(cuda, shape):
-    """K1p on a mesh that repeats the card: every block's K1 launch and
-    the combine against the plain per-block join, bit for bit, at odd
-    shard widths, with ties across the replica-shard boundary."""
-    n, rows = 2 * 12_289, 7
+    """K1p on a mesh that repeats the card, more blocks than devices:
+    the blocks' K1 joins in one launch per device (two for the 20 blocks
+    of (5, 4), past the kernel's 16-entry table) and the combine against
+    the plain per-block join, bit for bit, at odd shard widths, with
+    ties across the replica-shard boundary."""
+    n, rows = shape[1] * 12_289, 7
     store, cs = lanes(np.random.default_rng(sum(shape)), n, rows)
     cs["lt"][4, ::3] = cs["lt"][0, ::3]
     cs["node"][4, ::3] = cs["node"][0, ::3]
@@ -244,8 +302,9 @@ def test_sharded_step_matches_plain(cuda, shape):
         outs.append(parallel.make_sharded_fanin(mesh, reference=reference)(
             parallel.shard_store(s, mesh), parallel.shard_changeset(c, mesh),
             *args))
+        per_device = -(-shape[0] * shape[1] // fanin_kernel.MAX_ENTRIES)
         assert obs_device.launches()["fanin_batch_sharded"] == \
-            (0 if reference else shape[0] * shape[1])
+            (0 if reference else per_device)
     (k_store, k_res), (p_store, p_res) = outs
     for k_row, p_row in zip(k_store.blocks, p_store.blocks):
         for a, b in zip(k_row, p_row):
@@ -292,7 +351,8 @@ def test_sharded_dense_crdt_on_card_matches_host(cuda):
             with c.pipelined(exact_guards=True):
                 c.merge(dup, ["n1"])
         if devices is None:
-            assert obs_device.launches()["fanin_batch_sharded"] == 3 * 4
+            # One K1p launch per merge on the one card; K2 per copy.
+            assert obs_device.launches()["fanin_batch_sharded"] == 3
             assert obs_device.launches()["ingest_scatter"] == 2 * 4
         results.append(c)
     a, b = results

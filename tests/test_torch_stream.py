@@ -9,7 +9,12 @@ on the same numpy inputs:
   `split_changeset`);
 - ``n_chunks`` sequential exact folds (`ops.dense.fanin_step` in each
   package) on lanes and the threaded clock, as
-  ``tests/test_pallas_merge.py`` holds the Pallas kernel.
+  ``tests/test_pallas_merge.py`` holds the Pallas kernel;
+- the closed form over the chunks that ``csrc/fanin_stream.cu``
+  computes, rendered in plain torch (`fanin_stream_closed_reference`),
+  against the chunk walk `fanin_stream_reference` and the Pallas kernel
+  in interpret mode, on planted inputs (`torch_stream_cases`) in both
+  guard modes, 1 to 128 chunks and 1 to 13 rows.
 
 On the CPU `fanin_stream` runs the plain version; the CUDA kernel is
 held against it on the card by ``chip_smoke.py`` and
@@ -30,6 +35,9 @@ from crdt_tpu_torch.ops import stream_kernel as sk
 
 from test_torch_fanin import (BASE, LOCAL, N, WALL, assert_lanes_equal,
                               jax_lanes, make_inputs, torch_cs)
+from torch_stream_cases import (AHEAD, CLOSED_CASES, EMPTY_COL, FAR_AHEAD,
+                                ROW_TIE, TIE0, TIE_LAST, closed_inputs,
+                                exact_flags)
 
 
 def jax_stream(store, cs, canonical, n_chunks, guards, wall=WALL):
@@ -181,3 +189,44 @@ def test_stream_drift_boundary_and_argument_checks():
                dict(n_chunks=2, guards="bogus")):
         with pytest.raises(ValueError):
             sk.fanin_stream(*args, **kw)
+
+
+# --- the closed form over the chunks --------------------------------------
+
+
+@pytest.mark.parametrize("guards", ["exact", "fast"])
+@pytest.mark.parametrize("n_chunks", [1, 2, 5, 128])
+@pytest.mark.parametrize("r", [1, 8, 13])
+@pytest.mark.parametrize("case", CLOSED_CASES)
+def test_closed_form_matches_chunk_walk_and_pallas(case, r, n_chunks,
+                                                   guards):
+    """`fanin_stream_closed_reference` (what ``csrc/fanin_stream.cu``
+    computes) against the chunk walk `fanin_stream_reference` and the
+    Pallas kernel in interpret mode: every store lane, win, the
+    canonical and both flags, tolerance 0."""
+    store, cs, canonical = closed_inputs(case, r, n_chunks)
+    args = (td.store_from_numpy(store), torch_cs(cs), canonical, LOCAL,
+            WALL)
+    closed = sk.fanin_stream_closed_reference(*args, n_chunks=n_chunks,
+                                              guards=guards)
+    walk = sk.fanin_stream_reference(*args, n_chunks=n_chunks,
+                                     guards=guards)
+    where = f"{case}/r={r}/n_chunks={n_chunks}/{guards}"
+    assert_stream_equal((walk[0], walk[1]), closed, f"walk: {where}")
+    assert_stream_equal(jax_stream(store, cs, canonical, n_chunks, guards),
+                        closed, f"pallas: {where}")
+    st, res = closed
+    got = (bool(res.any_dup), bool(res.any_drift))
+    if guards == "exact":
+        assert got == exact_flags(case, n_chunks), where
+    elif case == "dup_near_at" and r > 1 and n_chunks > 1:
+        assert got == (True, False), where    # the shielded entry flags
+    if case == "empty":
+        assert not bool(res.win.any())
+        return
+    assert bool(res.win[AHEAD]) == (n_chunks >= 5)
+    assert not bool(res.win[FAR_AHEAD] | res.win[TIE_LAST]
+                    | res.win[EMPTY_COL])
+    assert bool(res.win[TIE0]) == (n_chunks > 1)
+    assert int(st.val[ROW_TIE]) == 111 and bool(res.win[ROW_TIE])
+    assert int(st.mod_lt[ROW_TIE]) == int(res.new_canonical)
