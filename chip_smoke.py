@@ -24,12 +24,18 @@ Phases, in order; any failure raises and exits non-zero:
    the kernel probes of ``benchmarks/probe_kernel.py`` at its CLI
    shapes, with ties, malformed sentinels, stale store records and
    sums that wrap int32 and int16: the join (P1a), the copy (P1b) and
-   the guardless stream replay (P1c) at 2^20 x 8 rows (128 chunks),
-   the batch copy (P2) at 2^20 x 128 rows, wide and value-ref.
-   Timed from replayed CUDA graphs beside the plain version and the
-   bound (K1: the whole merge, and one K1p block alone; K3: the launch
-   alone and the whole call; K1p: its one launch over the four blocks
-   beside four one-block launches, and the combine apart).
+   the guardless stream replay (P1c, in closed form over the chunks)
+   at 2^20 x 8 rows (128 chunks), P1c also at the planted inputs of
+   ``tests/torch_probe_cases.py`` (4,097 slots x 13 rows x 1 to 128
+   chunks), the batch copy (P2) at 2^20 x 128 rows, wide and
+   value-ref. Timed from replayed CUDA graphs beside the plain version
+   and the bound (K1: the whole merge, and one K1p block alone; K2: the
+   phase's rows and the main path's first flush as committed and
+   sorted by slot, its bound in 32-B sectors; K3: the launch alone and
+   the whole call; K1p: its one launch over the four blocks beside four
+   one-block launches, and the combine apart); then K3 in fast mode and
+   P1c in turns on the same replay, and their difference (the cost of
+   K3's guards, basemax and wide lanes).
 3. The paths at full size through the public API, each with the launch
    counters zeroed just before it and read just after, each held bit
    for bit against the same inputs folded by the plain ``ops.dense``
@@ -370,19 +376,70 @@ def kernel_ingest(results: dict) -> None:
                         f"{live} live rows (max |err| {err})")
     work = DenseStore(*(x.clone() for x in base))
     launch = lambda: ingest_kernel._ingest_cuda(work, *lanes, 4)
-    runs = graph_ms(launch, iters=200)
     call_ms = cuda_ms(launch, iters=200)
     plain_ms = cuda_ms(lambda: ingest_scatter(work, *lanes, 4), iters=20)
-    moved = live * (8 + 8 + 8 + 1) + live * (8 + 4 + 8 + 8 + 4 + 1 + 1)
-    moved += (rows - live) * 8                  # sentinel slots read
+    # The main path's first flush as the combiner commits it (its rows
+    # in staging order: the last-wins dedup keeps the order, and these
+    # slots are unique), and the same rows sorted by slot.
+    main_slots, main_vals, main_tombs = flush_inputs(0)
+    orders = {"main_path_as_committed": np.arange(FLUSH_ROWS),
+              "main_path_sorted": np.argsort(main_slots)}
+    row_lt = (MILLIS << SHIFT) + rng.integers(0, 1 << 30, FLUSH_ROWS)
+    launches = {"phase2": launch}
+    for order, at in orders.items():
+        olanes = [torch.tensor(a[at], device="cuda") for a in (
+            main_slots, row_lt, main_vals, main_tombs)]
+        check(max_abs_err(
+            ingest_kernel.ingest_scatter(
+                DenseStore(*(x.clone() for x in base)), *olanes, 4),
+            ingest_scatter(DenseStore(*(x.clone() for x in base)),
+                           *olanes, 4)) == 0,
+              f"ingest_scatter kernel != plain version ({order})")
+        launches[order] = (lambda olanes=olanes: ingest_kernel._ingest_cuda(
+            work, *olanes, 4))
+    runs = {k: [] for k in launches}
+    for _ in range(2):                       # the three inputs in turns
+        for order, fn in launches.items():
+            runs[order] += graph_ms(fn, iters=200)
+    moved = scatter_traffic(lanes[0], N_SLOTS)
+    main_moved = scatter_traffic(torch.tensor(main_slots, device="cuda"),
+                                 N_SLOTS)
+    by_order = {order: dict(ms=float(np.median(runs[order])),
+                            ms_runs=runs[order], bytes_moved=main_moved,
+                            bound_ms=main_moved / HBM_BYTES_PER_S * 1e3)
+                for order in orders}
+    ms = float(np.median(runs["phase2"]))
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
     results["ingest_scatter"] = dict(
         name="ingest_scatter", route="cuda",
         source="crdt_tpu_torch/csrc/ingest_scatter.cu",
         replaces="crdt_tpu/ops/pallas_scatter.py:90",
-        max_abs_err=err, ms=float(np.median(runs)), plain_ms=plain_ms,
-        bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes",
         library_ms=None, shape=[rows, N_SLOTS], bytes_moved=moved,
-        ms_runs=runs, call_ms=call_ms)
+        ms_runs=runs["phase2"], call_ms=call_ms, slot_orders=by_order)
+    print(f"  ingest_scatter [{rows} rows -> {N_SLOTS}]: bit-exact, {ms:.4f} "
+          f"ms, bound {bound_ms:.5f} ms in sectors; main path's rows "
+          f"{by_order['main_path_as_committed']['ms']:.4f} ms as committed, "
+          f"{by_order['main_path_sorted']['ms']:.4f} ms sorted")
+
+
+# Bytes per slot of the seven store lanes an ingest flush writes: lt,
+# node, val, mod_lt, mod_node, occupied, tomb.
+STORE_LANE_BYTES = (8, 4, 8, 8, 4, 1, 1)
+
+
+def scatter_traffic(slots: torch.Tensor, n: int) -> int:
+    """Bytes one ingest flush must move, in 32-B sectors: each row's slot
+    (8 B, the padding rows' too), the live rows' lt, val and tomb (17 B,
+    the live rows first), and in each of the seven store lanes the
+    sectors that the live rows' slots touch."""
+    live = slots[slots < n]
+    k = len(live)
+    rows = len(slots) * 8 + 2 * SECTOR * -(-k * 8 // SECTOR) \
+        + SECTOR * -(-k // SECTOR)
+    return rows + sum(SECTOR * len(torch.unique(live * e // SECTOR))
+                      for e in STORE_LANE_BYTES)
 
 
 def split_traffic(store: DenseStore, scs, node_map: torch.Tensor,
@@ -836,14 +893,20 @@ def probe_inputs(rows: int, seed: int, narrow: bool = False):
     return store, scs, stale
 
 
-def probe_traffic(scs, win: torch.Tensor) -> int:
+def probe_traffic(scs, win: torch.Tensor, n_chunks: int = 1) -> int:
     """Bytes a probe join must move on these inputs, in 32-B sectors, as
     `split_traffic` counts them with no node map: hi/lo/node of every
     entry (10 B), val_hi/val_lo/tomb only of the entry that wins its
     slot, the store's hi/lo/node, its other six words where it keeps
-    the slot, and the ten outputs once."""
+    the slot, and the ten outputs once. With ``n_chunks`` the winner is
+    read at each entry's last visit: a moving entry's key advanced by
+    the last chunk's offset (ties between a static and a moving entry
+    are counted at the lower row)."""
     r, n = scs.hi.shape
     key = join64(scs.hi, scs.lo)
+    if n_chunks > 1:
+        key = key + torch.where(scs.hi != NEG_HI,
+                                (n_chunks - 1) << SHIFT, 0)
     final = winner_rows(key, scs.node.to(torch.int32),
                         torch.ones_like(win).expand(r, n), win)
     return (r * n * 10 + 2 * sector_bytes(final, 8) + sector_bytes(final, 32)
@@ -905,10 +968,11 @@ def kernel_probes(results: dict) -> None:
     r, n = scs.hi.shape
     # Per entry, as int32 instructions: the lex compare (hi >, hi ==,
     # lo >, lo ==, node > and their combination: 8) and the selects of
-    # hi, lo, node and row (4); the stream probe adds the offset add and
-    # its carry (3) and, as K3's bound, needs one pass over the rows, not
-    # one per chunk. Per slot: loads, the stamp selects and stores (12).
-    # The copy: two adds per entry, ten per slot.
+    # hi, lo, node and row (4); the stream probe adds the sentinel test
+    # and the choice between S and M (3) and needs one pass over the
+    # rows, not one per chunk (its closed form). Per slot: loads, the
+    # stamp selects and stores (12). The copy: two adds per entry, ten
+    # per slot.
     per_entry = dict(probe_join=12, probe_copy=2, probe_stream_noguard=15)
     for name, args in (("probe_join", (scalars,)),
                        ("probe_copy", (scalars,)),
@@ -926,7 +990,8 @@ def kernel_probes(results: dict) -> None:
         else:
             check(bool(win.any()) and not bool(win.all()),
                   f"{name}: degenerate win mask")
-            moved = probe_traffic(scs, win)
+            moved = probe_traffic(scs, win, args[-1] if len(args) > 1
+                                  else 1)
         if name == "probe_join":
             check(not bool(win[stale].any()),
                   "probe_join: a stale store record lost")
@@ -935,8 +1000,7 @@ def kernel_probes(results: dict) -> None:
                 (k[0].mod_hi[stale] == scalars[5]).all()),
                   "probe_stream_noguard: stale store records were not "
                   "beaten by a later chunk")
-            extra.update(n_chunks=PROBE_CHUNKS, ops_kernel=(
-                r * n * per_entry[name] * PROBE_CHUNKS + n * 12))
+            extra.update(n_chunks=PROBE_CHUNKS, planted=probe_planted())
         results[name] = time_probe(
             name, lambda: fn(store, scs, *args),
             lambda: plain(store, scs, *args), err, moved,
@@ -968,6 +1032,71 @@ def kernel_probes(results: dict) -> None:
         forms["wide"], max_abs_err=max(d["max_abs_err"]
                                        for d in forms.values()),
         forms=forms)
+
+
+def probe_planted() -> dict:
+    """P1c against the chunk walk on the card at the planted inputs of
+    ``tests/torch_probe_cases.py`` (a static entry beating the store, M
+    tying S and the store, a wrapping and a non-carrying INT32_MAX
+    entry, row ties, a malformed sentinel, no chunk winning, a stale
+    store slot), 13 rows at an odd slot count, 1 to 128 chunks. Returns
+    max |err| per chunk count."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_probe_cases import CHUNKS, SCALARS, probe_case_lanes
+    errs = {}
+    for n_chunks in CHUNKS:
+        st, cs = probe_case_lanes(13, n_chunks, n=4097)
+        st = type(st)(*(torch.tensor(x, device="cuda") for x in st))
+        cs = type(cs)(*(torch.tensor(x, device="cuda") for x in cs))
+        errs[str(n_chunks)] = check_probe(
+            f"probe_stream_noguard (planted, {n_chunks} chunks)",
+            probe.probe_stream_noguard(st, cs, SCALARS, n_chunks),
+            probe.probe_stream_noguard_reference(st, cs, SCALARS, n_chunks))
+    return errs
+
+
+def guard_cost(results: dict) -> None:
+    """K3 in fast mode (the launch alone) and P1c timed in turns from
+    replayed graphs, on the same replay (2^20 x 8 rows x 128 chunks:
+    `stream_inputs`, P1c on its split lanes): both in closed form over
+    the chunks, so K3 minus P1c is what the guards, the basemax and the
+    wide lanes cost."""
+    store, cs, canon, local = stream_inputs(30, False)
+    wall = MILLIS + 10_000
+    thresh = ((wall + MAX_DRIFT) << SHIFT) | 0xFFFF
+    out = DenseStore(*(torch.empty_like(x) for x in store))
+    res = stream_kernel.StreamResult(
+        torch.empty((), dtype=torch.int64, device="cuda"),
+        torch.empty_like(store.occupied),
+        *(torch.empty((), dtype=torch.bool, device="cuda")
+          for _ in range(2)))
+    scratch = torch.empty(3, dtype=torch.int64, device="cuda")
+    k3 = lambda: stream_kernel.launch_stream(
+        store, cs, out, res, scratch, canon, local, thresh, STREAM_CHUNKS,
+        False)
+    sstore, scs = split_store(store), split_changeset(cs)
+    scalars = probe.probe_scalars(int(canon), local, int(canon))
+    p1c = lambda: probe.probe_stream_noguard(sstore, scs, scalars,
+                                             STREAM_CHUNKS)
+    check_probe("probe_stream_noguard (the stream replay's lanes)", p1c(),
+                probe.probe_stream_noguard_reference(sstore, scs, scalars,
+                                                     STREAM_CHUNKS))
+    k3_runs, p1c_runs = [], []
+    for _ in range(3):                       # K3, P1c, in turns
+        k3_runs += graph_ms(k3, iters=100)
+        p1c_runs += graph_ms(p1c, iters=100)
+    k3_ms, p1c_ms = float(np.median(k3_runs)), float(np.median(p1c_runs))
+    win = p1c()[1] != 0
+    results["guard_cost"] = dict(
+        shape=[STREAM_ROWS, N_SLOTS, STREAM_CHUNKS], k3_fast_ms=k3_ms,
+        k3_fast_ms_runs=k3_runs, p1c_ms=p1c_ms, p1c_ms_runs=p1c_runs,
+        k3_minus_p1c_ms=k3_ms - p1c_ms,
+        k3_bytes_moved=stream_traffic(store, cs, res.win),
+        p1c_bytes_moved=probe_traffic(scs, win, STREAM_CHUNKS))
+    print(f"  K3 fast {k3_ms:.4f} ms, P1c {p1c_ms:.4f} ms on the same replay: "
+          f"K3 - P1c = {k3_ms - p1c_ms:.4f} ms")
+    del store, cs, sstore, scs, out
 
 
 # --- phase 3: the main path ------------------------------------------
@@ -1564,6 +1693,7 @@ def main() -> int:
     kernel_stream(results)
     kernel_fanin_sharded(results)
     kernel_probes(results)
+    guard_cost(results)
     print(f"phase 2: all {len(obs_device.KERNELS)} kernels equal their "
           f"plain versions on the card")
     guard_path()

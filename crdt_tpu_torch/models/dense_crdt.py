@@ -439,7 +439,8 @@ class DenseCrdt:
         """Write values at slot indices; the whole batch shares ONE
         freshly sent HLC (putAll semantics, crdt.dart:46-54). ``tombs``
         (bool per entry) tombstones those entries under the same stamp.
-        Slots must be unique within a batch."""
+        A slot repeated within the batch takes its last entry, every
+        lane from that one entry."""
         self._refuse_in_pipeline("put_batch")
         slots = np.asarray(slots, np.int64).reshape(-1)
         self._check_slots(slots)
@@ -475,10 +476,25 @@ class DenseCrdt:
         self.stats.records_put += int(slots.shape[0])
         self._emit_delete(slots)
 
+    def _last_wins(self, slots: np.ndarray, values: Optional[np.ndarray],
+                   tombs: Optional[np.ndarray]):
+        """A local batch with only the last entry of each repeated slot.
+        Each lane is scattered on its own, and on the card the winner
+        among repeated indices is unspecified lane by lane, so a put
+        could keep one entry's ``val`` and another's ``tomb``. A delete
+        (``values=None``) writes the same words for every entry and
+        cannot tear: it goes through as it is."""
+        keep = None if values is None else self._last_wins_keep(slots)
+        if keep is None:
+            return slots, values, tombs
+        return (slots[keep], values[keep],
+                None if tombs is None else tombs[keep])
+
     def _write_local(self, slots: np.ndarray, values: Optional[np.ndarray],
                      tombs: Optional[np.ndarray]) -> None:
         """Scatter one local batch under the freshly sent stamp: a put,
         or with ``values=None`` a delete."""
+        slots, values, tombs = self._last_wins(slots, values, tombs)
         t, me = self._canonical_time.logical_time, self._local_ordinal()
         store, idx = self._writable_store(), self._to_device(slots)
         if values is None:
@@ -691,6 +707,35 @@ class DenseCrdt:
         return cls(node_id, store.n_slots, store=store, node_ids=ids,
                    **kwargs)
 
+    # --- capacity ---
+
+    def grow(self, n_slots: int) -> None:
+        """Grow the slot capacity to ``n_slots`` (records keep their
+        slots; new slots start empty), as ``crdt_tpu``'s
+        ``DenseCrdt.grow``. Shrinking would drop records; it is refused.
+        Peers at the old capacity keep syncing with this replica (their
+        narrower changesets are padded on merge); merging this replica's
+        wider changesets into an ungrown peer raises there until the
+        peer grows too.
+
+        Not carried over: the reference's executor tile check (the
+        card's kernels take any ``n_slots``), and its padding of the
+        per-slot semantics tags and the GC fence, which this package
+        does not have yet (ROADMAP A4, A5)."""
+        if n_slots < self.n_slots:
+            raise ValueError(
+                f"cannot shrink {self.n_slots} -> {n_slots} slots "
+                "(records would be dropped); build a new replica and "
+                "merge instead")
+        if n_slots == self.n_slots:
+            return
+        self.drain_ingest()
+        pad = empty_dense_store(n_slots - self.n_slots, self._device)
+        self._store = DenseStore(*(torch.cat([lane, pad_lane])
+                                   for lane, pad_lane in zip(self._store,
+                                                             pad)))
+        self._store_escaped = False
+
     # --- replication (C9/C10) ---
 
     def _fit_slots(self, cs: DenseChangeset) -> DenseChangeset:
@@ -704,7 +749,7 @@ class DenseCrdt:
         if width > self.n_slots:
             raise ValueError(
                 f"peer changeset covers {width} slots but this replica "
-                f"holds {self.n_slots}")
+                f"holds {self.n_slots}; call grow({width}) first")
         if width == self.n_slots:
             return cs
         pad = self.n_slots - width
@@ -728,9 +773,12 @@ class DenseCrdt:
             return cs   # peer table == local table: nothing to rewrite
         peer_to_local = torch.tensor(remap, dtype=torch.int32,
                                      device=self._device)
-        # Clamped: an invalid entry's ordinal is never read, but must
-        # not index out of range.
-        idx = cs.node.long().clamp_(0, len(remap) - 1)
+        # The JAX package's gather: an ordinal in -len..-1 counts from
+        # the end (a valid entry's, too), then every ordinal is clamped
+        # into range.
+        idx = cs.node.long()
+        idx = torch.where(idx < 0, idx + len(remap), idx).clamp_(
+            0, len(remap) - 1)
         return cs._replace(node=peer_to_local[idx])
 
     def merge(self, cs: DenseChangeset, node_ids: Sequence[Any]) -> None:
@@ -1061,6 +1109,7 @@ class ShardedDenseCrdt(DenseCrdt):
                      tombs: Optional[np.ndarray]) -> None:
         """The local batch scattered into every copy of each key shard
         it touches, at shard-local slots."""
+        slots, values, tombs = self._last_wins(slots, values, tombs)
         t, me = self._canonical_time.logical_time, self._local_ordinal()
         w = self._store.width
         for k in range(len(self._store.blocks[0])):
@@ -1140,18 +1189,17 @@ class ShardedDenseCrdt(DenseCrdt):
 
     def _not_yet(self, op: str, item: str):
         raise NotImplementedError(
-            f"ShardedDenseCrdt.{op} waits for the unsharded {op} of the port "
-            f"(ROADMAP {item}); it never runs an unsharded path on a "
-            "sharded store")
+            f"ShardedDenseCrdt.{op} is not ported yet (ROADMAP {item}); it "
+            "never runs an unsharded path on a sharded store")
 
     def clear(self, *args, **kwargs):
-        self._not_yet("clear", "A3")
+        self._not_yet("clear", "A3b")
 
     def purge(self, *args, **kwargs):
-        self._not_yet("purge", "A3")
+        self._not_yet("purge", "A3b")
 
     def grow(self, *args, **kwargs):
-        self._not_yet("grow", "A3")
+        self._not_yet("grow", "A3b")
 
     def compact(self, *args, **kwargs):
         self._not_yet("compact", "A4")

@@ -199,6 +199,96 @@ def probe_stream_noguard_reference(store: SplitStore, cs,
                    win_any.to(torch.int32))
 
 
+_I64_MIN = torch.iinfo(torch.int64).min
+_I32_MIN = torch.iinfo(torch.int32).min
+_I32_MAX = torch.iinfo(torch.int32).max
+
+
+def _key64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The int64 key ``hi << 32 | lo`` (hi signed, lo unsigned): its
+    order is the lex order of ``(hi, lo)``."""
+    return (hi.long() << 32) | _lo64(lo)
+
+
+def _key_gt(a_key, a_node, b_key, b_node) -> torch.Tensor:
+    """Strict lex ``(key, node)`` greater-than on int64 keys."""
+    return (a_key > b_key) | ((a_key == b_key) & (a_node > b_node))
+
+
+def _column_max(key, node, rows):
+    """Per column, the strict lex ``(key, node)`` max over the entries
+    where ``rows`` is set, the lowest row keeping ties: ``(key, node,
+    row)``, ``row == -1`` where no entry is set."""
+    r = key.shape[0]
+    top = torch.where(rows, key, _I64_MIN).amax(0)
+    cand = rows & (key == top)
+    top_node = torch.where(cand, node, _I32_MIN).amax(0)
+    cand = cand & (node == top_node)
+    at = torch.arange(r, device=key.device)[:, None]
+    row = torch.where(cand, at, r).amin(0)
+    return top, top_node, torch.where(row < r, row, -1)
+
+
+def probe_stream_noguard_closed_reference(store: SplitStore, cs,
+                                          scalars: Sequence[int],
+                                          n_chunks: int) -> Probe:
+    """P1c in closed form over the chunks, the form
+    ``csrc/probe_stream_noguard.cu`` computes; the tests hold it
+    against the chunk walk `probe_stream_noguard_reference`.
+
+    With more than one chunk, an entry whose ``hi`` is not NEG_HI
+    (moving) has the 64-bit key ``hi:lo`` advanced by ``c << 16`` in
+    chunk c; one whose ``hi`` is NEG_HI (static) never moves. Unless a
+    moving key wraps (``hi == INT32_MAX`` and ``lo`` carries), the
+    moving entries keep their order and rise every chunk, so the best
+    after the last chunk is the first-reached max of the store slot,
+    S (the static entries' max, reached in chunk 0) and M (the moving
+    entries' max at chunk 0 advanced by the last offset, reached in the
+    last chunk); an exact tie goes to the earlier visit. ``win`` is
+    "the best is an entry"; the last chunk won iff M beats the max of
+    the store and S. One chunk is P1a's join: every entry is counted
+    with M and the offset is 0. A column holding a moving entry that
+    wraps is walked chunk by chunk, as the kernel walks it."""
+    _check_chunks(n_chunks)
+    off = (n_chunks - 1) << SHIFT
+    key = _key64(cs.hi, cs.lo)
+    node = cs.node.to(torch.int32)
+    moving = (cs.hi != NEG_HI) | (n_chunks == 1)
+    wrap = (moving & (cs.hi == _I32_MAX) & (_lo64(cs.lo) + off > _U32)
+            ).any(0)
+    b_key, b_node = _key64(store.hi, store.lo), store.node
+    b_row = torch.full_like(b_node, -1, dtype=torch.int64)
+    s_key, s_node, s_row = _column_max(key, node, ~moving)
+    gt = (s_row >= 0) & _key_gt(s_key, s_node, b_key, b_node)
+    b_key, b_node = torch.where(gt, s_key, b_key), torch.where(gt, s_node,
+                                                                b_node)
+    b_row = torch.where(gt, s_row, b_row)
+    m_key, m_node, m_row = _column_max(key, node, moving)
+    m_key = m_key + off
+    won = (m_row >= 0) & _key_gt(m_key, m_node, b_key, b_node)
+    b_key, b_node = torch.where(won, m_key, b_key), torch.where(won, m_node,
+                                                                 b_node)
+    b_row = torch.where(won, m_row, b_row)
+    win = b_row >= 0
+    at = b_row.clamp(min=0)[None]
+    pick = lambda lane: lane.gather(0, at)[0]
+    best = (b_key >> 32).to(torch.int32), b_key & _U32, b_node, \
+        torch.where(win, pick(cs.val_hi), store.val_hi), \
+        torch.where(win, pick(_i32v(cs.val_lo)), _i32v(store.val_lo)), \
+        torch.where(win, pick(cs.tomb).to(torch.int32), store.tomb)
+    out = _finish(best, _stamp_mods(store, won, scalars),
+                  win.to(torch.int32))
+    if bool(wrap.any()):
+        cols = torch.nonzero(wrap).reshape(-1)
+        walked = probe_stream_noguard_reference(
+            SplitStore(*(lane[cols] for lane in store)),
+            type(cs)(*(lane[:, cols] for lane in cs)), scalars, n_chunks)
+        for lane, part in zip(list(out[0]) + [out[1]],
+                              list(walked[0]) + [walked[1]]):
+            lane.view(torch.int32)[cols] = part.view(torch.int32)
+    return out
+
+
 def probe_copy_batch_reference(store: SplitStore, cs,
                                chunk_rows: int = CHUNK_ROWS) -> Probe:
     """P2: per group of ``chunk_rows`` rows, each lane's sum in its own

@@ -22,6 +22,8 @@ from crdt_tpu_torch.ops import (fanin_kernel, ingest_kernel, probe,
                                 stream_kernel)
 from crdt_tpu_torch.ops import split as ts
 
+from torch_probe_cases import CHUNKS, SCALARS as CASE_SCALARS, \
+    expected, probe_case_lanes
 from torch_stream_cases import CLOSED_CASES, LOCAL, WALL, closed_inputs, \
     exact_flags
 
@@ -414,8 +416,8 @@ SCALARS = probe.probe_scalars(BASE + (5 << 16), 3, BASE + (9 << 16) + 0xFFFF)
     ("probe_stream_noguard", 40_001, 9, 3)])
 def test_probe_kernels_match_plain(cuda, name, n, rows, n_chunks):
     """P1a, P1b and P1c at odd n (not a multiple of the block or of the
-    TPU tile) and odd row counts; 9 rows take the stream probe past its
-    register-held column."""
+    TPU tile) and odd row counts; 9 rows end P1c's pass on a batch of
+    loads that is not full."""
     st, cs = probe_lanes(np.random.default_rng(n + rows), n, rows)
     fn = getattr(probe, name)
     args = (SCALARS,) if n_chunks is None else (SCALARS, n_chunks)
@@ -425,6 +427,62 @@ def test_probe_kernels_match_plain(cuda, name, n, rows, n_chunks):
     p = fn(*probe_on("cpu", st, cs), *args)
     for a, b in zip(list(k[0]) + [k[1]], list(p[0]) + [p[1]]):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n_chunks", CHUNKS)
+@pytest.mark.parametrize("rows", [3, 8, 13])
+def test_probe_stream_noguard_closed_form_kernel_matches_chunk_walk(
+        cuda, rows, n_chunks):
+    """P1c's closed form on the card against the chunk walk at the
+    planted inputs of ``torch_probe_cases`` (an odd slot count): all ten
+    outputs, and each planted column's outcome."""
+    st, cs = probe_case_lanes(rows, n_chunks, n=4097)
+    obs_device.reset()
+    k = probe.probe_stream_noguard(*probe_on(cuda, st, cs), CASE_SCALARS,
+                                   n_chunks)
+    assert obs_device.launches()["probe_stream_noguard"] == 1
+    p = probe.probe_stream_noguard_reference(*probe_on("cpu", st, cs),
+                                             CASE_SCALARS, n_chunks)
+    for a, b in zip(list(k[0]) + [k[1]], list(p[0]) + [p[1]]):
+        assert torch.equal(a.cpu(), b)
+    for col, (won_any, won_last, row) in expected(n_chunks).items():
+        assert bool(k[1][col]) == won_any, col
+        assert (int(k[0].mod_hi[col]) == CASE_SCALARS[5]) == won_last, col
+        want = cs.val_hi[row, col] if row >= 0 else st.val_hi[col]
+        assert int(k[0].val_hi[col]) == int(want), col
+
+
+@pytest.mark.parametrize("model", ["dense", "sharded"])
+def test_put_batch_repeated_slots_on_card_keep_the_last_entry(cuda, model):
+    """One ``put_batch`` outside ``ingest()`` with 20,000 entries on 300
+    slots and mixed tombs: on the card every lane of a slot comes from
+    its last entry, as on the host. Without the host-side last-wins
+    dedup each lane's indexed write could keep another entry."""
+    n = 5000
+    rng = np.random.default_rng(9)
+    slots = rng.integers(0, 300, 20_000)
+    vals = rng.integers(-2 ** 40, 2 ** 40, len(slots))
+    tombs = rng.random(len(slots)) < 0.5
+    replicas = []
+    for device in (cuda, "cpu"):
+        tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
+        if model == "dense":
+            c = port.DenseCrdt("n1", n, device=device,
+                               wall_clock=tick.__next__)
+        else:
+            mesh = parallel.make_fanin_mesh(
+                2, 2, None if device is cuda else ["cpu"] * 4)
+            c = port.ShardedDenseCrdt("n1", n, mesh,
+                                      wall_clock=tick.__next__)
+        c.put_batch(slots, vals, tombs=tombs)
+        replicas.append(c)
+    a, b = replicas
+    for x, y in zip(a.store, b.store):
+        assert torch.equal(x.cpu(), y)
+    last = {s: i for i, s in enumerate(slots.tolist())}
+    at, idx = np.array(list(last.values())), np.array(list(last))
+    assert np.array_equal(a.store.val.cpu().numpy()[idx], vals[at])
+    assert np.array_equal(a.store.tomb.cpu().numpy()[idx], tombs[at])
 
 
 @pytest.mark.parametrize("n,rows,narrow", [(5000, 16, False),

@@ -46,6 +46,8 @@ from crdt_tpu_torch.ops import dense as td
 from crdt_tpu_torch.ops import probe
 from crdt_tpu_torch.ops import split as ts
 
+import torch_probe_cases as pc
+
 N = 8192                       # two (8, 512) tiles of the TPU grid
 NEG_HI = ts.NEG_HI
 I16_NEG = ts.I16_NEG
@@ -130,7 +132,8 @@ def to_torch(lanes):
 # --- the JAX bodies in interpret mode, as the probe builds their calls --
 
 
-def jax_call(kernel, store, cs, *, n_chunks=None, chunk_rows=None):
+def jax_call(kernel, store, cs, *, n_chunks=None, chunk_rows=None,
+             scalars=SCALARS):
     """``pl.pallas_call`` of a probe body with ``_variant_call``'s
     (``n_chunks=None``), ``_stream_call``'s or ``run_batch_copy``'s
     (``chunk_rows``) BlockSpecs, grid and aliases, in interpret mode."""
@@ -170,7 +173,7 @@ def jax_call(kernel, store, cs, *, n_chunks=None, chunk_rows=None):
                                                 jnp.int32)]),
         input_output_aliases={1 + n_cs + j: j for j in range(9)},
         interpret=True,
-    )(jnp.asarray(SCALARS, jnp.int32), *cs3d, *st2d)
+    )(jnp.asarray(scalars, jnp.int32), *cs3d, *st2d)
     return [np.asarray(o).reshape(n) for o in outs]
 
 
@@ -231,6 +234,43 @@ def test_probe_stream_noguard_matches_jax_body(seed):
     two = probe.probe_stream_noguard(to_torch(st), to_torch(cs), SCALARS,
                                      n_chunks=2)
     assert (two[1].numpy()[stale] == 0).all()
+
+
+@pytest.mark.parametrize("n_chunks", pc.CHUNKS)
+@pytest.mark.parametrize("r", [3, 8, 13])
+def test_probe_stream_noguard_closed_form_matches_chunk_walk_and_pallas(
+        r, n_chunks):
+    """`probe_stream_noguard_closed_reference` (what
+    ``csrc/probe_stream_noguard.cu`` computes) against the chunk walk on
+    the planted cases of `torch_probe_cases`, and against the JAX body in
+    interpret mode at up to 3 chunks: all ten outputs, tolerance 0."""
+    st, cs = pc.probe_case_lanes(r, n_chunks)
+    args = (to_torch(st), to_torch(cs), pc.SCALARS, n_chunks)
+    closed = probe.probe_stream_noguard_closed_reference(*args)
+    where = f"P1c closed r={r} n_chunks={n_chunks}"
+    walk = probe.probe_stream_noguard_reference(*args)
+    assert_probe_equal([x.numpy() for x in list(walk[0]) + [walk[1]]],
+                       closed, f"{where} vs walk")
+    if n_chunks <= 5:
+        jouts = jax_call(jpk._stream_noguard_kernel, st, cs,
+                         n_chunks=n_chunks, scalars=pc.SCALARS)
+        assert_probe_equal(jouts, closed, f"{where} vs pallas")
+    out, win = closed
+    for col, (won_any, won_last, row) in pc.expected(n_chunks).items():
+        at = f"{where} column {col}"
+        assert bool(win[col]) == won_any, at
+        assert (int(out.mod_hi[col]) == pc.SCALARS[5]) == won_last, at
+        if row >= 0:
+            assert int(out.val_hi[col]) == int(cs.val_hi[row, col]), at
+        else:
+            assert int(out.val_hi[col]) == int(st.val_hi[col]), at
+    # The random columns reach both forms: a wrapping column (walked)
+    # and columns where a static entry or the last chunk wins.
+    moving = (cs.hi != ts.NEG_HI) & (n_chunks > 1)
+    off = (n_chunks - 1) << 16
+    wraps = (moving & (cs.hi == pc.I32_MAX)
+             & (cs.lo.astype(np.int64) + off > 0xFFFFFFFF)).any(0)
+    assert wraps.any() == (n_chunks > 1)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
