@@ -30,8 +30,10 @@ Phases, in order; any failure raises and exits non-zero:
    chunks), the batch copy (P2) at 2^20 x 128 rows, wide and
    value-ref. Timed from replayed CUDA graphs beside the plain version
    and the bound (K1: the whole merge, and one K1p block alone; K2: the
-   phase's rows and the main path's first flush as committed and
-   sorted by slot, its bound in 32-B sectors; K3: the launch alone and
+   phase's rows and the main path's first flush as committed (in slot
+   order) and in staging order, each warm and with the L2 emptied
+   first, beside its bound in 32-B sectors and its count of sector
+   store requests; K3: the launch alone and
    the whole call; K1p: its one launch over the four blocks beside four
    one-block launches, and the combine apart); then K3 in fast mode and
    P1c in turns on the same replay, and their difference (the cost of
@@ -61,6 +63,17 @@ Phases, in order; any failure raises and exits non-zero:
      clock, delta bytes, exception) with every replica copy equal, and
      one K1p launch per device and merge; then the (1, 1) and
      multislice (2, 1, 2) meshes at 2^16 slots;
+   - path E, gossip through the wire forms at 2^20 slots: a peer's
+     ``pack_since`` deltas of 262,144 (the wide join), 65,536 and 4,096
+     rows (the sparse join) go through ``pack_rows`` and
+     ``unpack_rows`` into ``merge_packed`` on a receiver whose own
+     flushes overlap them, the 65,536-row delta through
+     ``merge_and_repack`` on a relay, and a 4,096-row ``to_json`` into
+     ``merge_json``; each replica held bit for bit against a twin on
+     the CPU given the same operations (lanes, clock, frame bytes),
+     each merge timed on the host clock and split into decode and
+     validation and the join, with the card's busy time under the
+     profiler;
    - path D, the probe entry point (``crdt_tpu_torch.bench``) at the JAX
      CLI's defaults: its seven variants (``full``, ``stream``,
      ``stream-noguard``, ``nojoin``, ``copy``, ``copy-batch``,
@@ -69,6 +82,8 @@ Phases, in order; any failure raises and exits non-zero:
      calls); then P2 and K1 timed in turns and ``copy_`` of P2's lanes:
      P2's achieved rate is the measured copy rate, and each fan-in
      kernel's counted bytes over it give its time at that rate.
+   Beside the main path, its ingest flush split apart (`flush_split`):
+   staging, dedup and slot order, padding and copies, the kernel.
 4. A JSON line per measurement, the ``kernels`` line, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -196,6 +211,24 @@ def graph_ms(fn, iters: int, repeats: int = 3) -> list:
             fn()
     return [cuda_ms(graph.replay, 1, warmup=1) / iters
             for _ in range(repeats)]
+
+
+def device_ms(fn) -> dict:
+    """Device time of everything ``fn`` puts on the card, by kernel or
+    copy name, from ``torch.profiler``'s CUDA activity. CUDA events
+    around host-driven work would bracket the host's enqueueing too (the
+    card idles while the host prepares the next op). Empty if the
+    profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if us:
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3
+    return out
 
 
 def max_abs_err(a, b) -> int:
@@ -357,7 +390,52 @@ def kernel_fanin(results: dict) -> None:
     del cs, store, k_store, p_store, blk, cblk
 
 
+def cold_graph_ms(fn, iters: int = 20, repeats: int = 3) -> list:
+    """Device time per call of ``fn`` with the L2 cache emptied of its
+    lanes before each call: a graph of ``iters`` x (read a buffer twice
+    the L2, then ``fn``) less a graph of the reads alone. The read leaves
+    clean lines, so ``fn`` pays no write-back of the flush's."""
+    flush = torch.ones(L2_FLUSH_BYTES // 8, dtype=torch.int64,
+                       device="cuda")
+    out = torch.empty((), dtype=torch.int64, device="cuda")
+    evict = lambda: torch.amax(flush, dim=0, out=out)
+
+    def both():
+        evict()
+        fn()
+
+    evict_ms = graph_ms(evict, iters=iters, repeats=repeats)
+    both_ms = graph_ms(both, iters=iters, repeats=repeats)
+    return [b - e for b, e in zip(both_ms, evict_ms)]
+
+
+L2_FLUSH_BYTES = 128 << 20           # more than twice the H100's 50 MB L2
+
+
+def store_requests(slots: torch.Tensor, n: int) -> int:
+    """The 32-B sectors one K2 launch's store instructions address: for
+    each warp (32 consecutive rows) and each of the seven store lanes,
+    the distinct sectors its live rows' slots fall in, summed. A
+    diagnostic of how the row order spreads the stores (the bound
+    counts each touched sector once per flush)."""
+    warp = torch.arange(len(slots), device=slots.device) // 32
+    live = slots < n
+    w, s = warp[live], slots[live]
+    total = 0
+    for e in STORE_LANE_BYTES:
+        sector = s * e // SECTOR
+        total += len(torch.unique(w * (n * 8 // SECTOR + 1) + sector))
+    return total
+
+
 def kernel_ingest(results: dict) -> None:
+    """K2 against its plain version on the phase's rows (65,000 live
+    rows in random order, sentinels at the end), then on the main path's
+    first flush as the combiner commits it (slot order, from
+    `DenseCrdt._last_wins_order`) and the same rows in staging order (a
+    random order: how flushes were committed before slot order). Each
+    timed warm (a graph replay: the flush's lines stay in L2) and cold
+    (L2 emptied first), beside its sector bound and its store requests."""
     rng = np.random.default_rng(3)
     base = make_store(N_SLOTS, 4)
     for rows, live in ((FLUSH_ROWS, 65_000), (FLUSH_ROWS, FLUSH_ROWS)):
@@ -375,53 +453,58 @@ def kernel_ingest(results: dict) -> None:
         check(err == 0, f"ingest_scatter kernel != plain version at "
                         f"{live} live rows (max |err| {err})")
     work = DenseStore(*(x.clone() for x in base))
-    launch = lambda: ingest_kernel._ingest_cuda(work, *lanes, 4)
-    call_ms = cuda_ms(launch, iters=200)
-    plain_ms = cuda_ms(lambda: ingest_scatter(work, *lanes, 4), iters=20)
-    # The main path's first flush as the combiner commits it (its rows
-    # in staging order: the last-wins dedup keeps the order, and these
-    # slots are unique), and the same rows sorted by slot.
     main_slots, main_vals, main_tombs = flush_inputs(0)
-    orders = {"main_path_as_committed": np.arange(FLUSH_ROWS),
-              "main_path_sorted": np.argsort(main_slots)}
     row_lt = (MILLIS << SHIFT) + rng.integers(0, 1 << 30, FLUSH_ROWS)
-    launches = {"phase2": launch}
+    orders = {"main_path_as_committed":
+              DenseCrdt._last_wins_order(main_slots)[1],
+              "main_path_staging_order": np.arange(FLUSH_ROWS)}
+    inputs = {"phase2": lanes}
     for order, at in orders.items():
-        olanes = [torch.tensor(a[at], device="cuda") for a in (
+        inputs[order] = [torch.tensor(a[at], device="cuda") for a in (
             main_slots, row_lt, main_vals, main_tombs)]
         check(max_abs_err(
             ingest_kernel.ingest_scatter(
-                DenseStore(*(x.clone() for x in base)), *olanes, 4),
+                DenseStore(*(x.clone() for x in base)), *inputs[order], 4),
             ingest_scatter(DenseStore(*(x.clone() for x in base)),
-                           *olanes, 4)) == 0,
+                           *inputs[order], 4)) == 0,
               f"ingest_scatter kernel != plain version ({order})")
-        launches[order] = (lambda olanes=olanes: ingest_kernel._ingest_cuda(
-            work, *olanes, 4))
-    runs = {k: [] for k in launches}
+    check(bool((inputs["main_path_as_committed"][0].diff() > 0).all()),
+          "the combiner's commit order is not slot order")
+    launches = {k: (lambda x=x: ingest_kernel._ingest_cuda(work, *x, 4))
+                for k, x in inputs.items()}
+    warm = {k: [] for k in inputs}
+    cold = {k: [] for k in inputs}
     for _ in range(2):                       # the three inputs in turns
-        for order, fn in launches.items():
-            runs[order] += graph_ms(fn, iters=200)
-    moved = scatter_traffic(lanes[0], N_SLOTS)
-    main_moved = scatter_traffic(torch.tensor(main_slots, device="cuda"),
-                                 N_SLOTS)
-    by_order = {order: dict(ms=float(np.median(runs[order])),
-                            ms_runs=runs[order], bytes_moved=main_moved,
-                            bound_ms=main_moved / HBM_BYTES_PER_S * 1e3)
-                for order in orders}
-    ms = float(np.median(runs["phase2"]))
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        for name, fn in launches.items():
+            warm[name] += graph_ms(fn, iters=200)
+            cold[name] += cold_graph_ms(fn)
+    by_input = {}
+    for name, x in inputs.items():
+        moved = scatter_traffic(x[0], N_SLOTS)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        ms, ms_cold = float(np.median(warm[name])), float(
+            np.median(cold[name]))
+        by_input[name] = dict(
+            ms=ms, ms_runs=warm[name], cold_ms=ms_cold,
+            cold_ms_runs=cold[name], bytes_moved=moved, bound_ms=bound,
+            share_of_bound=bound / ms, cold_share_of_bound=bound / ms_cold,
+            store_requests_32b=store_requests(x[0], N_SLOTS))
+    main = inputs["main_path_as_committed"]
+    call_ms = cuda_ms(launches["main_path_as_committed"], iters=200)
+    plain_ms = cuda_ms(lambda: ingest_scatter(work, *main, 4), iters=20)
+    row = by_input["main_path_as_committed"]
     results["ingest_scatter"] = dict(
         name="ingest_scatter", route="cuda",
         source="crdt_tpu_torch/csrc/ingest_scatter.cu",
         replaces="crdt_tpu/ops/pallas_scatter.py:90",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by="bytes",
-        library_ms=None, shape=[rows, N_SLOTS], bytes_moved=moved,
-        ms_runs=runs["phase2"], call_ms=call_ms, slot_orders=by_order)
-    print(f"  ingest_scatter [{rows} rows -> {N_SLOTS}]: bit-exact, {ms:.4f} "
-          f"ms, bound {bound_ms:.5f} ms in sectors; main path's rows "
-          f"{by_order['main_path_as_committed']['ms']:.4f} ms as committed, "
-          f"{by_order['main_path_sorted']['ms']:.4f} ms sorted")
+        max_abs_err=err, ms=row["ms"], plain_ms=plain_ms,
+        bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None,
+        shape=[FLUSH_ROWS, N_SLOTS], bytes_moved=row["bytes_moved"],
+        ms_runs=row["ms_runs"], call_ms=call_ms, inputs=by_input)
+    print(f"  ingest_scatter [{FLUSH_ROWS} rows -> {N_SLOTS}]: bit-exact; "
+          + "; ".join(f"{k} {v['ms']:.4f} ms warm, {v['cold_ms']:.4f} cold, "
+                      f"bound {v['bound_ms']:.5f}, {v['store_requests_32b']} "
+                      f"sector requests" for k, v in by_input.items()))
 
 
 # Bytes per slot of the seven store lanes an ingest flush writes: lt,
@@ -1219,32 +1302,95 @@ def main_path(card: str) -> dict:
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
+def flush_split(flushes: int = 4) -> dict:
+    """An ingest flush of the main path split apart on the host clock:
+    staging (``put_batch``), dedup and slot order (the flush less its
+    commit: the stamp, the one sort and the staged lanes' gather),
+    padding and host-to-device copies (`_flush_lanes`), and the kernel's
+    wrapper (checks and launch). Each part is timed on the replica's own
+    methods, synchronized, so the same function splits any tree whose
+    model has these methods. Then the same flushes on a second replica
+    under the profiler: the kernel's device time as the main path sees
+    it (its L2 state left by the flushes before) and the copies'. Last,
+    the plain ingest window over the same inputs, made beforehand, on
+    three fresh replicas: a flush end to end, without the wrappers'
+    synchronizations or the main path's input generation."""
+    from crdt_tpu_torch.models import dense_crdt as model
+    spent = dict(stage=0.0, flush=0.0, commit=0.0, lanes=0.0, kernel=0.0)
+
+    def timed(part, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            spent[part] += time.perf_counter() - t0
+            return out
+        return run
+
+    def replica(timing: bool):
+        crdt = DenseCrdt("n0", N_SLOTS, node_ids=IDS,
+                         wall_clock=StepClock(MILLIS))
+        if timing:
+            crdt._commit_scatter = timed("commit", crdt._commit_scatter)
+            crdt._flush_lanes = timed("lanes", crdt._flush_lanes)
+        return crdt
+
+    def run(crdt, timing: bool):
+        with crdt.ingest(auto_flush_rows=FLUSH_ROWS + 1) as wc:
+            for f in range(flushes):
+                inputs = flush_inputs(f)
+                t0 = time.perf_counter()
+                crdt.put_batch(*inputs)
+                if timing:
+                    spent["stage"] += time.perf_counter() - t0
+                (timed("flush", wc.flush) if timing else wc.flush)()
+
+    kernel = model.ingest_scatter
+    model.ingest_scatter = timed("kernel", kernel)
+    try:
+        run(replica(True), True)
+    finally:
+        model.ingest_scatter = kernel
+    profiled = replica(False)
+    dev = device_ms(lambda: run(profiled, False))
+    inputs = [flush_inputs(f) for f in range(flushes)]
+    window_s = []
+    for _ in range(3):
+        crdt = replica(False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with crdt.ingest(auto_flush_rows=FLUSH_ROWS):
+            for x in inputs:
+                crdt.put_batch(*x)
+        torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - t0)
+    per = {k: v / flushes for k, v in spent.items()}
+    kern = sum(v for k, v in dev.items() if "ingest_scatter" in k)
+    copies = sum(v for k, v in dev.items() if "Memcpy HtoD" in k)
+    return dict(flushes=flushes, stage_s=per["stage"],
+                commit_s=per["flush"],
+                dedup_and_order_s=per["flush"] - per["commit"],
+                pad_and_copy_s=per["lanes"], kernel_call_s=per["kernel"],
+                kernel_device_ms=kern / flushes if dev else None,
+                copies_device_ms=copies / flushes if dev else None,
+                flush_s=[w / flushes for w in window_s])
+
+
 def breakdown() -> dict:
     """Where the main path's host-clock time goes, measured apart from
     the counted run: the window's data generation alone (same seeds),
-    and an ingest flush split into staging (``put_batch``) and commit
-    (stamp, dedup, padding, host-to-device copies, kernel)."""
+    and the ingest flush split (`flush_split`)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for p in range(PASSES):
         make_changeset(ROWS_PER_PASS, N_SLOTS, 1000 + p)
     torch.cuda.synchronize()
     generation_s = time.perf_counter() - t0
-    crdt = DenseCrdt("n0", N_SLOTS, node_ids=IDS,
-                     wall_clock=StepClock(MILLIS))
-    stage_s = commit_s = 0.0
-    with crdt.ingest(auto_flush_rows=FLUSH_ROWS + 1) as wc:
-        for f in range(4):
-            inputs = flush_inputs(f)
-            t0 = time.perf_counter()
-            crdt.put_batch(*inputs)
-            t1 = time.perf_counter()
-            wc.flush()
-            torch.cuda.synchronize()
-            stage_s += t1 - t0
-            commit_s += time.perf_counter() - t1
+    split = flush_split()
     return dict(window_generation_s=generation_s,
-                flush_stage_s=stage_s / 4, flush_commit_s=commit_s / 4)
+                flush_stage_s=split["stage_s"],
+                flush_commit_s=split["commit_s"], flush_split=split)
 
 
 def guard_path() -> None:
@@ -1572,6 +1718,198 @@ def path_c(card: str) -> dict:
 
 # Path D: the probe entry point and the fan-in rows at the JAX CLI's
 # defaults, then the copy rate they are read against.
+# Path E: packed and JSON deltas between torch replicas at 2^20 slots.
+# The peer's deltas: 262,144 rows (the wide join: 262,144 x 4 = 2^20),
+# then 65,536 and 4,096 (the sparse join), then 4,096 rows as JSON.
+E_DELTAS = (("wide", 4 * FLUSH_ROWS), ("sparse_65536", FLUSH_ROWS),
+            ("sparse_4096", DELTA_ROWS), ("json_4096", DELTA_ROWS))
+TWINS = {"card": "cuda", "host": "cpu"}    # each replica and its twin
+
+
+class JoinClock:
+    """Times a replica's store join (`DenseCrdt._dispatch_columns`) on
+    the host clock, synchronized, so a merge's time splits into the
+    host's decode and validation and the join."""
+
+    def __init__(self, crdt):
+        self.host_s = 0.0
+        inner = crdt._dispatch_columns
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*args)
+            torch.cuda.synchronize()
+            self.host_s += time.perf_counter() - t0
+            return out
+
+        crdt._dispatch_columns = run
+
+
+def gossip_warmup() -> None:
+    """Each merge route once on a small card replica, so the timed
+    merges do not pay the first launch of torch's kernels."""
+    from crdt_tpu_torch.ops.packing import pack_rows, unpack_rows
+    n = 4096
+    src = DenseCrdt("w0", n, wall_clock=StepClock(MILLIS))
+    dst = DenseCrdt("w1", n, wall_clock=StepClock(MILLIS))
+    rng = np.random.default_rng(9)
+    for rows in (1500, 100):          # the wide join, then the sparse
+        since = Hlc.from_logical_time(
+            src.canonical_time.logical_time + 1, "w0")
+        src.put_batch(rng.choice(n, rows, replace=False),
+                      rng.integers(0, 99, rows))
+        meta, bufs = pack_rows(src.pack_since(since)[0])
+        dst.merge_packed(unpack_rows(meta, b"".join(map(bytes, bufs))),
+                         src.pack_since()[1])
+    dst.merge_and_repack(*src.pack_since(since), since)
+    dst.merge_json(src.to_json(since))
+    torch.cuda.synchronize()
+
+
+def path_e(card: str) -> dict:
+    """Gossip between torch replicas through the wire forms (see the
+    module doc): a peer's ``pack_since`` deltas framed by ``pack_rows``
+    and read back by ``unpack_rows`` into ``merge_packed`` on a
+    receiver, one relay through ``merge_and_repack`` on a second
+    receiver, one ``to_json`` into ``merge_json``. Every replica has a
+    twin on the CPU given the same operations; lanes, clocks and every
+    frame's bytes must be equal."""
+    from crdt_tpu_torch.ops.packing import pack_rows, unpack_rows
+    perm = np.random.default_rng(500).permutation(N_SLOTS)
+    cuts = np.cumsum([0] + [rows for _, rows in E_DELTAS])
+
+    def replicas(node_id, start):
+        return {role: DenseCrdt(node_id, N_SLOTS, device=dev,
+                                wall_clock=StepClock(start))
+                for role, dev in TWINS.items()}
+
+    def flush(crdts, slots, seed):
+        rng = np.random.default_rng(seed)
+        vals = rng.integers(-2 ** 62, 2 ** 62, len(slots))
+        tombs = rng.random(len(slots)) < 0.2
+        for c in crdts.values():
+            with c.ingest(auto_flush_rows=FLUSH_ROWS):
+                c.put_batch(slots, vals, tombs)
+
+    def frame(delta):
+        meta, bufs = pack_rows(delta)
+        return meta, b"".join(bytes(b) for b in bufs)
+
+    # Receivers first: their flushes sit between the peer's early and
+    # late ones (StepClock: one millisecond a flush), so on shared slots
+    # some of the peer's rows win and some lose, ties included.
+    rcv, relay = replicas("r0", MILLIS + 500), replicas("q0", MILLIS + 500)
+    # A third receiver on the card takes the same merges under the
+    # profiler: each merge's device time, apart from the timed run.
+    rcv["profiled"] = DenseCrdt("r0", N_SLOTS, device=TWINS["card"],
+                                wall_clock=StepClock(MILLIS + 500))
+    for f in range(2):
+        slots = flush_inputs(600 + f)[0]
+        flush(rcv, slots, 610 + f)
+        flush(relay, slots, 620 + f)
+    peer = replicas("p0", MILLIS + 499)
+    deltas = {}
+    obs_device.reset()
+    for (name, rows), lo, hi in zip(E_DELTAS, cuts[:-1], cuts[1:]):
+        # One past the clock: the bound is inclusive, and the last
+        # flush's rows carry the clock itself.
+        since = Hlc.from_logical_time(
+            peer["card"].canonical_time.logical_time + 1, "p0")
+        flush(peer, perm[lo:hi], 700 + lo)
+        if name.startswith("json"):
+            wires = [c.to_json(since) for c in peer.values()]
+        else:
+            wires = [frame(c.pack_since(since)[0]) for c in peer.values()]
+        check(wires[0] == wires[1], f"path E: the peer's {name} delta "
+                                    "differs between card and host")
+        deltas[name] = wires[0]
+    ids = peer["card"].pack_since()[1]
+    check(len(json.loads(deltas["json_4096"])) == DELTA_ROWS,
+          "path E: the JSON delta's size")
+
+    def merge(c, name, rows):
+        if name.startswith("json"):
+            c.merge_json(deltas[name])
+            return 0.0
+        w0 = time.perf_counter()
+        delta = unpack_rows(*deltas[name])
+        wire_s = time.perf_counter() - w0
+        check(delta.k == rows, f"path E: {name} holds {delta.k} rows")
+        c.merge_packed(delta, ids)
+        return wire_s
+
+    gossip_warmup()
+    merges = {}
+    clocks = {role: JoinClock(rcv[role]) for role in TWINS}
+    for name, rows in E_DELTAS:
+        out = {}
+        for role in TWINS:
+            before = clocks[role].host_s
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wire_s = merge(rcv[role], name, rows)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            join_s = clocks[role].host_s - before
+            out[role] = dict(seconds=total, rows_per_s=rows / total,
+                             unpack_s=wire_s, join_s=join_s,
+                             decode_and_validate_s=total - join_s - wire_s)
+        dev = device_ms(lambda: merge(rcv["profiled"], name, rows))
+        busy = sum(dev.values()) if dev else None
+        out["card"].update(device_ms=busy, device_ms_by_op=dev,
+                           idle_share=None if busy is None
+                           else 1 - busy / 1e3 / out["card"]["seconds"])
+        merges[name] = dict(rows=rows, route="wide" if rows * 4 >= N_SLOTS
+                            else "sparse", card=out["card"],
+                            host_twin_s=out["host"]["seconds"])
+        print(f"  path E {name}: {rows} rows in "
+              f"{out['card']['seconds']:.4f} s on the card "
+              f"({out['card']['rows_per_s']:.0f} rows/s; decode and "
+              f"validation {out['card']['decode_and_validate_s']:.4f} s, "
+              f"join {out['card']['join_s']:.4f} s, device busy "
+              f"{busy if busy is None else round(busy, 4)} ms)")
+    for c in rcv.values():
+        check(c.stats.records_adopted > 0, "path E: nothing won")
+
+    # The relay: the 65,536-row delta through merge_and_repack.
+    since = relay["card"].canonical_time
+    relayed, times = [], []
+    for c in relay.values():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_delta, out_ids = c.merge_and_repack(
+            unpack_rows(*deltas["sparse_65536"]), ids, since)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        relayed.append(frame(out_delta))
+        check(c.pack_since(since)[0] is out_delta,
+              "path E: the relay did not seed the pack cache")
+    check(relayed[0] == relayed[1], "path E: relayed bytes differ between "
+                                    "card and host")
+    adopted = relay["card"].stats.records_adopted
+    launches = obs_device.launches()
+
+    check(max_abs_err(rcv["card"].store, rcv["profiled"].store) == 0,
+          "path E: the profiled receiver differs from the timed one")
+    for group, what in ((rcv, "receiver"), (relay, "relay"),
+                        (peer, "peer")):
+        err = max_abs_err(group["card"].store, [
+            x.to(TWINS["card"]) for x in group["host"].store])
+        check(err == 0, f"path E: the {what}'s lanes differ from its host "
+                        f"twin (max |err| {err})")
+        check(group["card"].canonical_time == group["host"].canonical_time,
+              f"path E: the {what}'s clock differs from its host twin")
+    k_out = relayed[0][0]["lanes"][0][2][0]
+    check(0 < k_out and adopted > 0, "path E: the relay adopted nothing")
+    return dict(card=card, n_slots=N_SLOTS, merges=merges,
+                relay=dict(rows=FLUSH_ROWS, seconds=times[0],
+                           rows_per_s=FLUSH_ROWS / times[0],
+                           host_twin_s=times[1], repacked_rows=k_out,
+                           adopted=adopted),
+                launches=launches)
+
+
 LOOPS = 48                       # the probe CLI's --loops
 STREAM_REPEATS = 64              # bench.py's --repeats
 
@@ -1711,6 +2049,10 @@ def main() -> int:
     print("phase 3: path C (ShardedDenseCrdt on (2, 2), (1, 1) and "
           "(2, 1, 2) meshes) equals the unsharded model; replica copies "
           "equal")
+    gossip = path_e(card)
+    print("phase 3: path E (pack_since -> pack_rows -> unpack_rows -> "
+          "merge_packed on both routes, merge_and_repack, merge_json) "
+          "equals the host replicas")
     probes = path_d(card, results)
     print(f"phase 3: path D (the probe entry point's seven variants, the "
           f"distinct and stream rows) ran; P2 "
@@ -1733,7 +2075,7 @@ def main() -> int:
                            for n in obs_device.KERNELS]}
     record = dict(card=card, build_s=build_s, main_path=path,
                   path_a=interchange, path_b=stream, path_c=sharded,
-                  path_d=probes,
+                  path_d=probes, path_e=gossip,
                   kernel_detail=results, torch=torch.__version__,
                   held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -1744,6 +2086,7 @@ def main() -> int:
     print(json.dumps({"path_b": stream}))
     print(json.dumps({"path_c": sharded}))
     print(json.dumps({"path_d": probes}))
+    print(json.dumps({"path_e": gossip}))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

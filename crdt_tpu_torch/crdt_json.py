@@ -12,6 +12,8 @@ byte-for-byte on the golden strings in `test/map_crdt_test.dart:114-150`:
 - Keys stringified by default (crdt_json.dart:13) via :func:`dart_str`,
   which mirrors Dart's ``toString`` for the key types exercised by the
   reference tests (str, int, datetime).
+- ``decode_columns``: the columnar decode that ``DenseCrdt.merge_json``
+  ingests, with no `Record`/`Hlc` objects per record.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ import json
 from datetime import datetime
 from typing import Any, Dict, Optional
 
-from .hlc import Hlc
+import numpy as np
+
+from .hlc import SHIFT, Hlc
 from .record import (KeyDecoder, KeyEncoder, NodeIdDecoder, Record,
                      ValueDecoder, ValueEncoder)
 
@@ -86,6 +90,48 @@ def decode(json_str: str, canonical_time: Hlc,
                              node_id_decoder=node_id_decoder)
         for key, value in json.loads(json_str).items()
     }
+
+
+def _check_lane_millis(millis: int) -> None:
+    """Refuse millis the int64 lane packing can't hold, with the JAX
+    package's message (numpy's generic OverflowError on assignment says
+    nothing about the remedy)."""
+    if not -0x8000_0000_0000 <= millis <= 0x7FFF_FFFF_FFFF:
+        raise OverflowError(
+            "HLC millis outside the int64 lane range (|millis| "
+            ">= 2^47); use the scalar MapCrdt for such timestamps")
+
+
+def decode_columns(json_str: str,
+                   key_decoder: Optional[KeyDecoder] = None,
+                   value_decoder: Optional[ValueDecoder] = None,
+                   node_id_decoder: Optional[NodeIdDecoder] = None):
+    """Wire JSON -> columnar ``(keys, lt, node_ids, values)``: ``lt`` an
+    int64 array of packed logical times, the rest lists aligned with
+    it. Semantics match :func:`decode` minus the ``modified`` stamp,
+    which is the merging store's concern (winners are re-stamped with
+    the post-absorption canonical, crdt.dart:86-87). A repeated wire key
+    keeps its first position and its last record, as the JSON object's
+    dict does; ``value_decoder`` sees the raw wire key."""
+    items = list(json.loads(json_str).items())
+    hlc_strs = [v["hlc"] for _, v in items]
+    lt = np.empty(len(items), np.int64)
+    nodes = [None] * len(items)
+    for i, s in enumerate(hlc_strs):
+        h = Hlc.parse(s)
+        _check_lane_millis(h.millis)
+        lt[i] = (h.millis << SHIFT) + h.counter
+        nodes[i] = h.node_id
+    if node_id_decoder is not None:
+        nodes = [node_id_decoder(n) for n in nodes]
+    keys = ([k for k, _ in items] if key_decoder is None
+            else [key_decoder(k) for k, _ in items])
+    if value_decoder is None:
+        values = [v.get("value") for _, v in items]
+    else:
+        values = [None if (raw_v := v.get("value")) is None
+                  else value_decoder(k, raw_v) for k, v in items]
+    return keys, lt, nodes, values
 
 
 class CrdtJson:

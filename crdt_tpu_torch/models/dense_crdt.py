@@ -18,7 +18,14 @@ is a batched tensor op. The replication loop:
   32-bit lanes (`ops.split`) that ``merge_split`` takes back through the
   pre-split kernel, with no conversion to wide lanes.
 - **Deltas out.** ``export_delta``, ``pack_since``, ``record_map`` and
-  ``to_json`` select rows through `ops.dense.dense_delta_mask`.
+  ``to_json`` select rows through `ops.dense.dense_delta_mask`;
+  ``pack_since`` keeps a clock-keyed cache of its packs.
+- **Columnar deltas in.** ``merge_packed`` (a peer's ``pack_since``,
+  either package), ``merge_json``, ``merge_records`` and the gossip
+  relay ``merge_and_repack`` validate on the host, fold the recv guards
+  in the payload's visit order (`utils.host_guards`), then join through
+  `ops.dense.sparse_fanin_step` (or `wire_join_step` when the delta
+  covers a quarter of the slots or more), in place.
 
 `ShardedDenseCrdt` is the same model with its key space sharded over a
 device mesh (`crdt_tpu_torch.parallel`); `sync_dense` is one
@@ -33,6 +40,7 @@ kernel for CUDA tensors and its plain torch version for CPU tensors.
 from __future__ import annotations
 
 import sys
+from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -45,7 +53,8 @@ from ..hlc import (MAX_COUNTER, SHIFT, ClockDriftException,
 from ..ops.dense import (CHANGESET_DTYPES, DenseChangeset, DenseStore,
                          delete_scatter, dense_delta_mask,
                          dense_max_logical_time, empty_dense_store,
-                         put_scatter, store_to_changeset)
+                         merge_repack_step, put_scatter, sparse_fanin_step,
+                         store_to_changeset, wire_join_step)
 from ..ops.fanin_kernel import (mask_value_width, model_fanin_batch,
                                 model_fanin_split, pipelined_model_step,
                                 pipelined_model_step_split)
@@ -60,7 +69,9 @@ from ..ops.split import (MAX_NODE_ORDINAL, SPLIT_DTYPES, TILE,
                          NarrowSplitChangeset, SplitChangeset, _cs_shape,
                          split_changeset, split_changeset_narrow,
                          split_guard_lanes, split_to_wide, tile_changeset)
-from ..record import KeyEncoder, Record, ValueEncoder
+from ..record import (KeyDecoder, KeyEncoder, Record, ValueDecoder,
+                      ValueEncoder)
+from ..utils.host_guards import recv_fold_columns
 from ..utils.stats import MergeStats, merge_annotation
 from ..watch import ChangeHub, ChangeStream
 
@@ -169,6 +180,10 @@ class DenseCrdt:
         # that table first, then intern our own id (re-encoding lanes
         # if it sorts into the middle).
         self._table = NodeTable(node_ids or [])
+        # pack_since cache (watermark key -> packed delta); it must exist
+        # before the first store assignment, which clears it.
+        self._pack_cache: "OrderedDict[Any, Any]" = OrderedDict()
+        self._store_gen = 0
         self._store = self._adopt_store(n_slots, store)
         if self._store.n_slots != n_slots:
             raise ValueError(f"store holds {self._store.n_slots} slots but "
@@ -208,6 +223,22 @@ class DenseCrdt:
     @property
     def canonical_time(self) -> Hlc:
         return self._canonical_time
+
+    @property
+    def _store(self) -> DenseStore:
+        return self._store_lanes
+
+    @_store.setter
+    def _store(self, store: DenseStore) -> None:
+        # Every store replacement (merges, grow, ordinal remaps) passes
+        # here, every in-place write through `_touch_store`: either
+        # drops the cached packs.
+        self._store_lanes = store
+        self._touch_store()
+
+    def _touch_store(self) -> None:
+        self._store_gen += 1
+        self._pack_cache.clear()
 
     @property
     def store(self) -> DenseStore:
@@ -364,39 +395,60 @@ class DenseCrdt:
         return False if ing is None else ing.flush()
 
     @staticmethod
-    def _last_wins_keep(slots: np.ndarray) -> Optional[np.ndarray]:
+    def _last_wins_order(slots: np.ndarray
+                         ) -> Tuple[Optional[np.ndarray], np.ndarray]:
+        """``(keep, order)`` from ONE sort: ``keep`` the indices keeping
+        the LAST occurrence per duplicate slot in payload order (None
+        when already unique), ``order`` the same rows' indices in slot
+        order, which the ingest kernel's stores want."""
+        slots = np.asarray(slots, np.int64)
+        k = len(slots)
+        lo, hi = (int(slots.min()), int(slots.max())) if k else (0, 0)
+        if -(1 << 62) // max(k, 1) <= lo and hi < (1 << 62) // max(k, 1):
+            # (slot, position) in one int64 key: the keys are unique, so
+            # the unstable sort (a quarter of a stable sort's time here)
+            # orders each slot's rows by position.
+            by_slot = np.argsort(slots * k + np.arange(k))
+        else:   # slots far outside any store, which validation refuses
+            by_slot = np.argsort(slots, kind="stable")
+        ordered = slots[by_slot]
+        last = np.ones(k, bool)     # the last row of each slot's run
+        np.not_equal(ordered[1:], ordered[:-1], out=last[:-1])
+        order = by_slot[last]
+        return (None if len(order) == k else np.sort(order)), order
+
+    @classmethod
+    def _last_wins_keep(cls, slots: np.ndarray) -> Optional[np.ndarray]:
         """Indices keeping the LAST occurrence per duplicate slot, or
         None when already unique."""
-        k = len(slots)
-        # First occurrence in the reversed view = last in the payload.
-        _, idx = np.unique(slots[::-1], return_index=True)
-        if len(idx) == k:
-            return None
-        return np.sort(k - 1 - idx)
+        return cls._last_wins_order(slots)[0]
 
     def _commit_scatter(self, slots: np.ndarray, lt: np.ndarray,
-                        vals: np.ndarray, tombs: np.ndarray) -> None:
-        """ONE ingest-kernel launch committing a deduped flush."""
+                        vals: np.ndarray, tombs: np.ndarray,
+                        order: np.ndarray) -> None:
+        """ONE ingest-kernel launch committing rows ``order`` (unique
+        slots, in slot order) of a flush."""
         ingest_scatter(self._writable_store(),
-                       *self._flush_lanes(slots, lt, vals, tombs),
+                       *self._flush_lanes(slots, lt, vals, tombs, order),
                        self._local_ordinal())
 
     def _flush_lanes(self, slots: np.ndarray, lt: np.ndarray,
-                     vals: np.ndarray, tombs: np.ndarray
+                     vals: np.ndarray, tombs: np.ndarray, order: np.ndarray
                      ) -> Tuple[torch.Tensor, ...]:
-        """A deduped flush as ingest-kernel rows on the device, padded
-        to a power of two with ``slot == n_slots`` sentinels, so a steady
-        stream of flushes reuses a few allocation sizes."""
-        d = len(slots)
+        """Rows ``order`` of a flush as ingest-kernel rows on the device,
+        padded to a power of two with ``slot == n_slots`` sentinels, so a
+        steady stream of flushes reuses a few allocation sizes. The
+        gather into the padded lanes is the copy the padding makes
+        anyway."""
+        d = len(order)
         padded = 1 << max(d - 1, 1).bit_length()
         slot_l = np.full(padded, self.n_slots, np.int64)
         lt_l = np.zeros(padded, np.int64)
         val_l = np.zeros(padded, np.int64)
         tomb_l = np.zeros(padded, bool)
-        slot_l[:d] = slots
-        lt_l[:d] = lt
-        val_l[:d] = vals
-        tomb_l[:d] = tombs
+        for src, dst in ((slots, slot_l), (lt, lt_l), (vals, val_l),
+                         (tombs, tomb_l)):
+            np.take(src, order, out=dst[:d], mode="clip")
         return tuple(self._to_device(a) for a in (slot_l, lt_l, val_l, tomb_l))
 
     # --- local ops: one send per batch (crdt.dart:39-54) ---
@@ -412,6 +464,7 @@ class DenseCrdt:
         if self._store_escaped:
             self._store = DenseStore(*(lane.clone() for lane in self._store))
             self._store_escaped = False
+        self._touch_store()
         return self._store
 
     def _refuse_in_pipeline(self, op: str) -> None:
@@ -624,14 +677,20 @@ class DenseCrdt:
             return self._store.occupied
         return dense_delta_mask(self._store, modified_since.logical_time)
 
-    def _delta_rows(self, modified_since: Optional[Hlc], *names: str
-                    ) -> Tuple[np.ndarray, ...]:
-        """Slots of the delta and lanes ``names`` at those slots,
-        selected on the device: only the ``k`` rows cross to the host."""
-        idx = torch.nonzero(self._delta_mask(modified_since)).reshape(-1)
+    def _rows_at(self, mask: torch.Tensor, *names: str
+                 ) -> Tuple[np.ndarray, ...]:
+        """Slots where ``mask`` is set and lanes ``names`` at those
+        slots, selected on the device: only those rows cross to the
+        host."""
+        idx = torch.nonzero(mask).reshape(-1)
         return (idx.cpu().numpy(),
                 *(getattr(self._store, f)[idx].cpu().numpy()
                   for f in names))
+
+    def _delta_rows(self, modified_since: Optional[Hlc], *names: str
+                    ) -> Tuple[np.ndarray, ...]:
+        """Slots of the delta and lanes ``names`` at those slots."""
+        return self._rows_at(self._delta_mask(modified_since), *names)
 
     def record_map(self, modified_since: Optional[Hlc] = None
                    ) -> Dict[int, Record]:
@@ -664,14 +723,51 @@ class DenseCrdt:
                                 key_encoder=key_encoder,
                                 value_encoder=value_encoder)
 
-    def pack_since(self, since: Optional[Hlc] = None
+    # pack_since cache depth: a replica gossiping with a few peers at a
+    # few watermarks reuses this many packs; LRU eviction past it.
+    PACK_CACHE_SLOTS = 4
+
+    def _pack_key(self, since: Optional[Hlc]):
+        return (None if since is None else since.logical_time,
+                self._canonical_time.logical_time, self._store_gen)
+
+    def _pack_cache_store(self, key, out) -> None:
+        """Insert a finished pack, LRU-evicting past PACK_CACHE_SLOTS."""
+        self._pack_cache[key] = out
+        while len(self._pack_cache) > self.PACK_CACHE_SLOTS:
+            self._pack_cache.popitem(last=False)
+
+    def _pack_rows_at(self, mask: torch.Tensor
+                      ) -> Tuple[PackedDelta, List[Any]]:
+        return (pack_into_arena(*self._rows_at(mask, "lt", "node", "val",
+                                               "tomb")),
+                self._table.ids())
+
+    def pack_since(self, since: Optional[Hlc] = None, ranges=None
                    ) -> Tuple[PackedDelta, List[Any]]:
         """Outbound O(k) columnar delta: the rows with ``modified >=
         since`` (inclusive, the `export_delta` bound) in the packed wire
-        form, plus the node-id list its ordinals index into."""
+        form, plus the node-id list its ordinals index into — what
+        ``merge_packed`` takes, here or on a JAX replica.
+
+        Results are cached on ``(since, canonical, store generation)``;
+        every store replacement or in-place write drops the cache, and
+        ``merge_and_repack`` seeds it. The JAX package's ``sem_mode``
+        (typed slots) waits for ROADMAP A5, and ``ranges`` (the Merkle
+        walk's range pack) for A4."""
+        if ranges is not None:
+            raise NotImplementedError(
+                "pack_since(ranges=...) is not ported yet (ROADMAP A4)")
+        # Drain BEFORE the key reads the canonical: a flush advances it.
         self.drain_ingest()
-        rows = self._delta_rows(since, "lt", "node", "val", "tomb")
-        return pack_into_arena(*rows), self._table.ids()
+        key = self._pack_key(since)
+        cached = self._pack_cache.get(key)
+        if cached is not None:
+            self._pack_cache.move_to_end(key)
+            return cached
+        out = self._pack_rows_at(self._delta_mask(since))
+        self._pack_cache_store(key, out)
+        return out
 
     def export_delta(self, since: Optional[Hlc] = None
                      ) -> Tuple[DenseChangeset, List[Any]]:
@@ -1035,6 +1131,258 @@ class DenseCrdt:
         pipe.overflow = pipe.overflow | overflow
         pipe.drift = pipe.drift | drift
 
+    # --- columnar deltas in: packed, JSON, record dicts ---
+
+    def merge_records(self, record_map: Dict[int, Record]) -> None:
+        """Fan-in a slot -> `Record` dict (a map peer's records, or a
+        JSON decode). Values must be ints, or None for tombstones: the
+        payload lane is int64. Clock absorption and the recv guards run
+        on the host in the dict's order, the reference's visit order
+        (crdt.dart:80-85); the join is O(k) in the delta."""
+        self._refuse_in_pipeline("merge_records")  # host recv fold
+        self.drain_ingest()
+        if not record_map:
+            self.merge_many([])
+            return
+        k = len(record_map)
+        slots = np.fromiter(record_map.keys(), np.int64, count=k)
+        recs = list(record_map.values())
+        lt = np.fromiter((r.hlc.logical_time for r in recs), np.int64,
+                         count=k)
+        self._merge_columns(slots, lt, [r.hlc.node_id for r in recs],
+                            [r.value for r in recs])
+
+    def merge_json(self, json_str: str,
+                   key_decoder: Optional[KeyDecoder] = None,
+                   value_decoder: Optional[ValueDecoder] = None) -> None:
+        """Columnar wire JSON ingest (crdt.dart:100-109): the decode
+        (`crdt_json.decode_columns`) feeds `merge_records`' columnar
+        core with no per-record objects. Keys decode to int slots by
+        default."""
+        self._refuse_in_pipeline("merge_json")  # host recv fold
+        self.drain_ingest()
+        # The JAX package's decode stamps `modified` with one wall read
+        # (its Crdt.merge_json contract); the merge re-stamps winners,
+        # so only the read must happen, for the clocks to tick alike.
+        self._wall_clock()
+        keys, lt, nodes, values = crdt_json.decode_columns(
+            json_str, key_decoder=key_decoder or int,
+            value_decoder=value_decoder)
+        if not keys:
+            self.merge_many([])
+            return
+        self._merge_columns(np.asarray(keys, np.int64), lt, nodes, values)
+
+    def _merge_columns(self, slots: np.ndarray, lt: np.ndarray,
+                       node_ids: List[Any], values: List[Any]) -> None:
+        """The columnar core of `merge_records` / `merge_json`: ``lt``
+        holds packed logical times aligned with ``slots``, ``node_ids``
+        and ``values``. Repeated slots collapse last-wins first (the
+        dropped rows are never validated or counted, as a decode dict
+        drops them), and every validation runs BEFORE the first clock
+        mutation, so a refused payload leaves the replica untouched."""
+        keep = self._last_wins_keep(slots)
+        if keep is not None:
+            slots, lt = slots[keep], lt[keep]
+            node_ids = [node_ids[i] for i in keep]
+            values = [values[i] for i in keep]
+        k = len(slots)
+        self.stats.merges += 1
+        self.stats.add_seen_lazy(k)
+        self._check_slots(slots)
+        tomb = np.fromiter((v is None for v in values), bool, count=k)
+        # The payload lane is int64: any other type (a bool too, which
+        # would store as 0/1) would diverge under the peer's hlc.
+        bad = next((i for i, v in enumerate(values)
+                    if v is not None
+                    and (isinstance(v, bool)
+                         or not isinstance(v, (int, np.integer)))), None)
+        if bad is not None:
+            raise TypeError(
+                f"DenseCrdt values must be ints; slot {slots[bad]} got "
+                f"{type(values[bad]).__name__}")
+        val = np.fromiter((0 if v is None else v for v in values),
+                          np.int64, count=k)
+        self._check_value_width(val)
+        self._intern_ids(set(node_ids))
+        self._merge_validated(slots, lt, self._table.encode(node_ids), val,
+                              tomb)
+
+    def merge_packed(self, packed: PackedDelta,
+                     node_ids: Sequence[Any]) -> None:
+        """Fan-in a `pack_since` delta (this package's or the JAX
+        package's, e.g. through `ops.packing.unpack_rows`):
+        ``packed.node`` holds ordinals into ``node_ids``. Validation —
+        aligned lanes, ordinal range, slot bounds, value width — runs
+        BEFORE the first clock mutation, and repeated slots collapse
+        last-wins. O(k) in the delta."""
+        self._merge_packed_impl(packed, node_ids, None)
+
+    def merge_and_repack(self, packed: PackedDelta,
+                         node_ids: Sequence[Any],
+                         since: Optional[Hlc] = None
+                         ) -> Tuple[PackedDelta, List[Any]]:
+        """`merge_packed` and then `pack_since(since)`, the gossip relay:
+        the sparse join returns the next pack's delta mask from the same
+        call (`ops.dense.merge_repack_step`), and the pack seeds the
+        cache under `pack_since`'s key, so the next `pack_since(since)`
+        hits. An empty delta or the wide join takes `pack_since`."""
+        since_lt = 0 if since is None else int(since.logical_time)
+        mask = self._merge_packed_impl(packed, node_ids, since_lt)
+        if mask is None:
+            return self.pack_since(since)
+        out = self._pack_rows_at(mask)
+        self._pack_cache_store(self._pack_key(since), out)
+        return out
+
+    def _merge_packed_impl(self, packed: PackedDelta,
+                           node_ids: Sequence[Any],
+                           repack_since_lt: Optional[int]
+                           ) -> Optional[torch.Tensor]:
+        self._refuse_in_pipeline("merge_packed")  # host recv fold
+        self.drain_ingest()
+        if getattr(packed, "sem", None) is not None:
+            raise NotImplementedError(
+                "a packed delta's sem lane (typed slots) is not ported "
+                "yet (ROADMAP A5)")
+        slots = np.asarray(packed.slots)
+        lt = np.asarray(packed.lt, np.int64)
+        ni = np.asarray(packed.node)
+        val = np.asarray(packed.val, np.int64)
+        tomb = np.asarray(packed.tomb).astype(bool)
+        k = len(slots)
+        if not len(lt) == len(ni) == len(val) == len(tomb) == k:
+            raise ValueError("packed delta lanes are ragged")
+        if k == 0:
+            self.merge_many([])
+            return None
+        if int(ni.min()) < 0 or int(ni.max()) >= len(node_ids):
+            raise ValueError(
+                f"packed node ordinal out of range for {len(node_ids)} "
+                "wire node ids")
+        keep = self._last_wins_keep(slots)
+        if keep is not None:
+            slots, lt, ni, val, tomb = (slots[keep], lt[keep], ni[keep],
+                                        val[keep], tomb[keep])
+            k = len(slots)
+        self.stats.merges += 1
+        self.stats.add_seen_lazy(k)
+        self._check_slots(slots)
+        self._check_value_width(val)
+        self._intern_ids(node_ids)
+        node = self._table.encode(node_ids)[ni]
+        return self._merge_validated(slots, lt, node, val, tomb,
+                                     repack_since_lt)
+
+    def _merge_validated(self, slots: np.ndarray, lt: np.ndarray,
+                         node: np.ndarray, val: np.ndarray,
+                         tomb: np.ndarray,
+                         repack_since_lt: Optional[int] = None
+                         ) -> Optional[torch.Tensor]:
+        """The columnar merge tail on validated lanes (``node`` in local
+        ordinals, slots unique): the recv fold, the store join, watch
+        events in payload order, the final send bump. With
+        ``repack_since_lt`` the sparse join also returns the next pack's
+        delta mask; None on every other route."""
+        k = len(slots)
+        my_ord = self._local_ordinal()
+        wall = self._wall_clock()
+        # Recv guards and clock absorption against the RUNNING canonical
+        # (hlc.dart:85's fast path shields records the clock already
+        # dominates), in payload visit order.
+        fold = recv_fold_columns(lt, node == my_ord,
+                                 self._canonical_time.logical_time, wall)
+        if fold.bad_index is not None:
+            # Canonical partially advanced to just before the offender
+            # (crdt.dart:77-94 throw path); store untouched.
+            self._canonical_time = Hlc.from_logical_time(
+                fold.canonical_at_fail, self._node_id)
+            if fold.bad_is_dup:
+                raise DuplicateNodeException(str(self._node_id))
+            raise ClockDriftException(int(lt[fold.bad_index]) >> SHIFT,
+                                      wall)
+        new_canonical = fold.new_canonical
+        with merge_annotation("crdt_tpu_torch.dense_merge"):
+            win, slot_aligned, repack_mask = self._dispatch_columns(
+                slots, lt, node, val, tomb, new_canonical, my_ord,
+                repack_since_lt)
+        if self._hub.active:
+            win_h = win.cpu().numpy()
+            # The wide join's win is per SLOT: back to payload order.
+            win_h = win_h[slots] if slot_aligned else win_h[:k]
+            self.stats.records_adopted += int(win_h.sum())
+            widx = np.nonzero(win_h)[0]
+
+            def value_at(i):
+                return None if tomb[i] else int(val[i])
+
+            # Slots are unique here, so a queried slot matches at most
+            # one payload row.
+            self._hub.add_batch(
+                lambda: ([int(slots[i]) for i in widx],
+                         [value_at(i) for i in widx]),
+                lambda q: ((True,
+                            value_at(int(np.nonzero(slots == q)[0][-1])))
+                           if isinstance(q, (int, np.integer))
+                           and bool(np.any(slots[widx] == q))
+                           else (False, None)))
+        else:
+            self.stats.add_adopted_lazy(win.sum())
+        self._canonical_time = Hlc.send(
+            Hlc.from_logical_time(new_canonical, self._node_id),
+            millis=self._wall_clock())
+        return repack_mask
+
+    # A delta covering at least 1 / WIDE_JOIN_FRACTION of the slots joins
+    # as the elementwise N-wide sweep (`wire_join_step`), a smaller one
+    # as the k-row join (`sparse_fanin_step`): the JAX package's cutover,
+    # kept so that both packages take the same route on the same delta.
+    WIDE_JOIN_FRACTION = 4
+
+    def _dispatch_columns(self, slots: np.ndarray, lt: np.ndarray,
+                          node: np.ndarray, val: np.ndarray,
+                          tomb: np.ndarray, new_canonical: int,
+                          my_ord: int, repack_since_lt: Optional[int]):
+        """A validated columnar delta through the store join, IN PLACE
+        on the writable store. Returns ``(win, slot_aligned,
+        repack_mask)``: ``win`` per slot (N-wide) when ``slot_aligned``,
+        else per padded row; ``repack_mask`` only from the sparse join
+        asked for it."""
+        k, n = len(slots), self.n_slots
+        store = self._writable_store()
+        if k * self.WIDE_JOIN_FRACTION >= n:
+            # The k rows cross to the card, which lays them out N-wide.
+            at = self._to_device(slots.astype(np.int64))
+
+            def wide(rows, dtype):
+                lane = torch.zeros(n, dtype=dtype, device=self._device)
+                lane[at] = self._to_device(rows).to(dtype)
+                return lane
+
+            _, win = wire_join_step(
+                store, wide(lt, torch.int64), wide(node, torch.int32),
+                wide(val, torch.int64), wide(tomb, torch.bool),
+                wide(np.ones(k, bool), torch.bool), new_canonical, my_ord)
+            return win, True, None
+        # Padded to a power of two with invalid rows at the n_slots
+        # sentinel, so a steady stream of deltas reuses a few sizes.
+        padded = 1 << max(k - 1, 1).bit_length()
+
+        def pad(rows, fill, dtype):
+            lane = np.full(padded, fill, dtype)
+            lane[:k] = rows
+            return self._to_device(lane)
+
+        rows = (pad(slots, n, np.int64), pad(lt, 0, np.int64),
+                pad(node, 0, np.int32), pad(val, 0, np.int64),
+                pad(tomb, False, bool), pad(True, False, bool))
+        if repack_since_lt is not None:
+            _, win, mask = merge_repack_step(store, *rows, new_canonical,
+                                             my_ord, repack_since_lt)
+            return win, False, mask
+        _, win = sparse_fanin_step(store, *rows, new_canonical, my_ord)
+        return win, False, None
+
 
 class ShardedDenseCrdt(DenseCrdt):
     """`DenseCrdt` with its key space sharded over a device mesh
@@ -1111,6 +1459,7 @@ class ShardedDenseCrdt(DenseCrdt):
         it touches, at shard-local slots."""
         slots, values, tombs = self._last_wins(slots, values, tombs)
         t, me = self._canonical_time.logical_time, self._local_ordinal()
+        self._touch_store()
         w = self._store.width
         for k in range(len(self._store.blocks[0])):
             sel = (slots >= k * w) & (slots < (k + 1) * w)
@@ -1128,9 +1477,12 @@ class ShardedDenseCrdt(DenseCrdt):
                                 else torch.tensor(tombs[sel], device=dev))
 
     def _commit_scatter(self, slots: np.ndarray, lt: np.ndarray,
-                        vals: np.ndarray, tombs: np.ndarray) -> None:
+                        vals: np.ndarray, tombs: np.ndarray,
+                        order: np.ndarray) -> None:
+        self._touch_store()
         self._sharded_ingest(self._store,
-                             *self._flush_lanes(slots, lt, vals, tombs),
+                             *self._flush_lanes(slots, lt, vals, tombs,
+                                                order),
                              self._local_ordinal())
 
     def _dispatch_fanin(self, cs: DenseChangeset, wall: int):
@@ -1165,9 +1517,9 @@ class ShardedDenseCrdt(DenseCrdt):
         return sharded_delta_mask(self._mesh)(
             self._store, modified_since.logical_time)
 
-    def _delta_rows(self, modified_since: Optional[Hlc], *names: str
-                    ) -> Tuple[np.ndarray, ...]:
-        idx = torch.nonzero(self._delta_mask(modified_since)).reshape(-1)
+    def _rows_at(self, mask: torch.Tensor, *names: str
+                 ) -> Tuple[np.ndarray, ...]:
+        idx = torch.nonzero(mask).reshape(-1)
         return (idx.cpu().numpy(),
                 *(gather_lane(self._store, f)[idx].cpu().numpy()
                   for f in names))
@@ -1194,6 +1546,18 @@ class ShardedDenseCrdt(DenseCrdt):
 
     def clear(self, *args, **kwargs):
         self._not_yet("clear", "A3b")
+
+    def merge_packed(self, *args, **kwargs):
+        self._not_yet("merge_packed", "A3b")
+
+    def merge_and_repack(self, *args, **kwargs):
+        self._not_yet("merge_and_repack", "A3b")
+
+    def merge_json(self, *args, **kwargs):
+        self._not_yet("merge_json", "A3b")
+
+    def merge_records(self, *args, **kwargs):
+        self._not_yet("merge_records", "A3b")
 
     def purge(self, *args, **kwargs):
         self._not_yet("purge", "A3b")

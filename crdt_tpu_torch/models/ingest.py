@@ -12,8 +12,9 @@ way and commit as ONE kernel launch:
 - Duplicate staged slots collapse last-wins on the host (the last
   occurrence also carries the dominating stamp, so this IS the LWW
   outcome) — a CUDA scatter with duplicate indices has no defined
-  winner.
-- The commit is one `ops.ingest_kernel.ingest_scatter` launch.
+  winner. The same sort puts the kept rows in slot order.
+- The commit is one `ops.ingest_kernel.ingest_scatter` launch over the
+  rows in slot order, so a warp's stores land in neighbouring lines.
 
 Read-your-writes: ``get``/``contains_slot``/``is_deleted`` consult the
 staging overlay before the device store. Every other read, merge,
@@ -137,12 +138,11 @@ class WriteCombiner:
             lt = np.asarray(group_lts, np.int64)[self._group[:k]]
             vals = self._vals[:k]
             tombs = self._tombs[:k]
-            keep = owner._last_wins_keep(slots)
-            if keep is not None:
-                slots, lt, vals, tombs = (slots[keep], lt[keep],
-                                          vals[keep], tombs[keep])
-            d = len(slots)
-            owner._commit_scatter(slots, lt, vals, tombs)
+            # The dedup's one sort also gives the slot order the
+            # kernel's stores want; watch events keep staging order.
+            keep, order = owner._last_wins_order(slots)
+            d = len(order)
+            owner._commit_scatter(slots, lt, vals, tombs, order)
         owner._canonical_time = new_canonical
         owner.stats.puts += self._groups
         owner.stats.records_put += k
@@ -152,16 +152,19 @@ class WriteCombiner:
         self.flushes += 1
         self.rows_committed += d
         if d:
-            self._emit_commit(slots, vals, tombs)
+            self._emit_commit(slots, vals, tombs, keep)
         return True
 
     def _emit_commit(self, slots: np.ndarray, vals: np.ndarray,
-                     tombs: np.ndarray) -> None:
+                     tombs: np.ndarray, keep: Optional[np.ndarray]
+                     ) -> None:
         """Change events fire AT COMMIT, with the winning post-dedup
-        value per slot."""
+        value per slot, in staging order (rows ``keep``, or all)."""
         hub = self._owner._hub
         if not hub.active:
             return
+        if keep is not None:
+            slots, vals, tombs = slots[keep], vals[keep], tombs[keep]
         sl = slots.tolist()
         svals = [None if t else v
                  for v, t in zip(vals.tolist(), tombs.tolist())]

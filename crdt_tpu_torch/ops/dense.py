@@ -223,6 +223,98 @@ def dense_delta_mask(store: DenseStore, since_lt: Scalar) -> torch.Tensor:
     return store.occupied & (store.mod_lt >= since_lt)
 
 
+# --- columnar wire joins (merge_packed / merge_json / merge_records) ---
+#
+# The JAX package runs these through XLA: it scatters losing rows to the
+# ``n_slots`` sentinel with ``mode="drop"``. Torch has no drop mode, and
+# on the card an index of ``n_slots`` is a device-side assert, so the
+# winning rows are selected with a mask before the indexed writes. The
+# store is updated IN PLACE (the JAX versions donate it): the caller
+# passes lanes it may write (`DenseCrdt._writable_store`). Slots must be
+# unique among valid rows (the callers collapse repeats last-wins
+# first); clock absorption and the recv guards are the caller's, run
+# host-side in the payload's visit order before the join, and
+# ``stamp_lt`` is the post-absorption canonical that winners' modified
+# lanes take (crdt.dart:86-87).
+
+
+def _sparse_fanin_body(store: DenseStore, slot: torch.Tensor,
+                       lt: torch.Tensor, node: torch.Tensor,
+                       val: torch.Tensor, tomb: torch.Tensor,
+                       valid: torch.Tensor, stamp_lt: Scalar,
+                       local_node: int) -> torch.Tensor:
+    # Invalid (padding) rows read slot 0 and never win: the JAX gather's
+    # fill, without an out-of-range index.
+    at = torch.where(valid, slot, 0)
+    l_lt, l_node = store.lt[at], store.node[at]
+    # Strict (lt, node) compare: local wins exact ties (crdt.dart:84).
+    remote_newer = (lt > l_lt) | ((lt == l_lt) & (node > l_node))
+    win = valid & (~store.occupied[at] | remote_newer)
+    s = slot[win]
+    store.lt[s] = lt[win]
+    store.node[s] = node[win]
+    store.val[s] = val[win]
+    store.mod_lt[s] = stamp_lt
+    store.mod_node[s] = local_node
+    store.occupied[s] = True
+    store.tomb[s] = tomb[win]
+    return win
+
+
+def sparse_fanin_step(store: DenseStore, slot: torch.Tensor,
+                      lt: torch.Tensor, node: torch.Tensor,
+                      val: torch.Tensor, tomb: torch.Tensor,
+                      valid: torch.Tensor, stamp_lt: Scalar,
+                      local_node: int) -> Tuple[DenseStore, torch.Tensor]:
+    """O(k) slot-indexed join of a k-row delta (``slot`` int64, rows
+    with ``valid`` False are padding) into ``store``, in place: the
+    wire-delta shape, where a 10-record sync into a 1M-slot replica
+    must not touch 1M-wide lanes. Returns ``(store, win)``, ``win``
+    over the k rows."""
+    return store, _sparse_fanin_body(store, slot, lt, node, val, tomb,
+                                     valid, stamp_lt, local_node)
+
+
+def wire_join_step(store: DenseStore, lt: torch.Tensor, node: torch.Tensor,
+                   val: torch.Tensor, tomb: torch.Tensor,
+                   valid: torch.Tensor, stamp_lt: Scalar, local_node: int
+                   ) -> Tuple[DenseStore, torch.Tensor]:
+    """Elementwise N-wide join of a SLOT-ALIGNED delta (lane i is slot
+    i's record, ``valid`` masking absent slots), in place: the large-k
+    companion of `sparse_fanin_step`, no gather and no scatter. ``node``
+    and ``val`` may arrive narrower (the JAX package's int16 / int32
+    wire transfers) and widen here. Returns ``(store, win)``, ``win``
+    over the N slots."""
+    lt = torch.where(valid, lt, _NEG)
+    node = node.to(torch.int32)
+    # Strict (lt, node) compare: local wins exact ties (crdt.dart:84).
+    remote_newer = (lt > store.lt) | ((lt == store.lt) & (node > store.node))
+    win = valid & (~store.occupied | remote_newer)
+    torch.where(win, lt, store.lt, out=store.lt)
+    torch.where(win, node, store.node, out=store.node)
+    torch.where(win, val.to(torch.int64), store.val, out=store.val)
+    store.mod_lt.masked_fill_(win, stamp_lt)
+    store.mod_node.masked_fill_(win, local_node)
+    store.occupied.logical_or_(win)
+    torch.where(win, tomb, store.tomb, out=store.tomb)
+    return store, win
+
+
+def merge_repack_step(store: DenseStore, slot: torch.Tensor,
+                      lt: torch.Tensor, node: torch.Tensor,
+                      val: torch.Tensor, tomb: torch.Tensor,
+                      valid: torch.Tensor, stamp_lt: Scalar,
+                      local_node: int, since_lt: Scalar
+                      ) -> Tuple[DenseStore, torch.Tensor, torch.Tensor]:
+    """`sparse_fanin_step` with the NEXT pack's delta mask (``occupied &
+    mod_lt >= since_lt`` over the merged store, the inclusive bound of
+    map_crdt.dart:44-45): the gossip relay's merge and repack in one
+    call. Returns ``(store, win, mask)``, ``mask`` over the N slots."""
+    win = _sparse_fanin_body(store, slot, lt, node, val, tomb, valid,
+                             stamp_lt, local_node)
+    return store, win, dense_delta_mask(store, since_lt)
+
+
 def store_to_changeset(store: DenseStore,
                        since_lt: Optional[Scalar] = None
                        ) -> DenseChangeset:

@@ -6,9 +6,12 @@ touched (``prepare_tile_updates``) because XLA serializes scatters on
 a TPU, and padded the tile list with distinct untouched tiles for its
 pipelined grid. Neither carries over: the Hopper kernel
 (``csrc/ingest_scatter.cu``) is a direct scatter, one thread per row,
-into the store lanes IN PLACE. The rows arrive padded to a power of two
+into the store lanes IN PLACE. The combiner hands it the rows in slot
+order, the counterpart of the tile regrouping: a warp's stores then
+land in neighbouring lines. The rows arrive padded to a power of two
 with ``slot == n_slots`` sentinels, which write nothing, and their
-slots are unique (the combiner's last-wins dedup).
+slots are unique (the combiner's last-wins dedup); any order gives the
+same lanes.
 
 `ingest_scatter` takes the kernel for CUDA tensors and the plain
 version (`ops.dense.ingest_scatter`, re-exported here as

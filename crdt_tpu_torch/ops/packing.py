@@ -1,6 +1,10 @@
-"""HLC lane packing: scalar Hlc <-> (int64 lt, int32 node ordinal).
+"""HLC lane packing: scalar Hlc <-> (int64 lt, int32 node ordinal),
+and the packed wire form.
 
-A numpy-only copy of ``crdt_tpu/ops/packing.py`` (its Python paths).
+A numpy-only copy of ``crdt_tpu/ops/packing.py`` (its Python paths):
+`pack_rows`/`unpack_rows` frame a `PackedDelta` as the same bytes the
+JAX package ships, so a torch replica and a JAX replica gossip through
+either package's `pack_since` and `merge_packed`.
 The hard part is an order-preserving node-id encoding: ``Hlc.compareTo``
 tie-breaks on the node id's natural comparison (hlc.dart:160), which for
 arbitrary strings cannot be embedded into a fixed-width integer. Each
@@ -13,9 +17,11 @@ can be re-encoded with one gather.
 
 from __future__ import annotations
 
-from typing import Any, List, NamedTuple, Optional, Sequence
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..hlc import Hlc
 
 
 class NodeTable:
@@ -35,6 +41,9 @@ class NodeTable:
     def ordinal(self, node_id: Any) -> int:
         """Ordinal of an already-interned id."""
         return self._omap[node_id]
+
+    def id_of(self, ordinal: int) -> Any:
+        return self._sorted[ordinal]
 
     def ids(self) -> List[Any]:
         """All interned ids in ordinal order (a copy)."""
@@ -63,6 +72,14 @@ class NodeTable:
         omap = self._omap
         return np.fromiter((omap[n] for n in node_ids), np.int32,
                            count=len(node_ids))
+
+
+# Exact host lane dtypes of the PACKED wire form, in field order.
+# Anything else from a peer is a protocol violation. The JAX form's
+# optional sixth lane (``sem``, uint8 semantics tags) rides only between
+# peers that negotiated typed slots, which this package does not have
+# yet (ROADMAP A5).
+PACKED_LANE_DTYPES = ("int32", "int64", "int32", "int64", "uint8")
 
 
 class PackedDelta(NamedTuple):
@@ -114,3 +131,80 @@ def pack_into_arena(slots: np.ndarray, lt: np.ndarray, node: np.ndarray,
                           (slots, lt, node, val, tomb)):
         views[name][:] = lane           # cast-assign into the arena
     return PackedDelta(**views)
+
+
+def _no_sem_lane() -> None:
+    raise NotImplementedError(
+        "the packed delta's sem lane (typed slots) is not ported yet "
+        "(ROADMAP A5)")
+
+
+def pack_rows(delta) -> Tuple[dict, List[memoryview]]:
+    """``(meta, bufs)`` for a packed delta: lane descriptors plus host
+    buffers in field order, the JAX package's raw binary frame. A lane
+    already in its wire dtype, flat and contiguous (every
+    `pack_into_arena` lane) is framed as a view of its own storage;
+    any other lane is copied once into its wire dtype."""
+    if getattr(delta, "sem", None) is not None:
+        _no_sem_lane()
+    arrs = []
+    for lane, dtype in zip(delta[:5], PACKED_LANE_DTYPES):
+        want = np.dtype(dtype)
+        if not (isinstance(lane, np.ndarray) and lane.dtype == want
+                and lane.ndim == 1 and lane.flags.c_contiguous):
+            lane = np.ascontiguousarray(np.asarray(lane), want)
+        arrs.append(lane)
+    meta = {"form": "packed",
+            "lanes": [[f, str(a.dtype), [len(a)]]
+                      for f, a in zip(PackedDelta._fields, arrs)]}
+    return meta, [a.data.cast("B") for a in arrs]
+
+
+def unpack_rows(meta: Any, blob: bytes) -> PackedDelta:
+    """Validate and rebuild the packed delta a peer announced. Raises
+    ValueError on any structural violation (wrong fields or dtypes,
+    ragged lane lengths, frame size mismatch) BEFORE the replica is
+    touched. ``k == 0`` is a legal empty delta. The lanes are read-only
+    views of ``blob``."""
+    if not isinstance(meta, dict) or meta.get("form") != "packed":
+        raise ValueError("bad packed meta")
+    lanes_meta = meta.get("lanes")
+    base = list(PackedDelta._fields)
+    if not isinstance(lanes_meta, list) \
+            or [l[0] for l in lanes_meta] not in (base, base + ["sem"]):
+        raise ValueError("packed lane fields mismatch")
+    if len(lanes_meta) == 6:
+        _no_sem_lane()
+    lanes = []
+    off = 0
+    k = None
+    for (_, dt, shape), want in zip(lanes_meta, PACKED_LANE_DTYPES):
+        if dt != want:
+            raise ValueError(f"lane dtype {dt!r} != expected {want!r}")
+        if not isinstance(shape, list) or len(shape) != 1 \
+                or int(shape[0]) < 0:
+            raise ValueError("bad packed lane shape")
+        n = int(shape[0])
+        if k is None:
+            k = n
+        elif n != k:
+            raise ValueError("ragged packed lanes")
+        a = np.frombuffer(blob, np.dtype(dt), count=n, offset=off)
+        off += a.nbytes
+        lanes.append(a)
+    if off != len(blob):
+        raise ValueError(f"packed frame size mismatch: lanes describe "
+                         f"{off} bytes, frame holds {len(blob)}")
+    return PackedDelta(*lanes)
+
+
+def pack_hlcs(hlcs: Sequence[Hlc], table: NodeTable
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Scalar Hlcs -> (lt int64, node int32) lanes. Ids must be interned."""
+    lt = np.array([h.logical_time for h in hlcs], dtype=np.int64)
+    node = table.encode([h.node_id for h in hlcs])
+    return lt, node
+
+
+def unpack_hlc(lt: int, node_ord: int, table: NodeTable) -> Hlc:
+    return Hlc.from_logical_time(int(lt), table.id_of(int(node_ord)))

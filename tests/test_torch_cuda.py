@@ -132,6 +132,93 @@ def test_ingest_kernel_matches_plain(cuda):
         assert torch.equal(a.cpu(), b)
 
 
+def ingest_case_slots(rng, layout, n):
+    """Unique slots of one K2 flush, sentinels (``n``) included:
+    scattered as the main path's; contiguous runs of 1-13 slots that
+    start and end inside a 4-slot word, so the 1-B lanes' words hold
+    slots outside the flush; and sentinels spread through the rows, as
+    the sharded commit gives them."""
+    if layout == "scattered":
+        return rng.choice(n, 1500, replace=False)
+    if layout == "runs mid-word":
+        starts = np.sort(rng.choice(n // 16, 120, replace=False)) * 16
+        runs = [s + 1 + np.arange(rng.integers(1, 14)) for s in starts]
+        return np.concatenate(runs)
+    slots = rng.choice(n, 1500, replace=False)
+    slots[rng.random(1500) < 0.4] = n
+    return slots
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "reversed"])
+@pytest.mark.parametrize("layout", ["scattered", "runs mid-word",
+                                    "sentinels spread"])
+def test_ingest_kernel_any_row_order_matches_plain(cuda, layout, order):
+    """K2 is bit-exact for unique slots in any row order: its speed, not
+    its result, depends on slot order."""
+    n = 20_003
+    rng = np.random.default_rng(sum(map(ord, layout + order)))
+    store, _ = lanes(rng, n, 0)
+    slots = ingest_case_slots(rng, layout, n)
+    rows = len(slots)
+    at = {"sorted": np.argsort(slots, kind="stable"),
+          "shuffled": rng.permutation(rows),
+          "reversed": np.argsort(slots, kind="stable")[::-1]}[order]
+    padded = 1 << (rows - 1).bit_length()
+    lanes_np = [np.full(padded, n, np.int64), np.zeros(padded, np.int64),
+                np.zeros(padded, np.int64), np.zeros(padded, bool)]
+    lanes_np[0][:rows] = slots[at]
+    lanes_np[1][:rows] = BASE + rng.integers(0, 1 << 30, rows)
+    lanes_np[2][:rows] = rng.integers(-2 ** 62, 2 ** 62, rows)
+    lanes_np[3][:rows] = rng.random(rows) < 0.5
+    obs_device.reset()
+    k = ingest_kernel.ingest_scatter(
+        td.store_from_numpy(store, cuda),
+        *(torch.tensor(a, device=cuda) for a in lanes_np), 3)
+    torch.cuda.synchronize()
+    assert obs_device.launches()["ingest_scatter"] == 1
+    p = ingest_kernel.ingest_scatter(td.store_from_numpy(store),
+                                     *(torch.tensor(a) for a in lanes_np), 3)
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("k", [5, 300, 2000])
+def test_columnar_merges_on_card_match_host(cuda, k):
+    """`merge_packed` (the sparse join below n_slots / 4 rows, the wide
+    join from there), `merge_and_repack` and `merge_json` on a card
+    replica against a host replica: the sparse join's padding rows sit
+    at the ``n_slots`` sentinel and must never be indexed (on the card
+    an out-of-range index is a device-side assert, not a dropped
+    write)."""
+    n = 4099
+    out = []
+    for device in (cuda, "cpu"):
+        tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
+        src = port.DenseCrdt("a0", n, device="cpu", wall_clock=tick.__next__)
+        rcv = port.DenseCrdt("r1", n, device=device,
+                             wall_clock=tick.__next__)
+        rng = np.random.default_rng(k)
+        src.put_batch(rng.choice(n, k, replace=False),
+                      rng.integers(0, 1 << 40, k))
+        rcv.put_batch(rng.choice(n, 900, replace=False),
+                      rng.integers(0, 9, 900))
+        src.put_batch(rng.choice(n, k // 2 + 1, replace=False), 7)
+        since = rcv.canonical_time
+        packed, ids = src.pack_since()
+        assert packed.k == k or packed.k > k // 2
+        rcv.merge_packed(packed, ids)
+        relay, _ = rcv.merge_and_repack(*src.pack_since(), since)
+        rcv.merge_json(src.to_json())
+        torch.cuda.synchronize()
+        out.append((rcv, relay))
+    (a, ra), (b, rb) = out
+    for x, y in zip(a.store, b.store):
+        assert torch.equal(x.cpu(), y)
+    assert str(a.canonical_time) == str(b.canonical_time)
+    for f in ra._fields:
+        assert getattr(ra, f).tobytes() == getattr(rb, f).tobytes()
+
+
 def test_kernel_wrapper_refuses_bad_lanes(cuda):
     store, cs = lanes(np.random.default_rng(2), 64, 2)
     s, c = on(cuda, store, cs)
