@@ -61,8 +61,11 @@ Phases, in order; any failure raises and exits non-zero:
      raises ``DuplicateNodeException`` and a 4,096-row delta out, held
      against the unsharded ``DenseCrdt`` given the same ops (lanes,
      clock, delta bytes, exception) with every replica copy equal, and
-     one K1p launch per device and merge; then the (1, 1) and
-     multislice (2, 1, 2) meshes at 2^16 slots;
+     one K1p launch per device and merge, then its digest tree and
+     ``compact()`` (each key shard to its own prefix) against the
+     unsharded model's tree and its compaction over the key shards'
+     spans; then the (1, 1) and multislice (2, 1, 2) meshes at 2^16
+     slots;
    - path E, gossip through the wire forms at 2^20 slots: a peer's
      ``pack_since`` deltas of 262,144 (the wide join), 65,536 and 4,096
      rows (the sparse join) go through ``pack_rows`` and
@@ -74,6 +77,22 @@ Phases, in order; any failure raises and exits non-zero:
      each merge timed on the host clock and split into decode and
      validation and the join, with the card's busy time under the
      profiler;
+   - path F, anti-entropy and storage at 2^20 slots: two replicas
+     seeded by the main path's 16 flushes diverge (8 slots written on
+     each side, the anti-entropy bench's shape; then 10,486 scattered
+     slots, 1% of the store) and converge through
+     ``crdt_tpu_torch.sync.sync_merkle``, each replica held bit for bit
+     against a twin on the CPU given the same operations (lanes, clock,
+     digest levels, ranged pack bytes, the walk's report) and the root
+     against a numpy-uint64 fold; one cold ``digest_tree`` split into
+     host time and device time; then half of one replica's live rows
+     tombstoned, ``gc_purge`` at its own head, a ``merge_many``
+     replaying the pre-purge rows (the GC fence folded into K1's
+     ``valid``), ``compact()`` (its seeded tree equal to a fresh one),
+     and ``save`` / ``load`` (the loaded replica's first
+     ``digest_tree`` builds nothing); each step timed on the host
+     clock, the syncs' device time under the profiler, the plain ops
+     counted (`obs.device.OPS`);
    - path D, the probe entry point (``crdt_tpu_torch.bench``) at the JAX
      CLI's defaults: its seven variants (``full``, ``stream``,
      ``stream-noguard``, ``nojoin``, ``copy``, ``copy-batch``,
@@ -1656,6 +1675,38 @@ def sharded_ops(crdt, n: int, flushes: int, flush_rows: int,
     return out
 
 
+def sharded_storage(crdt, twin, what: str) -> dict:
+    """The sharded digest tree and compaction against the unsharded
+    model: the tree equals the twin's; each key shard compacts to its
+    own prefix, so the translation equals the twin's compaction over
+    the key shards' spans; the lanes, the seeded trees and every
+    replica copy stay equal."""
+    torch.cuda.synchronize()
+    obs_device.reset()
+    t0 = time.perf_counter()
+    tree = crdt.digest_tree()
+    digest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    translation = crdt.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    ops = obs_device.op_launches()
+    twin_tree = twin.digest_tree()
+    check(trees_equal(tree, twin_tree),
+          f"{what}: the sharded digest tree differs from the unsharded one")
+    w = crdt._store.width
+    spans = tuple((lo, lo + w) for lo in range(0, crdt.n_slots, w))
+    check(np.array_equal(translation, twin.compact(ranges=spans)),
+          f"{what}: the sharded compaction's translation differs")
+    check(max_abs_err(crdt.store, twin.store) == 0,
+          f"{what}: lanes after compact differ from the unsharded model")
+    check(trees_equal(crdt.digest_tree(), twin.digest_tree()),
+          f"{what}: the seeded trees differ after compact")
+    check_copies(crdt._store, f"{what} after compact")
+    return dict(digest_s=digest_s, compact_s=compact_s, ops=ops,
+                live_rows=len(crdt))
+
+
 def path_c(card: str) -> dict:
     """ShardedDenseCrdt on meshes that repeat the card, each run held
     against the unsharded DenseCrdt given the same ops: equal lanes,
@@ -1702,6 +1753,7 @@ def path_c(card: str) -> dict:
             check(crdt.to_json() == twin.to_json(),
                   f"{what}: to_json differs")
         check_copies(crdt._store, what)
+        storage = sharded_storage(crdt, twin, what)
         runs.append(dict(
             mesh=dict(mesh.shape), n_slots=n, flushes=flushes,
             flush_rows=flush_rows, merge_passes=passes,
@@ -1710,7 +1762,7 @@ def path_c(card: str) -> dict:
             merges_per_s=got["records_merged"] / got["window_s"],
             twin_merges_per_s=ref["records_merged"] / ref["window_s"],
             window_includes_generation=True, launches=launches,
-            **got, twin=ref))
+            storage=storage, **got, twin=ref))
         del crdt, twin
     head = runs[0]
     return dict(card=card, launches=head["launches"], runs=runs)
@@ -1726,24 +1778,36 @@ E_DELTAS = (("wide", 4 * FLUSH_ROWS), ("sparse_65536", FLUSH_ROWS),
 TWINS = {"card": "cuda", "host": "cpu"}    # each replica and its twin
 
 
-class JoinClock:
-    """Times a replica's store join (`DenseCrdt._dispatch_columns`) on
-    the host clock, synchronized, so a merge's time splits into the
-    host's decode and validation and the join."""
+class MethodClock:
+    """Host seconds spent in some of a replica's methods (path E: the
+    store join; path F: the digest, the packs, the merges), each call
+    synchronized; a call made inside another timed call is not counted
+    again. Ranged packs' lanes are kept as bytes, for a twin's to be
+    held against."""
 
-    def __init__(self, crdt):
-        self.host_s = 0.0
-        inner = crdt._dispatch_columns
+    def __init__(self, crdt, names):
+        self.s = dict.fromkeys(names, 0.0)
+        self.packs = []
+        self.depth = 0
+        for name in names:
+            setattr(crdt, name, self._timed(name, getattr(crdt, name)))
 
-        def run(*args):
+    def _timed(self, name, fn):
+        def run(*args, **kw):
+            self.depth += 1
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = inner(*args)
-            torch.cuda.synchronize()
-            self.host_s += time.perf_counter() - t0
+            try:
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+            finally:
+                self.depth -= 1
+            if not self.depth:
+                self.s[name] += time.perf_counter() - t0
+            if name == "pack_since" and kw.get("ranges") is not None:
+                self.packs.append([lane.tobytes() for lane in out[0]])
             return out
-
-        crdt._dispatch_columns = run
+        return run
 
 
 def gossip_warmup() -> None:
@@ -1841,17 +1905,20 @@ def path_e(card: str) -> dict:
 
     gossip_warmup()
     merges = {}
-    clocks = {role: JoinClock(rcv[role]) for role in TWINS}
+    # Each merge's store join (`DenseCrdt._dispatch_columns`) timed
+    # apart from the host's decode and validation.
+    clocks = {role: MethodClock(rcv[role], ("_dispatch_columns",))
+              for role in TWINS}
     for name, rows in E_DELTAS:
         out = {}
         for role in TWINS:
-            before = clocks[role].host_s
+            before = clocks[role].s["_dispatch_columns"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             wire_s = merge(rcv[role], name, rows)
             torch.cuda.synchronize()
             total = time.perf_counter() - t0
-            join_s = clocks[role].host_s - before
+            join_s = clocks[role].s["_dispatch_columns"] - before
             out[role] = dict(seconds=total, rows_per_s=rows / total,
                              unpack_s=wire_s, join_s=join_s,
                              decode_and_validate_s=total - join_s - wire_s)
@@ -1908,6 +1975,314 @@ def path_e(card: str) -> dict:
                            host_twin_s=times[1], repacked_rows=k_out,
                            adopted=adopted),
                 launches=launches)
+
+
+# Path F: anti-entropy and storage at the main path's width. Two
+# replicas seeded by the main path's flushes diverge two ways and
+# converge through `sync_merkle`; then GC, a fenced replay and a
+# compaction on one of them, and a snapshot round trip.
+F_CASES = (("antientropy_8", 8), ("scatter_1pct", 10_486))
+F_SNAPSHOT = os.path.join("chiprun_out", "path_f_snapshot.npz")
+U64 = np.uint64
+
+
+def mix64_u64(x: np.ndarray) -> np.ndarray:
+    """splitmix64's finalizer in numpy uint64."""
+    x = (x ^ (x >> U64(30))) * U64(0xBF58476D1CE4E5B9)
+    x = (x ^ (x >> U64(27))) * U64(0x94D049BB133111EB)
+    return x ^ (x >> U64(31))
+
+
+def numpy_root(store: DenseStore, leaf_width: int = 8) -> int:
+    """The digest root of a store folded on the host in numpy uint64,
+    apart from the port's int64 emulation: the slot mix, the leaf sums,
+    the pairwise combines."""
+    lt, val, tomb, occ = (getattr(store, f).cpu().numpy()
+                          for f in ("lt", "val", "tomb", "occupied"))
+    n = len(lt)
+    with np.errstate(over="ignore"):
+        idx = np.arange(n, dtype=U64)
+        h = mix64_u64(lt.view(U64) + U64(0x9E3779B97F4A7C15) * (idx + U64(1)))
+        h ^= mix64_u64(val.view(U64) ^ U64(0x94D049BB133111EB))
+        h ^= np.where(tomb, U64(0xD6E8FEB86659FD93), U64(0))
+        h = np.where(occ, mix64_u64(h), U64(0))
+        leaves = np.add.reduceat(h, np.arange(0, n, leaf_width))
+        width = 1 << max(len(leaves) - 1, 0).bit_length()
+        leaves = np.concatenate([leaves, np.zeros(width - len(leaves), U64)])
+        while len(leaves) > 1:
+            leaves = mix64_u64(leaves[0::2] + U64(0x9E3779B97F4A7C15)
+                               * leaves[1::2] + U64(0xBF58476D1CE4E5B9))
+    return int(leaves[0])
+
+
+def f_replica(node_id: str, device: str):
+    """A 2^20-slot replica seeded by the main path's 16 flushes; two
+    replicas seeded alike hold the same replicated lanes."""
+    crdt = DenseCrdt(node_id, N_SLOTS, device=device,
+                     wall_clock=StepClock(MILLIS))
+    with crdt.ingest(auto_flush_rows=FLUSH_ROWS):
+        for f in range(FLUSHES):
+            crdt.put_batch(*flush_inputs(f))
+    return crdt
+
+
+def f_diverge(a, b, name: str, rows: int) -> None:
+    """The divergence of case ``name``: the anti-entropy bench's shape
+    (each side writes 8 slots of its own window, bench.py:1049-1075),
+    or ``rows`` scattered slots, half written on each side, a fifth of
+    them tombstones."""
+    if rows == 8:
+        a.put_batch(np.arange(0, 8), np.arange(8) + 1000)
+        b.put_batch(np.arange(8, 16), np.arange(8) + 2000)
+        return
+    rng = np.random.default_rng(800)
+    slots = rng.choice(N_SLOTS, rows, replace=False)
+    vals = rng.integers(-2 ** 62, 2 ** 62, rows)
+    tombs = rng.random(rows) < 0.2
+    half = rows // 2
+    a.put_batch(slots[:half], vals[:half], tombs[:half])
+    b.put_batch(slots[half:], vals[half:], tombs[half:])
+
+
+def trees_equal(x, y) -> bool:
+    return x.depth == y.depth and all(
+        np.array_equal(p, q) for p, q in zip(x.levels, y.levels))
+
+
+def f_twins_equal(card, host, what: str) -> None:
+    err = max_abs_err(card.store, [x.to("cuda") for x in host.store])
+    check(err == 0, f"path F: {what}'s lanes differ from its host twin "
+                    f"(max |err| {err})")
+    check(card.canonical_time == host.canonical_time,
+          f"path F: {what}'s clock differs from its host twin")
+
+
+F_TIMED = ("digest_tree", "pack_since", "merge_packed", "merge_and_repack")
+
+
+def f_sync_case(pair, twins, clocks, name: str, rows: int) -> dict:
+    """One divergence converged by `sync_merkle` on the card pair and on
+    the host twins, timed by method (``clocks``, one `MethodClock` a
+    replica); the walk is the rest."""
+    from crdt_tpu_torch.sync import sync_merkle
+    for clock in clocks:
+        clock.s = dict.fromkeys(F_TIMED, 0.0)
+        clock.packs = []
+    f_diverge(*pair, name, rows)
+    f_diverge(*twins, name, rows)
+    # A profiled pair: clones of the card pair, for the device time.
+    clones = []
+    for c in pair:
+        clone = DenseCrdt(c.node_id, N_SLOTS, store=c.store,
+                          node_ids=c._table.ids(),
+                          wall_clock=StepClock(c._wall_clock.t))
+        clones.append(clone)
+    torch.cuda.synchronize()
+    obs_device.reset()
+    t0 = time.perf_counter()
+    report = sync_merkle(*pair)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ops = obs_device.op_launches()
+    card = [dict(clock.s) for clock in clocks[:2]]
+    twin_report = sync_merkle(*twins)
+    fields = ("rounds", "digests", "ranges", "pushed_rows", "pulled_rows",
+              "payload_bytes")
+    check(all(getattr(report, f) == getattr(twin_report, f)
+              for f in fields), f"path F {name}: the report differs from "
+                                "the host twins'")
+    check(report.ranges and report.pushed_rows + report.pulled_rows > 0,
+          f"path F {name}: nothing diverged")
+    for k in (0, 1):
+        check(clocks[k].packs == clocks[k + 2].packs,
+              f"path F {name}: ranged pack bytes differ from the host's")
+    dev = device_ms(lambda: sync_merkle(*clones))
+    busy = sum(dev.values()) if dev else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trees = [c.digest_tree() for c in pair]       # cold: both merged
+    torch.cuda.synchronize()
+    cold_s = (time.perf_counter() - t0) / 2
+    obs_device.reset()
+    t0 = time.perf_counter()
+    again = pair[0].digest_tree()
+    cached_s = time.perf_counter() - t0
+    check(again is trees[0] and obs_device.op_launches()["digest_tree"] == 0,
+          f"path F {name}: a cached digest_tree built a tree")
+    check(trees[0].root == trees[1].root,
+          f"path F {name}: roots differ after sync_merkle")
+    for c, t, what in zip(pair + twins, trees + trees, ("a", "b") * 2):
+        check(trees_equal(c.digest_tree(), t),
+              f"path F {name}: replica {what}'s tree differs")
+    for c, h, what in zip(pair, twins, ("a", "b")):
+        f_twins_equal(c, h, f"{name} replica {what}")
+    check(numpy_root(pair[0].store) == trees[0].root,
+          f"path F {name}: the root differs from the numpy-uint64 fold")
+    timed = sum(card[0].values()) + sum(card[1].values())
+    out = dict(rounds=report.rounds, digests=report.digests,
+               spans=len(report.ranges), pushed_rows=report.pushed_rows,
+               pulled_rows=report.pulled_rows,
+               payload_bytes=report.payload_bytes,
+               digest_bytes=report.digest_bytes, sync_s=seconds,
+               digest_cold_s=cold_s, digest_cached_s=cached_s,
+               sync_digest_s=card[0]["digest_tree"] + card[1]["digest_tree"],
+               ranged_packs_s=card[0]["pack_since"] + card[1]["pack_since"],
+               merges_s=sum(card[k][m] for k in (0, 1)
+                            for m in ("merge_packed", "merge_and_repack")),
+               walk_s=seconds - timed, device_ms=busy, device_ms_by_op=dev,
+               idle_share=None if busy is None
+               else 1 - busy / 1e3 / seconds, ops=ops)
+    print(f"  path F {name}: {report.rounds} rounds, {report.digests} "
+          f"digests, {len(report.ranges)} spans, {report.payload_bytes} "
+          f"payload bytes; sync {seconds:.4f} s (digest cold "
+          f"{cold_s * 1e3:.3f} ms, cached {cached_s * 1e3:.4f} ms, walk "
+          f"{out['walk_s']:.4f} s, ranged packs {out['ranged_packs_s']:.4f}"
+          f" s, merges {out['merges_s']:.4f} s); device busy "
+          f"{busy if busy is None else round(busy, 4)} ms, idle "
+          f"{out['idle_share']}; ops {ops}")
+    return out
+
+
+def f_digest_split(crdt) -> dict:
+    """One cold `digest_tree` of a 2^20 store split apart: its host time
+    (the cache dropped before each of 5 builds; the build ends in one
+    device-to-host copy, so the clock stops after the card), against the
+    device time of one build under the profiler and the count of device
+    operations (kernels and copies) it ran."""
+    from torch.profiler import ProfilerActivity, profile
+    host = []
+    for _ in range(5):
+        crdt._digest_cache = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crdt.digest_tree()
+        host.append((time.perf_counter() - t0) * 1e3)
+    crdt._digest_cache = None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        crdt.digest_tree()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0)]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    host_ms = float(np.median(host))
+    return dict(host_ms=host_ms, host_ms_runs=host,
+                device_ms=busy if events else None,
+                device_ops=sum(e.count for e in events),
+                idle_share=1 - busy / host_ms if events else None)
+
+
+def f_storage(crdt, twin) -> dict:
+    """Half of one replica's live rows tombstoned; at its own head,
+    ``drift_slack_ms=0``: `gc_purge`, a `merge_many` replaying the
+    pre-purge rows (the fence folds into K1's ``valid``), `compact`.
+    Each step on the card is timed and held against the host twin."""
+    times = {}
+    ops = dict.fromkeys(obs_device.OPS, 0)      # the card replica's
+
+    def step(name, fn):
+        out = []
+        for c in (crdt, twin):
+            before = obs_device.op_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(fn(c))
+            torch.cuda.synchronize()
+            if c is crdt:
+                times[name] = time.perf_counter() - t0
+                for k, v in obs_device.op_launches().items():
+                    ops[k] += v - before[k]
+        return out
+
+    live = torch.nonzero(crdt.live_mask).reshape(-1).cpu().numpy()
+    stale = {}
+
+    def export(c):
+        cs, ids = c.export_delta()
+        stale[c.device.type] = (DenseChangeset(*(x.clone() for x in cs)),
+                                ids)
+
+    step("export_s", export)
+    step("tombstone_half_s", lambda c: c.delete_batch(live[::2]))
+    purged = step("gc_purge_s", lambda c: c.gc_purge(
+        c.canonical_time, drift_slack_ms=0))
+    check(purged[0] == purged[1] >= len(live[::2]),
+          f"path F: purged {purged}, tombstoned {len(live[::2])}")
+    obs_device.reset()
+    step("fenced_merge_s", lambda c: c.merge_many([stale[c.device.type]]))
+    k1 = obs_device.launches()["fanin_batch"]
+    check(k1 == 1, f"path F: the fenced replay launched K1 {k1} times")
+    check(not bool(crdt.store.occupied[torch.from_numpy(live[::2])].any()),
+          "path F: the replay resurrected purged slots")
+    translation = step("compact_s", lambda c: c.compact())
+    check(np.array_equal(*translation),
+          "path F: the compaction's translation differs from the host's")
+    before = obs_device.op_launches()["digest_tree"]
+    t0 = time.perf_counter()
+    seeded = crdt.digest_tree()
+    seeded_s = time.perf_counter() - t0
+    check(obs_device.op_launches()["digest_tree"] == before,
+          "path F: the compacted replica rebuilt its tree")
+    check(trees_equal(seeded, twin.digest_tree()),
+          "path F: the seeded tree differs from the host twin's")
+    crdt._digest_cache = None
+    check(trees_equal(seeded, crdt.digest_tree()),
+          "path F: the seeded tree differs from a fresh digest_tree()")
+    f_twins_equal(crdt, twin, "the compacted replica")
+    return dict(live_rows=len(live), tombstoned=len(live[::2]),
+                purged=purged[0], live_after=len(crdt),
+                seeded_digest_s=seeded_s, ops=ops, k1_launches=k1, **times)
+
+
+def f_snapshot(crdt) -> dict:
+    """`save` then `load` on the card: the loaded replica's first
+    `digest_tree` builds nothing (no ``digest_tree`` op). A local write
+    first: the saved tree is seeded only under the clock head the load
+    rebuilds from the lanes, and a merge's send bump leaves the head
+    above every stored stamp."""
+    crdt.put_batch([0], [1])
+    tree = crdt.digest_tree()
+    os.makedirs("chiprun_out", exist_ok=True)
+    t0 = time.perf_counter()
+    crdt.save(F_SNAPSHOT)
+    save_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        loaded = DenseCrdt.load(crdt.node_id, F_SNAPSHOT,
+                                wall_clock=StepClock(MILLIS))
+        load_s = time.perf_counter() - t0
+    finally:
+        os.remove(F_SNAPSHOT)
+    obs_device.reset()
+    got = loaded.digest_tree()
+    ops = obs_device.op_launches()["digest_tree"]
+    check(ops == 0 and trees_equal(got, tree),
+          f"path F: the loaded replica's first digest_tree built {ops} trees")
+    check(max_abs_err(loaded.store, crdt.store) == 0,
+          "path F: the loaded lanes differ")
+    return dict(save_s=save_s, load_s=load_s, first_digest_ops=ops)
+
+
+def path_f(card: str) -> dict:
+    """Anti-entropy and storage at 2^20 slots (see the module doc)."""
+    pair = [f_replica(n, "cuda") for n in ("a0", "b0")]
+    twins = [f_replica(n, "cpu") for n in ("a0", "b0")]
+    check(pair[0].digest_tree().root == pair[1].digest_tree().root,
+          "path F: replicas seeded alike have different roots")
+    clocks = [MethodClock(c, F_TIMED) for c in pair + twins]
+    cases = {name: f_sync_case(pair, twins, clocks, name, rows)
+             for name, rows in F_CASES}
+    digest = f_digest_split(pair[1])
+    print(f"  path F digest_tree at 2^20, cold: host {digest['host_ms']:.3f}"
+          f" ms, device {digest['device_ms']} ms in "
+          f"{digest['device_ops']} device ops")
+    storage = f_storage(pair[0], twins[0])
+    print(f"  path F storage: {storage['purged']} slots purged in "
+          f"{storage['gc_purge_s']:.4f} s, fenced merge "
+          f"{storage['fenced_merge_s']:.4f} s, compact "
+          f"{storage['compact_s']:.4f} s; ops {storage['ops']}")
+    snapshot = f_snapshot(pair[0])
+    return dict(card=card, n_slots=N_SLOTS, leaf_width=8, cases=cases,
+                digest=digest, storage=storage, snapshot=snapshot)
 
 
 LOOPS = 48                       # the probe CLI's --loops
@@ -2053,6 +2428,10 @@ def main() -> int:
     print("phase 3: path E (pack_since -> pack_rows -> unpack_rows -> "
           "merge_packed on both routes, merge_and_repack, merge_json) "
           "equals the host replicas")
+    storage = path_f(card)
+    print("phase 3: path F (sync_merkle over two divergences, gc_purge, "
+          "the fenced replay, compact, save and load) equals the host "
+          "replicas and the numpy-uint64 root")
     probes = path_d(card, results)
     print(f"phase 3: path D (the probe entry point's seven variants, the "
           f"distinct and stream rows) ran; P2 "
@@ -2075,7 +2454,7 @@ def main() -> int:
                            for n in obs_device.KERNELS]}
     record = dict(card=card, build_s=build_s, main_path=path,
                   path_a=interchange, path_b=stream, path_c=sharded,
-                  path_d=probes, path_e=gossip,
+                  path_d=probes, path_e=gossip, path_f=storage,
                   kernel_detail=results, torch=torch.__version__,
                   held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -2087,6 +2466,7 @@ def main() -> int:
     print(json.dumps({"path_c": sharded}))
     print(json.dumps({"path_d": probes}))
     print(json.dumps({"path_e": gossip}))
+    print(json.dumps({"path_f": storage}))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

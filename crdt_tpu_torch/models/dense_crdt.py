@@ -26,6 +26,15 @@ is a batched tensor op. The replication loop:
   in the payload's visit order (`utils.host_guards`), then join through
   `ops.dense.sparse_fanin_step` (or `wire_join_step` when the delta
   covers a quarter of the slots or more), in place.
+- **Anti-entropy.** ``digest_tree`` builds the Merkle digest tree of
+  the replicated lanes (`ops.digest`, cached until the store changes,
+  persisted by ``save``), which `crdt_tpu_torch.sync.sync_merkle` walks
+  against a peer's before it ships the divergent leaf ranges through
+  ``pack_since(ranges=...)``.
+- **Storage.** ``gc_purge`` drops the tombstones a fleet stability
+  watermark has passed and arms the resurrection fence that the merge
+  paths apply; ``compact`` packs the surviving rows to a dense prefix
+  and returns the slot translation.
 
 `ShardedDenseCrdt` is the same model with its key space sharded over a
 device mesh (`crdt_tpu_torch.parallel`); `sync_dense` is one
@@ -48,23 +57,28 @@ import numpy as np
 import torch
 
 from .. import crdt_json
-from ..hlc import (MAX_COUNTER, SHIFT, ClockDriftException,
+from ..hlc import (MAX_COUNTER, MAX_DRIFT, SHIFT, ClockDriftException,
                    DuplicateNodeException, Hlc, wall_clock_millis)
 from ..ops.dense import (CHANGESET_DTYPES, DenseChangeset, DenseStore,
-                         delete_scatter, dense_delta_mask,
-                         dense_max_logical_time, empty_dense_store,
-                         merge_repack_step, put_scatter, sparse_fanin_step,
-                         store_to_changeset, wire_join_step)
+                         compact_remap, delete_scatter, dense_delta_mask,
+                         dense_max_logical_time, dense_range_delta_mask,
+                         empty_dense_store, gc_purge, merge_repack_step,
+                         put_scatter, range_delta_mask, record_scatter,
+                         sparse_fanin_step, store_to_changeset,
+                         wire_join_step)
+from ..ops.digest import (DEFAULT_LEAF_WIDTH, build_digest_tree,
+                          digest_tree_device)
 from ..ops.fanin_kernel import (mask_value_width, model_fanin_batch,
                                 model_fanin_split, pipelined_model_step,
                                 pipelined_model_step_split)
 from ..ops.ingest_kernel import ingest_scatter
 from ..ops.merge import recv_guards, send_step
 from ..ops.packing import NodeTable, PackedDelta, pack_into_arena
-from ..parallel.fanin import (gather_lane, gather_store, make_sharded_fanin,
-                              make_sharded_ingest, shard_changeset,
-                              shard_store, sharded_delta_mask,
-                              sharded_max_logical_time)
+from ..parallel.fanin import (KEY_AXIS, gather_lane, gather_store,
+                              make_sharded_compact, make_sharded_digest,
+                              make_sharded_fanin, make_sharded_ingest,
+                              shard_changeset, shard_store,
+                              sharded_delta_mask, sharded_max_logical_time)
 from ..ops.split import (MAX_NODE_ORDINAL, SPLIT_DTYPES, TILE,
                          NarrowSplitChangeset, SplitChangeset, _cs_shape,
                          split_changeset, split_changeset_narrow,
@@ -180,10 +194,23 @@ class DenseCrdt:
         # that table first, then intern our own id (re-encoding lanes
         # if it sorts into the middle).
         self._table = NodeTable(node_ids or [])
-        # pack_since cache (watermark key -> packed delta); it must exist
-        # before the first store assignment, which clears it.
+        # pack_since cache (watermark key -> packed delta) and the
+        # digest_tree cache (one (key, DigestTree) pair); both must exist
+        # before the first store assignment, which clears them.
         self._pack_cache: "OrderedDict[Any, Any]" = OrderedDict()
+        self._digest_cache: Optional[Tuple[Any, Any]] = None
         self._store_gen = 0
+        # The semantics-column version of the cache and snapshot keys:
+        # 0 for as long as every slot is LWW (typed slots: ROADMAP A5).
+        self._sem_version = 0
+        # Tombstone GC: the armed fence floor (a packed logical time),
+        # the last floor purged at (an unadvanced watermark costs
+        # nothing), and the fence mask of the slots GC purged, on the
+        # store's device (`_fence_add`). The merge paths drop sub-floor
+        # rows onto fenced slots; compaction retires the fence.
+        self._gc_floor_lt = 0
+        self._last_gc_floor_lt = 0
+        self._gc_fence = None
         self._store = self._adopt_store(n_slots, store)
         if self._store.n_slots != n_slots:
             raise ValueError(f"store holds {self._store.n_slots} slots but "
@@ -239,6 +266,23 @@ class DenseCrdt:
     def _touch_store(self) -> None:
         self._store_gen += 1
         self._pack_cache.clear()
+        self._digest_cache = None
+
+    @property
+    def store_generation(self) -> int:
+        """Count of store changes: every replacement and in-place write
+        bumps it, `gc_purge` and `compact` included, which do not
+        advance the canonical clock; the pack and digest cache keys
+        carry it."""
+        return self._store_gen
+
+    @property
+    def gc_floor(self) -> int:
+        """The armed resurrection fence: the highest purge floor (a
+        packed logical time) any `gc_purge` ran at, or 0. The merge
+        paths drop inbound rows at or below it that target a purged
+        slot."""
+        return self._gc_floor_lt
 
     @property
     def store(self) -> DenseStore:
@@ -467,6 +511,11 @@ class DenseCrdt:
         self._touch_store()
         return self._store
 
+    def _gathered(self) -> DenseStore:
+        """The store as one `DenseStore` in slot order, on this
+        replica's device (the sharded model gathers a copy)."""
+        return self._store
+
     def _refuse_in_pipeline(self, op: str) -> None:
         if self._pipe is not None:
             raise RuntimeError(
@@ -567,6 +616,33 @@ class DenseCrdt:
         self.drain_ingest()
         self._store_escaped = True
         return self._store.val
+
+    @property
+    def live_mask(self) -> torch.Tensor:
+        """bool[n_slots]: occupied and not tombstoned."""
+        self.drain_ingest()
+        store = self._gathered()
+        return store.occupied & ~store.tomb
+
+    def __len__(self) -> int:
+        return int(self.live_mask.sum())
+
+    def clear(self, purge: bool = False) -> None:
+        """Tombstone every LIVE slot with one batch HLC, or physically
+        purge (crdt.dart:67-73: clear = putAll(None for live keys))."""
+        if purge:
+            return self.purge()
+        slots = torch.nonzero(self.live_mask).reshape(-1).cpu().numpy()
+        if slots.size:            # an empty putAll never touches the clock
+            self.delete_batch(slots)
+
+    def purge(self) -> None:
+        """Physically drop every record (crdt.dart:168-169). The
+        canonical clock, the node table and the GC fence are
+        untouched."""
+        self.drain_ingest()
+        self._store = self._adopt_store(self.n_slots, None)
+        self._store_escaped = False
 
     def _check_slot(self, slot: int) -> None:
         if not 0 <= slot < self.n_slots:
@@ -692,6 +768,79 @@ class DenseCrdt:
         """Slots of the delta and lanes ``names`` at those slots."""
         return self._rows_at(self._delta_mask(modified_since), *names)
 
+    def count_modified_since(self, modified_since: Optional[Hlc] = None
+                             ) -> int:
+        """Delta-backlog size: occupied slots with ``mod_lt >=
+        modified_since`` (tombstones included), one masked sum on the
+        device. Inside an ingest window the staged slots count too
+        (their flush stamp is at or after the canonical head), without
+        a flush."""
+        mask = self._delta_mask(modified_since)
+        ing = self._ingest
+        if ing is not None and ing.pending_rows:
+            mask = mask.index_fill(0, torch.from_numpy(
+                ing.pending_slot_array()).to(mask.device), True)
+        return int(mask.sum())
+
+    @staticmethod
+    def _check_int_values(slots, values: List[Any]) -> None:
+        """The payload lane is int64: any other value type (a bool too,
+        which would store as 0/1) would diverge under the peer's hlc.
+        None is a tombstone."""
+        bad = next((i for i, v in enumerate(values)
+                    if v is not None
+                    and (isinstance(v, bool)
+                         or not isinstance(v, (int, np.integer)))), None)
+        if bad is not None:
+            raise TypeError(
+                f"DenseCrdt values must be ints; slot {slots[bad]} got "
+                f"{type(values[bad]).__name__}")
+
+    def put_slot_records(self, record_map: Dict[int, Record]) -> None:
+        """Raw record writes keeping each record's own ``hlc`` and
+        ``modified`` stamps, the putRecords storage primitive
+        (crdt.dart:151-155): records land verbatim, with no LWW compare
+        and no canonical clock. Values must be ints, or None for
+        tombstones. For restoring a record dump or seeding a replica."""
+        if not record_map:
+            return
+        # Verbatim stamps must not interleave with a pending flush's.
+        self.drain_ingest()
+        k = len(record_map)
+        slots = np.fromiter(record_map.keys(), np.int64, count=k)
+        self._check_slots(slots)
+        recs = list(record_map.values())
+        self._check_int_values(slots, [r.value for r in recs])
+        self._check_value_width(
+            [0 if r.value is None else int(r.value) for r in recs])
+        self._intern_ids({r.hlc.node_id for r in recs}
+                         | {r.modified.node_id for r in recs})
+        ords = {nid: i for i, nid in enumerate(self._table.ids())}
+        rows = dict(
+            lt=np.fromiter((r.hlc.logical_time for r in recs), np.int64,
+                           count=k),
+            node=np.fromiter((ords[r.hlc.node_id] for r in recs),
+                             np.int32, count=k),
+            val=np.fromiter((0 if r.value is None else int(r.value)
+                             for r in recs), np.int64, count=k),
+            mod_lt=np.fromiter((r.modified.logical_time for r in recs),
+                               np.int64, count=k),
+            mod_node=np.fromiter((ords[r.modified.node_id] for r in recs),
+                                 np.int32, count=k),
+            tomb=np.fromiter((r.is_deleted for r in recs), bool, count=k))
+        self._scatter_records(slots, rows)
+        self.stats.puts += 1
+        self.stats.records_put += k
+        if self._hub.active:
+            for slot, rec in record_map.items():
+                self._hub.add(int(slot),
+                              None if rec.is_deleted else int(rec.value))
+
+    def _scatter_records(self, slots: np.ndarray,
+                         rows: Dict[str, np.ndarray]) -> None:
+        record_scatter(self._writable_store(), self._to_device(slots),
+                       **{f: self._to_device(a) for f, a in rows.items()})
+
     def record_map(self, modified_since: Optional[Hlc] = None
                    ) -> Dict[int, Record]:
         """Slot→Record export (recordMap, crdt.dart:140-169; inclusive
@@ -727,9 +876,11 @@ class DenseCrdt:
     # few watermarks reuses this many packs; LRU eviction past it.
     PACK_CACHE_SLOTS = 4
 
-    def _pack_key(self, since: Optional[Hlc]):
+    def _pack_key(self, since: Optional[Hlc], resolved: str = "plain",
+                  ranges=None):
         return (None if since is None else since.logical_time,
-                self._canonical_time.logical_time, self._store_gen)
+                self._canonical_time.logical_time, self._sem_version,
+                self._store_gen, resolved, ranges)
 
     def _pack_cache_store(self, key, out) -> None:
         """Insert a finished pack, LRU-evicting past PACK_CACHE_SLOTS."""
@@ -743,29 +894,79 @@ class DenseCrdt:
                                                "tomb")),
                 self._table.ids())
 
-    def pack_since(self, since: Optional[Hlc] = None, ranges=None
-                   ) -> Tuple[PackedDelta, List[Any]]:
+    def _resolve_sem_mode(self, sem_mode: str) -> str:
+        """The JAX package's ``sem_mode`` check: ``"auto"``,
+        ``"include"`` and ``"withhold"`` are valid and anything else
+        raises. Every slot is LWW until typed slots land (ROADMAP A5),
+        so every valid mode resolves to ``"plain"``: no sem lane to
+        attach, no typed row to withhold, as an all-LWW JAX replica
+        resolves it."""
+        if sem_mode not in ("auto", "include", "withhold"):
+            raise ValueError(f"unknown sem_mode {sem_mode!r}")
+        return "plain"
+
+    def _normalize_ranges(self, ranges):
+        """A range pack's spans: a sequence of half-open ``(lo, hi)``
+        slot spans -> a sorted tuple, empty spans dropped; None means
+        unrestricted."""
+        if ranges is None:
+            return None
+        out = []
+        for pair in ranges:
+            lo, hi = pair
+            lo, hi = int(lo), int(hi)
+            if not 0 <= lo <= hi <= self.n_slots:
+                raise ValueError(
+                    f"pack range ({lo}, {hi}) out of bounds for "
+                    f"{self.n_slots} slots")
+            if lo < hi:
+                out.append((lo, hi))
+        return tuple(sorted(out))
+
+    def _span_lanes(self, spans) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Normalized spans as ``(los, his)`` int64 lanes on the device."""
+        lanes = np.array(spans, np.int64).reshape(-1, 2)
+        return self._to_device(lanes[:, 0]), self._to_device(lanes[:, 1])
+
+    def _range_delta_mask(self, since: Optional[Hlc], spans) -> torch.Tensor:
+        """The mask of `pack_since(ranges=...)`: the delta mask (``since
+        = None`` scans every occupied slot) AND the union of the spans."""
+        since_lt = 0 if since is None else since.logical_time
+        return dense_range_delta_mask(self._store, since_lt,
+                                      *self._span_lanes(spans))
+
+    def pack_since(self, since: Optional[Hlc] = None, sem_mode: str = "auto",
+                   ranges=None) -> Tuple[PackedDelta, List[Any]]:
         """Outbound O(k) columnar delta: the rows with ``modified >=
         since`` (inclusive, the `export_delta` bound) in the packed wire
         form, plus the node-id list its ordinals index into — what
         ``merge_packed`` takes, here or on a JAX replica.
 
-        Results are cached on ``(since, canonical, store generation)``;
-        every store replacement or in-place write drops the cache, and
-        ``merge_and_repack`` seeds it. The JAX package's ``sem_mode``
-        (typed slots) waits for ROADMAP A5, and ``ranges`` (the Merkle
-        walk's range pack) for A4."""
-        if ranges is not None:
-            raise NotImplementedError(
-                "pack_since(ranges=...) is not ported yet (ROADMAP A4)")
+        ``sem_mode`` is the JAX package's typed-slot switch
+        (``"auto"``, ``"include"`` or ``"withhold"``, anything else
+        raises ``ValueError``); with every slot LWW, each mode gives the
+        same 5-lane pack (`_resolve_sem_mode`). ``ranges`` restricts the
+        pack to a union of half-open ``(lo, hi)`` slot spans (validated
+        against ``n_slots``, overlaps allowed), the Merkle walk's tail:
+        only the divergent leaf ranges re-ship; ``ranges=((0,
+        n_slots),)`` gives the unrestricted pack's bytes.
+
+        Results are cached on ``(since, canonical, semantics version,
+        store generation, mode, ranges)``; every store replacement or
+        in-place write drops the cache, and ``merge_and_repack`` seeds
+        it."""
+        resolved = self._resolve_sem_mode(sem_mode)
+        spans = self._normalize_ranges(ranges)
         # Drain BEFORE the key reads the canonical: a flush advances it.
         self.drain_ingest()
-        key = self._pack_key(since)
+        key = self._pack_key(since, resolved, spans)
         cached = self._pack_cache.get(key)
         if cached is not None:
             self._pack_cache.move_to_end(key)
             return cached
-        out = self._pack_rows_at(self._delta_mask(since))
+        mask = (self._delta_mask(since) if spans is None
+                else self._range_delta_mask(since, spans))
+        out = self._pack_rows_at(mask)
         self._pack_cache_store(key, out)
         return out
 
@@ -780,44 +981,201 @@ class DenseCrdt:
             self._store, None if since is None else since.logical_time)
         return cs, self._table.ids()
 
+    # --- Merkle digest tree (ops/digest.py) ---
+
+    #: Slots per digest leaf: where the walk localizes divergence and how
+    #: much a range pack re-ships. Both peers must agree (the walk checks
+    #: geometry); the JAX package's value.
+    DIGEST_LEAF_WIDTH = DEFAULT_LEAF_WIDTH
+
+    def _digest_key(self):
+        """Clock head, semantics version and store generation: the
+        generation keeps a tree after `gc_purge` / `compact`, which
+        change the store without advancing the clock, apart."""
+        return (self._canonical_time.logical_time, self._sem_version,
+                self._store_gen)
+
+    def _digest_levels(self) -> Tuple[torch.Tensor, ...]:
+        """Digest-tree levels (root-first) of the store, on its device."""
+        return digest_tree_device(self._store, None, self.DIGEST_LEAF_WIDTH)
+
+    def digest_tree(self):
+        """The Merkle digest tree of the replicated lanes (`ops.digest`),
+        built on the store's device and fetched in one copy: two
+        replicas compare roots, walk only the subtrees that differ, and
+        re-ship just the divergent leaf ranges through
+        ``pack_since(ranges=...)``. Cached like the packs: an unchanged
+        store builds nothing (no ``digest_tree`` op), and every store
+        change drops the tree."""
+        # Drain BEFORE the key reads the canonical clock.
+        self.drain_ingest()
+        key = self._digest_key()
+        cached = self._digest_cache
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        tree = build_digest_tree(self.n_slots, self.DIGEST_LEAF_WIDTH,
+                                 self._digest_levels())
+        self._digest_cache = (key, tree)
+        return tree
+
+    # --- tombstone epoch GC and online compaction ---
+
+    def gc_purge(self, stability: Hlc, *,
+                 drift_slack_ms: Optional[int] = None) -> int:
+        """Epoch tombstone GC: physically drop every tombstone whose
+        delete stamp the fleet's stability watermark has passed.
+        ``stability`` MUST be such a watermark (every peer's durable
+        state past it). The floor is the watermark less a clock-drift
+        slack (``hlc.MAX_DRIFT`` unless given; a single replica whose
+        watermark is its own head passes 0), so every row a peer may
+        still hold undelivered sits above it: inbound rows at or below
+        the floor that target a slot purged here are replays of purged
+        state, and the merge paths drop them (the fence). Slots never
+        purged here take such rows as first-time deliveries. A
+        watermark that has not advanced returns 0 before any op runs.
+        Returns the number of slots purged."""
+        self._refuse_in_pipeline("gc_purge")
+        self.drain_ingest()
+        slack = MAX_DRIFT if drift_slack_ms is None else int(drift_slack_ms)
+        if slack < 0:
+            raise ValueError(f"drift_slack_ms must be >= 0, got {slack}")
+        floor = int(stability.logical_time) - (slack << SHIFT)
+        if floor <= 0 or floor <= self._last_gc_floor_lt:
+            return 0  # the watermark has not advanced: no op
+        n_purged, purged = self._purge_stable(floor)
+        self._last_gc_floor_lt = floor
+        self._gc_floor_lt = max(self._gc_floor_lt, floor)
+        self._fence_add(purged)
+        return n_purged
+
+    def _purge_stable(self, floor: int):
+        """``(slots purged, purged mask)`` of one `ops.dense.gc_purge`
+        on the writable store."""
+        _, count, purged = gc_purge(self._writable_store(), floor)
+        return int(count), purged
+
+    def _fence_add(self, purged) -> None:
+        self._gc_fence = (purged if self._gc_fence is None
+                          else self._gc_fence | purged)
+
+    def _fence_mask(self) -> Optional[torch.Tensor]:
+        """The fence over every slot on this replica's device, or None."""
+        return self._gc_fence
+
+    def _set_fence(self, fence: Optional[torch.Tensor]) -> None:
+        self._gc_fence = fence
+
+    def _fence_rows(self, slots: np.ndarray, lt: np.ndarray) -> np.ndarray:
+        """Rows of a validated columnar delta that the GC fence drops:
+        at or below the floor, onto a purged slot."""
+        fenced = self._fence_mask()[self._to_device(slots)]
+        return (lt <= self._gc_floor_lt) & fenced.cpu().numpy()
+
+    @staticmethod
+    def _check_disjoint(spans) -> None:
+        """Compaction spans must not overlap: a slot in two spans would
+        have two destinations (the JAX package sums them, and loses
+        records)."""
+        for (lo0, hi0), (lo1, hi1) in zip(spans, spans[1:]):
+            if lo1 < hi0:
+                raise ValueError(
+                    f"compact ranges ({lo0}, {hi0}) and ({lo1}, {hi1}) "
+                    "overlap; each slot may be in one span only")
+
+    def compact(self, ranges=None) -> np.ndarray:
+        """Online compaction: the surviving rows move to a dense prefix
+        of their span (by default one span, the whole store) and the
+        digest tree is rebuilt with them (`ops.dense.compact_remap`).
+        Returns the translation ``int32[n_slots]``, ``translation[old] =
+        new`` for occupied rows and ``-1`` for empty slots, which the
+        caller MUST apply to every slot reference it holds. ``ranges``
+        restricts compaction to disjoint half-open ``(lo, hi)`` spans
+        (overlapping spans raise ``ValueError``); rows outside keep
+        their slots. The digest cache is seeded with the rebuilt tree,
+        and the GC fence retires (slot identity changed)."""
+        self._refuse_in_pipeline("compact")
+        self.drain_ingest()
+        spans = self._normalize_ranges(
+            ((0, self.n_slots),) if ranges is None else ranges)
+        self._check_disjoint(spans)
+        new_store, translation, levels = self._compact_store(
+            spans, whole=ranges is None)
+        translation = translation.cpu().numpy()
+        self._store = new_store
+        self._store_escaped = False
+        self._set_fence(None)
+        # Seed AFTER the store swap (which cleared the cache), under the
+        # key the next `digest_tree` builds.
+        self._digest_cache = (self._digest_key(), build_digest_tree(
+            self.n_slots, self.DIGEST_LEAF_WIDTH, levels))
+        return translation
+
+    def _compact_store(self, spans, whole: bool):
+        """``(new store lanes, translation, digest levels)`` of one
+        compaction over ``spans`` (``whole``: the caller gave no
+        ranges)."""
+        new_store, translation, _, levels = compact_remap(
+            self._store, *self._span_lanes(spans),
+            leaf_width=self.DIGEST_LEAF_WIDTH)
+        return new_store, translation, levels
+
     # --- checkpoint/resume ---
 
     def save(self, path: str) -> None:
-        """Columnar npz snapshot including the node-id table (the format
-        of ``crdt_tpu.checkpoint.save_dense``; either package loads it)."""
+        """Columnar npz snapshot including the node-id table and the
+        digest tree under its cache key (the format of
+        ``crdt_tpu.checkpoint.save_dense``; either package loads it).
+        A restored replica answers its first walk from the saved tree."""
         self.drain_ingest()
         from ..checkpoint import save_dense
-        save_dense(self._store, path, node_ids=self._table.ids())
+        tree = self.digest_tree()
+        save_dense(self._gathered(), path, node_ids=self._table.ids(),
+                   digest=(tree, self._canonical_time.logical_time,
+                           self._sem_version))
 
     @classmethod
     def load(cls, node_id: Any, path: str, **kwargs) -> "DenseCrdt":
         """Resume from a snapshot; the canonical clock rebuilds from the
         lanes (refreshCanonicalTime, crdt.dart:31-33) and writer
-        attribution survives via the persisted node table."""
-        from ..checkpoint import load_dense_with_node_ids
+        attribution survives via the persisted node table. A persisted
+        digest tree seeds the digest cache when its key still matches
+        the rebuilt state (clock, semantics version, geometry); any
+        other tree is ignored and rebuilt on the first walk."""
+        from ..checkpoint import load_dense_digest, load_dense_with_node_ids
         store, ids = load_dense_with_node_ids(path)
         if ids is None:
             raise ValueError(
                 f"{path} has no node-id table (store-level snapshot); "
                 "pass store=load_dense(path) with the original node_ids")
-        return cls(node_id, store.n_slots, store=store, node_ids=ids,
+        crdt = cls(node_id, store.n_slots, store=store, node_ids=ids,
                    **kwargs)
+        restored = load_dense_digest(path)
+        if restored is not None:
+            tree, logical_time, sem_version = restored
+            if (logical_time == crdt._canonical_time.logical_time
+                    and sem_version == crdt._sem_version
+                    and tree.n_slots == crdt.n_slots
+                    and tree.leaf_width == crdt.DIGEST_LEAF_WIDTH):
+                # Keyed under the LIVE generation: the guards above
+                # prove the tree matches the state it names.
+                crdt._digest_cache = (crdt._digest_key(), tree)
+        return crdt
 
     # --- capacity ---
 
     def grow(self, n_slots: int) -> None:
         """Grow the slot capacity to ``n_slots`` (records keep their
-        slots; new slots start empty), as ``crdt_tpu``'s
-        ``DenseCrdt.grow``. Shrinking would drop records; it is refused.
-        Peers at the old capacity keep syncing with this replica (their
-        narrower changesets are padded on merge); merging this replica's
-        wider changesets into an ungrown peer raises there until the
-        peer grows too.
+        slots; new slots start empty and outside the GC fence), as
+        ``crdt_tpu``'s ``DenseCrdt.grow``. Shrinking would drop records;
+        it is refused. Peers at the old capacity keep syncing with this
+        replica (their narrower changesets are padded on merge); merging
+        this replica's wider changesets into an ungrown peer raises
+        there until the peer grows too.
 
         Not carried over: the reference's executor tile check (the
         card's kernels take any ``n_slots``), and its padding of the
-        per-slot semantics tags and the GC fence, which this package
-        does not have yet (ROADMAP A4, A5)."""
+        per-slot semantics tags, which this package does not have yet
+        (ROADMAP A5)."""
         if n_slots < self.n_slots:
             raise ValueError(
                 f"cannot shrink {self.n_slots} -> {n_slots} slots "
@@ -826,11 +1184,15 @@ class DenseCrdt:
         if n_slots == self.n_slots:
             return
         self.drain_ingest()
-        pad = empty_dense_store(n_slots - self.n_slots, self._device)
-        self._store = DenseStore(*(torch.cat([lane, pad_lane])
-                                   for lane, pad_lane in zip(self._store,
-                                                             pad)))
+        extra = n_slots - self.n_slots
+        fence = self._fence_mask()
+        pad = empty_dense_store(extra, self._device)
+        self._store = self._adopt_store(n_slots, DenseStore(*(
+            torch.cat([lane, pad_lane])
+            for lane, pad_lane in zip(self._gathered(), pad))))
         self._store_escaped = False
+        if fence is not None:
+            self._set_fence(torch.cat([fence, fence.new_zeros(extra)]))
 
     # --- replication (C9/C10) ---
 
@@ -911,6 +1273,13 @@ class DenseCrdt:
         cs = parts[0] if len(parts) == 1 else DenseChangeset(
             *(torch.cat([getattr(p, f) for p in parts])
               for f in DenseChangeset._fields))
+        fence = self._fence_mask()
+        if self._gc_floor_lt and fence is not None:
+            # The GC fence, folded into ``valid`` before the kernel (the
+            # columnar paths' predicate, `_fence_rows`): a row at or
+            # below the floor onto a purged slot replays purged state.
+            cs = cs._replace(valid=cs.valid & ~(
+                (cs.lt <= self._gc_floor_lt) & fence[None, :]))
         local = self._local_ordinal()
         pipe = self._pipe
         if pipe is not None and not pipe.exact and self._FUSED_COARSE:
@@ -1191,16 +1560,7 @@ class DenseCrdt:
         self.stats.add_seen_lazy(k)
         self._check_slots(slots)
         tomb = np.fromiter((v is None for v in values), bool, count=k)
-        # The payload lane is int64: any other type (a bool too, which
-        # would store as 0/1) would diverge under the peer's hlc.
-        bad = next((i for i, v in enumerate(values)
-                    if v is not None
-                    and (isinstance(v, bool)
-                         or not isinstance(v, (int, np.integer)))), None)
-        if bad is not None:
-            raise TypeError(
-                f"DenseCrdt values must be ints; slot {slots[bad]} got "
-                f"{type(values[bad]).__name__}")
+        self._check_int_values(slots, values)
         val = np.fromiter((0 if v is None else v for v in values),
                           np.int64, count=k)
         self._check_value_width(val)
@@ -1220,19 +1580,23 @@ class DenseCrdt:
 
     def merge_and_repack(self, packed: PackedDelta,
                          node_ids: Sequence[Any],
-                         since: Optional[Hlc] = None
+                         since: Optional[Hlc] = None,
+                         sem_mode: str = "auto"
                          ) -> Tuple[PackedDelta, List[Any]]:
-        """`merge_packed` and then `pack_since(since)`, the gossip relay:
-        the sparse join returns the next pack's delta mask from the same
-        call (`ops.dense.merge_repack_step`), and the pack seeds the
-        cache under `pack_since`'s key, so the next `pack_since(since)`
-        hits. An empty delta or the wide join takes `pack_since`."""
+        """`merge_packed` and then `pack_since(since, sem_mode)`, the
+        gossip relay: the sparse join returns the next pack's delta mask
+        from the same call (`ops.dense.merge_repack_step`), and the pack
+        seeds the cache under `pack_since`'s key, so the next
+        `pack_since(since)` hits. An empty delta, one the GC fence
+        empties, or the wide join takes `pack_since`. An unknown
+        ``sem_mode`` raises before the merge."""
+        resolved = self._resolve_sem_mode(sem_mode)
         since_lt = 0 if since is None else int(since.logical_time)
         mask = self._merge_packed_impl(packed, node_ids, since_lt)
         if mask is None:
-            return self.pack_since(since)
+            return self.pack_since(since, sem_mode)
         out = self._pack_rows_at(mask)
-        self._pack_cache_store(self._pack_key(since), out)
+        self._pack_cache_store(self._pack_key(since, resolved), out)
         return out
 
     def _merge_packed_impl(self, packed: PackedDelta,
@@ -1284,6 +1648,24 @@ class DenseCrdt:
         events in payload order, the final send bump. With
         ``repack_since_lt`` the sparse join also returns the next pack's
         delta mask; None on every other route."""
+        if self._gc_floor_lt and self._fence_mask() is not None:
+            # The GC fence: a row at or below the floor onto a slot this
+            # replica PURGED replays purged state (the stability
+            # watermark proves every peer delivered everything below the
+            # floor), and is dropped. Rows for never-purged slots
+            # (first-time deliveries) pass.
+            stale = self._fence_rows(slots, lt)
+            if stale.any():
+                keep = ~stale
+                slots, lt, node, val, tomb = (slots[keep], lt[keep],
+                                              node[keep], val[keep],
+                                              tomb[keep])
+                if not len(slots):
+                    # The two clock ticks of an empty merge.
+                    self._wall_clock()
+                    self._canonical_time = Hlc.send(
+                        self._canonical_time, millis=self._wall_clock())
+                    return None
         k = len(slots)
         my_ord = self._local_ordinal()
         wall = self._wall_clock()
@@ -1403,6 +1785,15 @@ class ShardedDenseCrdt(DenseCrdt):
     the single-device payloads and per-block false positives never
     reject a merge. Coarse ``pipelined()`` windows take the sharded step
     too, never the fused single-device step.
+
+    The columnar merges (``merge_packed``, ``merge_json``,
+    ``merge_records``, ``merge_and_repack``) and ``put_slot_records``
+    route each row to its key shard and write every copy of that shard
+    alike; ``gc_purge`` purges every copy and keeps one fence slice per
+    key shard; ``digest_tree`` and ``compact`` work shard by shard
+    (`parallel.make_sharded_digest`, `make_sharded_compact`), with the
+    JAX sharded model's fallbacks to the whole store when a leaf would
+    straddle two shards or ``compact`` is given ranges.
     """
 
     _FUSED_COARSE = False
@@ -1453,18 +1844,30 @@ class ShardedDenseCrdt(DenseCrdt):
         if remap is not None:
             self._store = self._store.map(lambda b: reencode(b, remap))
 
+    def _writable_store(self):
+        """The sharded lanes, written in place block by block (the
+        gathered views are copies, so nothing escapes)."""
+        self._touch_store()
+        return self._store
+
+    def _gathered(self) -> DenseStore:
+        return gather_store(self._store)
+
+    def _by_shard(self, slots: np.ndarray):
+        """``(k, rows)`` for each key shard that the global ``slots``
+        touch, ``rows`` the indices of its slots in ``slots``."""
+        shard = slots // self._store.width
+        for k in np.unique(shard).tolist():
+            yield k, np.nonzero(shard == k)[0]
+
     def _write_local(self, slots: np.ndarray, values: Optional[np.ndarray],
                      tombs: Optional[np.ndarray]) -> None:
         """The local batch scattered into every copy of each key shard
         it touches, at shard-local slots."""
         slots, values, tombs = self._last_wins(slots, values, tombs)
         t, me = self._canonical_time.logical_time, self._local_ordinal()
-        self._touch_store()
-        w = self._store.width
-        for k in range(len(self._store.blocks[0])):
-            sel = (slots >= k * w) & (slots < (k + 1) * w)
-            if not sel.any():
-                continue
+        w = self._writable_store().width
+        for k, sel in self._by_shard(slots):
             for blk in self._store.column(k):
                 dev = blk.lt.device
                 idx = torch.tensor(slots[sel] - k * w, device=dev)
@@ -1475,6 +1878,64 @@ class ShardedDenseCrdt(DenseCrdt):
                                                        device=dev), t, me,
                                 tombs=None if tombs is None
                                 else torch.tensor(tombs[sel], device=dev))
+
+    def _scatter_records(self, slots: np.ndarray,
+                         rows: Dict[str, np.ndarray]) -> None:
+        w = self._writable_store().width
+        for k, sel in self._by_shard(slots):
+            for blk in self._store.column(k):
+                dev = blk.lt.device
+                record_scatter(
+                    blk, torch.tensor(slots[sel] - k * w, device=dev),
+                    **{f: torch.tensor(a[sel], device=dev)
+                       for f, a in rows.items()})
+
+    def _dispatch_columns(self, slots: np.ndarray, lt: np.ndarray,
+                          node: np.ndarray, val: np.ndarray,
+                          tomb: np.ndarray, new_canonical: int,
+                          my_ord: int, repack_since_lt: Optional[int]):
+        """A validated columnar delta joined shard by shard: each key
+        shard's rows go to every copy of that shard, at shard-local
+        slots, through the route the unsharded model takes for the
+        whole delta (the wide join when it covers a quarter of the
+        slots, else the sparse join); no store is gathered. ``win``
+        comes back on the first device, per slot when wide, else per
+        payload row; ``repack_mask`` is the shard-local delta mask over
+        the joined store."""
+        k_rows, n = len(slots), self.n_slots
+        wide = k_rows * self.WIDE_JOIN_FRACTION >= n
+        w = self._writable_store().width
+        win = torch.zeros(n if wide else k_rows, dtype=torch.bool,
+                          device=self._device)
+        for k, sel in self._by_shard(slots):
+            for rank, blk in enumerate(self._store.column(k)):
+                dev = blk.lt.device
+                at = torch.tensor(slots[sel] - k * w, device=dev)
+                rows = [torch.tensor(a[sel], device=dev)
+                        for a in (lt, node, val, tomb)]
+                valid = torch.ones(len(sel), dtype=torch.bool, device=dev)
+                if wide:
+                    def lane(r):
+                        out = r.new_zeros(w)
+                        out[at] = r
+                        return out
+
+                    _, part = wire_join_step(
+                        blk, *(lane(r) for r in rows + [valid]),
+                        new_canonical, my_ord)
+                else:
+                    _, part = sparse_fanin_step(blk, at, *rows, valid,
+                                                new_canonical, my_ord)
+                if rank == 0:
+                    if wide:
+                        win[k * w:(k + 1) * w] = part.to(self._device)
+                    else:
+                        win[torch.from_numpy(sel).to(self._device)] = \
+                            part.to(self._device)
+        mask = None
+        if repack_since_lt is not None and not wide:
+            mask = self._since_mask(repack_since_lt)
+        return win, wide, mask
 
     def _commit_scatter(self, slots: np.ndarray, lt: np.ndarray,
                         vals: np.ndarray, tombs: np.ndarray,
@@ -1514,8 +1975,16 @@ class ShardedDenseCrdt(DenseCrdt):
     def _delta_mask(self, modified_since: Optional[Hlc]) -> torch.Tensor:
         if modified_since is None:
             return gather_lane(self._store, "occupied")
-        return sharded_delta_mask(self._mesh)(
-            self._store, modified_since.logical_time)
+        return self._since_mask(modified_since.logical_time)
+
+    def _since_mask(self, since_lt: int) -> torch.Tensor:
+        """The inclusive delta mask, shard-local, on the first device."""
+        return sharded_delta_mask(self._mesh)(self._store, since_lt)
+
+    def _range_delta_mask(self, since: Optional[Hlc], spans) -> torch.Tensor:
+        since_lt = 0 if since is None else since.logical_time
+        return range_delta_mask(self._since_mask(since_lt),
+                                *self._span_lanes(spans))
 
     def _rows_at(self, mask: torch.Tensor, *names: str
                  ) -> Tuple[np.ndarray, ...]:
@@ -1533,43 +2002,71 @@ class ShardedDenseCrdt(DenseCrdt):
                               val=store.val[None], tomb=store.tomb[None],
                               valid=valid[None]), self._table.ids()
 
-    def save(self, path: str) -> None:
-        from ..checkpoint import save_dense
-        save_dense(self.store, path, node_ids=self._table.ids())
+    # --- digest, GC and compaction, shard by shard ---
 
-    # --- what waits for its base method ---
+    def _digest_levels(self) -> Tuple[torch.Tensor, ...]:
+        """Per-shard leaves against global positions
+        (`parallel.make_sharded_digest`); when a leaf would straddle two
+        shards, the digest of the gathered store."""
+        if self._store.width % self.DIGEST_LEAF_WIDTH:
+            return digest_tree_device(self._gathered(), None,
+                                      self.DIGEST_LEAF_WIDTH)
+        return make_sharded_digest(self._mesh,
+                                   self.DIGEST_LEAF_WIDTH)(self._store)
 
-    def _not_yet(self, op: str, item: str):
-        raise NotImplementedError(
-            f"ShardedDenseCrdt.{op} is not ported yet (ROADMAP {item}); it "
-            "never runs an unsharded path on a sharded store")
+    def _purge_stable(self, floor: int):
+        """`ops.dense.gc_purge` on every copy of every key shard; the
+        count and the fence slices from the rank-0 copies."""
+        n_purged, masks = 0, []
+        for k in range(len(self._writable_store().blocks[0])):
+            for rank, blk in enumerate(self._store.column(k)):
+                _, count, purged = gc_purge(blk, floor)
+                if rank == 0:
+                    n_purged += int(count)
+                    masks.append(purged)
+        return n_purged, masks
 
-    def clear(self, *args, **kwargs):
-        self._not_yet("clear", "A3b")
+    # The GC fence is one slice per key shard, on its rank-0 copy's
+    # device.
 
-    def merge_packed(self, *args, **kwargs):
-        self._not_yet("merge_packed", "A3b")
+    def _fence_add(self, purged) -> None:
+        self._gc_fence = (purged if self._gc_fence is None else
+                          [a | b for a, b in zip(self._gc_fence, purged)])
 
-    def merge_and_repack(self, *args, **kwargs):
-        self._not_yet("merge_and_repack", "A3b")
+    def _fence_mask(self) -> Optional[torch.Tensor]:
+        if self._gc_fence is None:
+            return None
+        return torch.cat([m.to(self._device) for m in self._gc_fence])
 
-    def merge_json(self, *args, **kwargs):
-        self._not_yet("merge_json", "A3b")
+    def _set_fence(self, fence: Optional[torch.Tensor]) -> None:
+        w = self._store.width
+        self._gc_fence = None if fence is None else [
+            fence[k * w:(k + 1) * w].to(blk.lt.device)
+            for k, blk in enumerate(self._store.blocks[0])]
 
-    def merge_records(self, *args, **kwargs):
-        self._not_yet("merge_records", "A3b")
+    def _compact_store(self, spans, whole: bool):
+        """Without ``ranges``, each key shard packs to its own prefix
+        (`parallel.make_sharded_compact`), as the JAX sharded model
+        does; with ``ranges``, or when a leaf would straddle two
+        shards, the gathered store compacts as one and is sharded
+        again."""
+        if whole and not self._store.width % self.DIGEST_LEAF_WIDTH:
+            return make_sharded_compact(
+                self._mesh, self.DIGEST_LEAF_WIDTH)(self._store)
+        new_store, translation, _, levels = compact_remap(
+            self._gathered(), *self._span_lanes(spans),
+            leaf_width=self.DIGEST_LEAF_WIDTH)
+        return self._adopt_store(self.n_slots, new_store), translation, \
+            levels
 
-    def purge(self, *args, **kwargs):
-        self._not_yet("purge", "A3b")
-
-    def grow(self, *args, **kwargs):
-        self._not_yet("grow", "A3b")
-
-    def compact(self, *args, **kwargs):
-        self._not_yet("compact", "A4")
-
-    def _digest_levels(self, *args, **kwargs):
-        self._not_yet("_digest_levels", "A4")
+    def grow(self, n_slots: int) -> None:
+        """`DenseCrdt.grow` on the gathered store, sharded again at the
+        new width; ``n_slots`` must divide over the key shards."""
+        k = self._mesh.shape[KEY_AXIS]
+        if n_slots % k:
+            raise ValueError(f"n_slots={n_slots} not divisible by the "
+                             f"mesh's {k} key shards")
+        super().grow(n_slots)
 
 
 def sync_dense(local: DenseCrdt, remote: DenseCrdt) -> None:

@@ -113,6 +113,12 @@ class WriteCombiner:
         if self._k >= self._auto:
             self.flush()
 
+    def pending_slot_array(self) -> np.ndarray:
+        """The distinct staged slots (`DenseCrdt.count_modified_since`
+        counts them: they commit at or after the canonical head)."""
+        return np.fromiter(self._pending.keys(), np.int64,
+                           count=len(self._pending))
+
     def pending_value(self, slot: int):
         """``(staged, value)`` for the overlay; ``value`` is None for a
         staged tombstone."""

@@ -11,6 +11,13 @@ reads them after. The K1 kernel is counted under two names: as
 where the sharded step (`parallel.fanin`) launches it over a device's
 blocks, once per device per merge. The four kernel probes (`ops.probe`)
 count under their source names.
+
+`OPS` counts, beside them, the plain-torch ops of the anti-entropy and
+storage plane (the JAX package runs them through XLA, not Pallas, and
+no hand kernel replaces them): each digest-tree build, range delta
+mask, GC purge and compaction remap, on any device. A cached
+``digest_tree()`` counts nothing, which is how a run shows that a tree
+came from the cache.
 """
 
 from __future__ import annotations
@@ -21,7 +28,10 @@ KERNELS = ("fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream",
            "fanin_batch_sharded", "probe_join", "probe_copy",
            "probe_stream_noguard", "probe_copy_batch")
 
+OPS = ("digest_tree", "range_delta_mask", "gc_purge", "compact_remap")
+
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+_OPS: Dict[str, int] = dict.fromkeys(OPS, 0)
 
 
 def note_launch(name: str) -> None:
@@ -29,11 +39,22 @@ def note_launch(name: str) -> None:
     _LAUNCHES[name] += 1
 
 
+def note_op(name: str) -> None:
+    """Count one call of plain op ``name`` (an `OPS` entry)."""
+    _OPS[name] += 1
+
+
 def launches() -> Dict[str, int]:
     """Launch count per kernel since the last `reset`."""
     return dict(_LAUNCHES)
 
 
+def op_launches() -> Dict[str, int]:
+    """Call count per plain op since the last `reset`."""
+    return dict(_OPS)
+
+
 def reset() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    for counts in (_LAUNCHES, _OPS):
+        for name in counts:
+            counts[name] = 0

@@ -31,6 +31,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..obs import device as _obs_device
 from .merge import recv_guards
 
 _NEG = -(2 ** 62)
@@ -223,6 +224,40 @@ def dense_delta_mask(store: DenseStore, since_lt: Scalar) -> torch.Tensor:
     return store.occupied & (store.mod_lt >= since_lt)
 
 
+def span_mask(n: int, los: torch.Tensor, his: torch.Tensor) -> torch.Tensor:
+    """bool[n] on the spans' device: the union of the half-open slot
+    spans ``[los[i], his[i])`` (``0 <= lo <= hi <= n``; empty and
+    overlapping spans allowed). The JAX package tests every slot
+    against every span, an ``[S, N]`` matrix that XLA fuses away and
+    eager torch would not (16,384 spans over 2^20 slots are 16 GB of
+    bools); a difference array (+1 at each ``lo``, -1 at each ``hi``)
+    and its running sum give the same union in O(N + S)."""
+    edges = torch.zeros(n + 1, dtype=torch.int32, device=los.device)
+    one = torch.ones(los.shape, dtype=torch.int32, device=los.device)
+    edges.index_add_(0, los, one)
+    edges.index_add_(0, his, -one)
+    return edges[:n].cumsum(0) > 0
+
+
+def range_delta_mask(delta: torch.Tensor, los: torch.Tensor,
+                     his: torch.Tensor) -> torch.Tensor:
+    """A delta mask restricted to the union of the spans ``[los[i],
+    his[i])``, the anti-entropy range pack: after a Merkle walk has
+    localized divergence to a few leaf ranges, only those slots feed
+    the pack. Counted as one ``range_delta_mask`` op."""
+    _obs_device.note_op("range_delta_mask")
+    return delta & span_mask(delta.shape[0], los, his)
+
+
+def dense_range_delta_mask(store: DenseStore, since_lt: Scalar,
+                           los: torch.Tensor, his: torch.Tensor
+                           ) -> torch.Tensor:
+    """`dense_delta_mask` restricted to the union of the half-open slot
+    spans ``[los[i], his[i])``. ``since_lt = 0`` is a clock-unbounded
+    range scan (every occupied slot has ``mod_lt > 0``)."""
+    return range_delta_mask(dense_delta_mask(store, since_lt), los, his)
+
+
 # --- columnar wire joins (merge_packed / merge_json / merge_records) ---
 #
 # The JAX package runs these through XLA: it scatters losing rows to the
@@ -389,3 +424,109 @@ def ingest_scatter(store: DenseStore, slots: torch.Tensor,
     store.occupied[s] = True
     store.tomb[s] = tomb[live]
     return store
+
+
+def record_scatter(store: DenseStore, slots: torch.Tensor,
+                   lt: torch.Tensor, node: torch.Tensor, val: torch.Tensor,
+                   mod_lt: torch.Tensor, mod_node: torch.Tensor,
+                   tomb: torch.Tensor) -> DenseStore:
+    """Raw record writes keeping the given hlc and modified stamps, in
+    place: the putRecords storage primitive (crdt.dart:151-155), no LWW
+    compare and no clock. ``slots`` are unique and in range; the JAX
+    package pads the rows to a power of two with ``n_slots`` sentinels
+    that its scatter drops, and the port pads nothing, so no row can
+    reach an index that on the card is a device-side assert."""
+    store.lt[slots] = lt
+    store.node[slots] = node
+    store.val[slots] = val
+    store.mod_lt[slots] = mod_lt
+    store.mod_node[slots] = mod_node
+    store.occupied[slots] = True
+    store.tomb[slots] = tomb
+    return store
+
+
+# --- tombstone epoch GC and online compaction ---
+#
+# A tombstone is lattice state (the delete must dominate concurrent
+# writes), so it can leave the store only once the fleet's stability
+# watermark proves every peer's durable state dominates it. `gc_purge`
+# clears those stable tombstones from every lane; `compact_remap` then
+# packs the survivors to a dense prefix and rebuilds the digest tree.
+# Plain torch on the store's device: the JAX package runs both through
+# XLA, not Pallas.
+
+
+def gc_purge(store: DenseStore, floor_lt: int
+             ) -> Tuple[DenseStore, torch.Tensor, torch.Tensor]:
+    """Epoch tombstone purge, in place: every lane of the tombstones
+    whose record stamp is at or below ``floor_lt`` (inclusive: a durable
+    watermark means delivered THROUGH the stamp) returns to the
+    all-zero never-written state. ``floor_lt`` must come from a fleet
+    stability watermark, and the caller arms its merge-side fence
+    (`DenseCrdt.gc_purge`): this op alone cannot stop a delayed
+    pre-purge delta from re-occupying the slot. Returns ``(store,
+    purged_count int32, purged_mask)``; counted as one ``gc_purge``
+    op."""
+    _obs_device.note_op("gc_purge")
+    purged = store.occupied & store.tomb & (store.lt <= floor_lt)
+    for lane in store:
+        lane.masked_fill_(purged, 0)
+    return store, purged.sum(dtype=torch.int32), purged
+
+
+def compact_targets(keep: torch.Tensor, los: torch.Tensor,
+                    his: torch.Tensor) -> torch.Tensor:
+    """int64[N]: where each slot's row goes when the kept rows of each
+    span ``[los[i], his[i])`` (sorted, disjoint, non-empty) pack to the
+    span's prefix; a slot outside every span stays where it is. The JAX
+    package builds an ``[S, N]`` membership matrix; here each slot finds
+    its span by ``searchsorted`` on the sorted ``los``, and its rank is
+    a segmented count: the running count of kept rows less its value
+    at the span's start."""
+    n = keep.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=keep.device)
+    if not len(los):
+        return idx
+    span = (torch.searchsorted(los, idx, right=True) - 1).clamp_(min=0)
+    lo = los[span]
+    inside = (idx >= lo) & (idx < his[span])
+    before = torch.cumsum(keep, 0) - keep.to(torch.int64)  # kept in [0, i)
+    return torch.where(inside, lo + before - before[lo], idx)
+
+
+def remap_rows(store: DenseStore, keep: torch.Tensor,
+               new_slot: torch.Tensor) -> DenseStore:
+    """A new store holding the ``keep`` rows of ``store`` at
+    ``new_slot`` (unique among kept rows) and empty slots elsewhere.
+    The rows are selected before the indexed write: no row goes to a
+    sentinel."""
+    at = new_slot[keep]
+
+    def moved(lane):
+        out = torch.zeros_like(lane)
+        out[at] = lane[keep]
+        return out
+
+    return DenseStore(*(moved(lane) for lane in store))
+
+
+def compact_remap(store: DenseStore, los: torch.Tensor, his: torch.Tensor,
+                  *, leaf_width: int):
+    """Online compaction: the surviving rows of each span ``[los[i],
+    his[i])`` (sorted, disjoint: the caller validates) move to the dense
+    prefix of their span, rows outside every span keep their slot, and
+    the digest-tree levels of the result come back with it. Returns
+    ``(new_store, translation, live_count, digest_levels)``:
+    ``translation[old] = new`` (int32, ``-1`` for unoccupied slots) is
+    what every external slot reference must be rewritten through.
+    Counted as one ``compact_remap`` op."""
+    from .digest import digest_levels_from_lanes
+    _obs_device.note_op("compact_remap")
+    keep = store.occupied
+    new_slot = compact_targets(keep, los, his)
+    out = remap_rows(store, keep, new_slot)
+    translation = torch.where(keep, new_slot, -1).to(torch.int32)
+    levels = digest_levels_from_lanes(out.lt, out.val, out.tomb,
+                                      out.occupied, leaf_width=leaf_width)
+    return out, translation, keep.sum(dtype=torch.int32), levels

@@ -44,8 +44,11 @@ import numpy as np
 import torch
 
 from ..hlc import MAX_COUNTER, MAX_DRIFT, SHIFT
+from ..obs import device as obs_device
 from ..ops.dense import (_I32_NEG, _NEG, DenseChangeset, DenseStore,
-                         dense_delta_mask, dense_max_logical_time)
+                         compact_targets, dense_delta_mask,
+                         dense_max_logical_time, remap_rows)
+from ..ops.digest import fold_leaves, slot_digests, tree_levels_from_leaves
 from ..ops.fanin_kernel import fanin_cuda_many, fanin_join_reference
 from ..ops.ingest_kernel import ingest_scatter
 
@@ -394,5 +397,75 @@ def sharded_max_logical_time(mesh: FaninMesh):
     def fn(store: ShardedStore) -> torch.Tensor:
         return torch.stack([dense_max_logical_time(b).to(mesh.home)
                             for row in store.blocks for b in row]).amax()
+
+    return fn
+
+
+def _check_leaf_width(width: int, leaf_width: int) -> None:
+    if width % leaf_width:
+        raise ValueError(f"shard width {width} not a multiple of "
+                         f"leaf_width {leaf_width}")
+
+
+def _shard_leaves(blk: DenseStore, k: int, leaf_width: int,
+                  home: torch.device) -> torch.Tensor:
+    """Key shard ``k``'s leaf digests, mixed against its global slot
+    positions, on the first device."""
+    h = slot_digests(blk.lt, blk.val, blk.tomb, blk.occupied,
+                     idx_offset=k * blk.n_slots)
+    return fold_leaves(h, leaf_width).to(home)
+
+
+def make_sharded_digest(mesh: FaninMesh, leaf_width: int):
+    """Merkle digest-tree levels over a sharded store: ``fn(store) ->
+    levels`` (root-first, on the first device). Each key shard's leaves
+    are computed on its rank-0 copy against GLOBAL slot positions
+    (``idx_offset``) and concatenated in key order; the interior
+    combines then run on the first device. The shard width must be a
+    multiple of ``leaf_width``, so no leaf straddles two shards
+    (`ShardedDenseCrdt._digest_levels` falls back to the gathered store
+    otherwise). The levels equal `ops.digest.digest_tree_device` of the
+    gathered store; one ``digest_tree`` op a call."""
+
+    def fn(store: ShardedStore) -> Tuple[torch.Tensor, ...]:
+        _check_leaf_width(store.width, leaf_width)
+        obs_device.note_op("digest_tree")
+        return tree_levels_from_leaves(torch.cat([
+            _shard_leaves(blk, k, leaf_width, mesh.home)
+            for k, blk in enumerate(store.blocks[0])]))
+
+    return fn
+
+
+def make_sharded_compact(mesh: FaninMesh, leaf_width: int):
+    """Whole-store compaction over a sharded store: ``fn(store) ->
+    (new_store, translation, levels)``. Each key shard packs its rows to
+    its OWN prefix, on every copy alike, so no row crosses a shard and
+    every copy stays equal; ``translation`` (int32, global slots, ``-1``
+    for empty slots) and ``levels`` (the digest tree of the compacted
+    store, leaves against global positions as in `make_sharded_digest`)
+    come back on the first device. The shard width must be a multiple
+    of ``leaf_width``; one ``compact_remap`` op a call."""
+
+    def fn(store: ShardedStore):
+        w = store.width
+        _check_leaf_width(w, leaf_width)
+        obs_device.note_op("compact_remap")
+        new_blocks = [[None] * len(row) for row in store.blocks]
+        translation, leaves = [], []
+        for k in range(len(store.blocks[0])):
+            for rank, blk in enumerate(store.column(k)):
+                keep = blk.occupied
+                whole = torch.tensor([0, w], device=keep.device)
+                new_slot = compact_targets(keep, whole[:1], whole[1:])
+                new_blocks[rank][k] = remap_rows(blk, keep, new_slot)
+                if rank == 0:
+                    translation.append(torch.where(
+                        keep, new_slot + k * w, -1).to(torch.int32)
+                        .to(mesh.home))
+            leaves.append(_shard_leaves(new_blocks[0][k], k, leaf_width,
+                                        mesh.home))
+        return (ShardedStore(new_blocks), torch.cat(translation),
+                tree_levels_from_leaves(torch.cat(leaves)))
 
     return fn

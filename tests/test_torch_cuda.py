@@ -26,6 +26,9 @@ from torch_probe_cases import CHUNKS, SCALARS as CASE_SCALARS, \
     expected, probe_case_lanes
 from torch_stream_cases import CLOSED_CASES, LOCAL, WALL, closed_inputs, \
     exact_flags
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 pytestmark = pytest.mark.cuda
 
@@ -588,3 +591,114 @@ def test_probe_copy_batch_kernel_matches_plain(cuda, n, rows, narrow):
         assert torch.equal(a.cpu(), b)
     with pytest.raises(ValueError, match="whole groups"):
         probe.probe_copy_batch(*probe_on(cuda, st, cs), chunk_rows=rows + 1)
+
+
+# --- the anti-entropy and storage plane: plain torch on the card -------
+
+
+def test_digest_on_card_matches_host(cuda):
+    """The int64 emulation of the uint64 digest on the card: lanes with
+    the top bit set and negative values, tombstones, empty slots, an
+    offset near 2^32, 4,097 slots (a ragged leaf, 513 leaves)."""
+    from crdt_tpu_torch.ops import digest
+    rng = np.random.default_rng(11)
+    n = 4097
+    host = [torch.tensor(rng.integers(-2 ** 63, 2 ** 63 - 1, n,
+                                      dtype=np.int64, endpoint=True)),
+            torch.tensor(rng.integers(-2 ** 63, 2 ** 63 - 1, n,
+                                      dtype=np.int64, endpoint=True)),
+            torch.tensor(rng.random(n) < 0.3),
+            torch.tensor(rng.random(n) < 0.7)]
+    card = [x.to(cuda) for x in host]
+    for off in (0, 2 ** 32 - 3):
+        assert torch.equal(digest.slot_digests(*card, idx_offset=off).cpu(),
+                           digest.slot_digests(*host, idx_offset=off))
+    got = digest.digest_levels_from_lanes(*card)
+    want = digest.digest_levels_from_lanes(*host)
+    assert len(got) == len(want) == 11
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def storage_run(c, n, spans):
+    """Writes, a whole leaf tombstoned, ranged packs whose spans cut
+    leaves, GC, a fenced replay through ``merge`` (K1 on the card), a
+    compaction: what a card replica and a host replica must agree on."""
+    rng = np.random.default_rng(12)
+    slots = np.union1d(rng.choice(n, 1500, replace=False), np.arange(8, 16))
+    c.put_batch(slots, rng.integers(-2 ** 62, 2 ** 62, len(slots)))
+    stale, ids = c.export_delta()
+    stale = td.DenseChangeset(*(x.clone() for x in stale))
+    c.delete_batch(np.union1d(np.arange(8, 16),
+                              rng.choice(slots, 300, replace=False)))
+    tree = c.digest_tree()
+    packs = [c.pack_since(None, ranges=r)[0] for r in (
+        ((3, 13), (100, 101), (n - 7, n)), ((0, 20), (10, 30)))]
+    purged = c.gc_purge(c.canonical_time, drift_slack_ms=0)
+    c.merge(stale, ids)
+    translation = c.compact(spans)
+    seeded = c.digest_tree()
+    c._digest_cache = None
+    fresh = c.digest_tree()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return dict(store=[x.cpu() for x in c.store], clock=str(c.canonical_time),
+                purged=purged, translation=translation,
+                trees=[tree.levels, seeded.levels, fresh.levels],
+                packs=[[lane.tobytes() for lane in p] for p in packs])
+
+
+def assert_runs_equal(a, b):
+    for x, y in zip(a.pop("store"), b.pop("store")):
+        assert torch.equal(x, y)
+    for ta, tb in zip(a.pop("trees"), b.pop("trees")):
+        for la, lb in zip(ta, tb):
+            np.testing.assert_array_equal(la, lb)
+    np.testing.assert_array_equal(a.pop("translation"), b.pop("translation"))
+    assert a == b
+
+
+def test_storage_plane_on_card_matches_host(cuda):
+    runs = []
+    for device in (cuda, "cpu"):
+        tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
+        c = port.DenseCrdt("n1", 4097, device=device,
+                           wall_clock=tick.__next__)
+        obs_device.reset()
+        runs.append(storage_run(c, 4097, ((5, 1000), (1000, 4097))))
+        if device is cuda:
+            assert obs_device.launches()["fanin_batch"] == 1
+        assert obs_device.op_launches() == dict(
+            digest_tree=2, range_delta_mask=2, gc_purge=1, compact_remap=1)
+    a, b = runs
+    assert a["purged"] >= 8 and (a["translation"][8:16] == -1).all()
+    # The seeded tree equals the fresh one.
+    for la, lb in zip(a["trees"][1], a["trees"][2]):
+        np.testing.assert_array_equal(la, lb)
+    assert_runs_equal(a, b)
+
+
+def test_sharded_storage_plane_on_card_matches_host(cuda):
+    """The same on a (2, 2) mesh on the one card against a host mesh:
+    the sharded digest and compaction (a shard width of 4,104, a
+    multiple of the leaf width), the purge on every copy, the fence
+    folded before K1p, and the columnar join routed by key shard."""
+    n = 8208
+    runs = []
+    for devices in (None, ["cpu"] * 4):
+        mesh = parallel.make_fanin_mesh(2, 2, devices)
+        tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
+        c = port.ShardedDenseCrdt("n1", n, mesh, wall_clock=tick.__next__)
+        src = port.DenseCrdt("a0", n, device="cpu", wall_clock=tick.__next__)
+        rng = np.random.default_rng(13)
+        src.put_batch(rng.choice(n, 3000, replace=False),
+                      rng.integers(0, 1 << 40, 3000))
+        c.merge_packed(*src.pack_since())             # the wide join
+        src.put_batch(rng.choice(n, 40, replace=False), 7)
+        c.merge_packed(*src.pack_since(c.canonical_time))  # sparse
+        run = storage_run(c, n, None)
+        for k in range(2):
+            for x, y in zip(c._store.blocks[0][k], c._store.blocks[1][k]):
+                assert torch.equal(x, y)
+        runs.append(run)
+    assert_runs_equal(*runs)

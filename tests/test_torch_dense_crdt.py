@@ -21,6 +21,9 @@ from crdt_tpu import DenseCrdt as JaxDenseCrdt
 from crdt_tpu.ops.dense import DenseChangeset as JaxChangeset
 from crdt_tpu.testing import FakeClock, assert_dense_stores_equal
 from crdt_tpu_torch.ops.dense import DenseChangeset as PortChangeset
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N = 2 * 4096
 START = 1_700_000_000_000

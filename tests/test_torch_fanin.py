@@ -30,6 +30,9 @@ from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.ops import dense as td
 from crdt_tpu_torch.ops import fanin_kernel as tk
 from crdt_tpu_torch.ops import merge as tm
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N = 2 * 4096          # two TPU tiles: the smallest the Pallas side takes
 R = 16                # two chunks of 8 rows on the Pallas side

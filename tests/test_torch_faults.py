@@ -13,7 +13,14 @@ each held against ``crdt_tpu`` on the same numpy inputs:
 - C3: `DenseCrdt.grow` against the JAX package's (lanes after growth,
   the shrink refusal, merges of a narrower peer after growth), and the
   wider-peer ``ValueError`` with the same message in both packages.
+- C4: ``pack_since`` and ``merge_and_repack`` take the JAX package's
+  ``sem_mode`` keyword, which ``crdt_tpu.sync.sync_packed`` always
+  passes: a round between a port replica and a JAX replica converges in
+  either order, each replica equal to a JAX-JAX run of the same
+  operations, and an unknown mode raises the same ``ValueError``.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -30,6 +37,9 @@ from crdt_tpu_torch.models import dense_crdt as port_model
 from crdt_tpu_torch.ops.dense import DenseChangeset as PortChangeset
 
 from test_torch_sharded import meshes
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N = 8192                  # two TPU tiles: one per key shard of (2, 2)
 START = 1_700_000_000_000
@@ -179,3 +189,64 @@ def test_wider_peer_refused_with_the_jax_message():
         f"peer changeset covers {N} slots but this replica holds 4096; "
         f"call grow({N}) first")
     assert_same(jc, pc, "after the refusal")
+
+
+# --- C4: sem_mode -----------------------------------------------------------
+
+# The module, not the package-level function of the same name.
+jax_sync = importlib.import_module("crdt_tpu.sync")
+
+
+def c4_replica(kind, node_id):
+    if kind == "jax":
+        return JaxDense(node_id, 64, wall_clock=FakeClock())
+    return port.DenseCrdt(node_id, 64, device="cpu", wall_clock=FakeClock())
+
+
+def c4_rounds(a, b):
+    """Two rounds of the JAX package's `sync_packed`: a one-shot round,
+    then a delta round from its watermark (its pull goes through
+    ``merge_and_repack(..., sem_mode=...)``)."""
+    a.put_batch([1, 2], [10, 20])
+    b.put_batch([2, 3], [30, 40])
+    watermark = jax_sync.sync_packed(a, b)
+    a.delete_batch([1])
+    b.put_batch([5, 63], [50, -1])
+    jax_sync.sync_packed(a, b, since=watermark)
+
+
+@pytest.mark.parametrize("order", ["port-jax", "jax-port"])
+def test_jax_sync_packed_with_a_port_replica_converges(order):
+    pair = [c4_replica(kind, nid)
+            for kind, nid in zip(order.split("-"), ("a", "b"))]
+    ref = [c4_replica("jax", nid) for nid in ("a", "b")]
+    c4_rounds(*pair)
+    c4_rounds(*ref)
+    for got, want in zip(pair, ref):
+        assert_same(want, got, f"{order}: {got.node_id}")
+    for lane in ("lt", "val", "tomb", "occupied"):
+        np.testing.assert_array_equal(np.asarray(getattr(pair[0].store,
+                                                         lane)),
+                                      np.asarray(getattr(pair[1].store,
+                                                         lane)))
+
+
+@pytest.mark.parametrize("op", ["pack_since", "merge_and_repack"])
+def test_unknown_sem_mode_raises_like_jax(op):
+    src = c4_replica("jax", "w")
+    src.put_batch([4], [44])
+    delta = src.pack_since(None)
+    errs = []
+    for kind in ("jax", "port"):
+        c = c4_replica(kind, "r")
+        c.put_batch([1], [1])
+        with pytest.raises(ValueError) as info:
+            if op == "pack_since":
+                c.pack_since(None, sem_mode="typed")
+            else:
+                c.merge_and_repack(*delta, None, "typed")
+        errs.append(str(info.value))
+        assert c.get(4) is None        # refused before the merge
+        for mode in ("auto", "include", "withhold"):
+            assert c.pack_since(None, sem_mode=mode)[0].k == 1
+    assert errs[0] == errs[1] == "unknown sem_mode 'typed'"

@@ -26,6 +26,9 @@ from crdt_tpu_torch.models import dense_crdt as port_model
 from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.ops import dense as td
 from crdt_tpu_torch.ops import ingest_kernel as tk
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N = 2 * 4096
 BASE = 1_700_000_000_000 << 16

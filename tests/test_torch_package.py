@@ -22,6 +22,9 @@ from crdt_tpu_torch import checkpoint as port_ckpt
 from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.ops import dense as td
 from crdt_tpu_torch.ops import packing as port_packing
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "crdt_tpu_torch").rglob("*.py")) + [

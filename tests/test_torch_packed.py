@@ -33,6 +33,9 @@ from crdt_tpu.testing import FakeClock, assert_dense_stores_equal
 from crdt_tpu_torch import crdt_json as port_json
 from crdt_tpu_torch.ops import dense as td
 from crdt_tpu_torch.ops import packing as tp
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N = 4096
 START = 1_700_000_000_000
@@ -359,13 +362,45 @@ def test_empty_delta_ticks_the_clock_like_jax(case):
     assert p.port._wall_clock.millis - before == (3 if case == "json" else 2)
 
 
+def _one_row(node=0):
+    return tp.PackedDelta(slots=np.array([7], np.int32),
+                          lt=np.array([(START + 9) << 16], np.int64),
+                          node=np.array([node], np.int32),
+                          val=np.array([5], np.int64),
+                          tomb=np.array([0], np.uint8))
+
+
+SHARDED_REFUSALS = {
+    "merge_packed": lambda c: c.merge_packed(_one_row(node=3), ["w1"]),
+    "merge_json": lambda c: c.merge_json(json.dumps({"7": {
+        "hlc": str(port.Hlc(START + 9, 0, "w1")), "value": "x"}})),
+    "merge_records": lambda c: c.merge_records({7: port.Record(
+        port.Hlc(START + 9, 0, "w1"), 2.5, port.Hlc(START, 0, "w1"))}),
+    "merge_and_repack": lambda c: c.merge_and_repack(
+        _one_row(), ["w1"], None, sem_mode="typed"),
+}
+
+
 @pytest.mark.parametrize("op", ["merge_packed", "merge_json",
                                 "merge_records", "merge_and_repack"])
 def test_sharded_model_refuses_until_ported(op):
+    """Ported now (ROADMAP A3b): the sharded model refuses what the
+    unsharded one refuses, with the same exception and message, and is
+    left as it was."""
     mesh = port.parallel.make_fanin_mesh(1, 2, ["cpu"] * 2)
-    crdt = port.ShardedDenseCrdt("n0", 1024, mesh)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        getattr(crdt, op)(None, None)
+    crdts = (port.DenseCrdt("n0", 1024, device="cpu",
+                            wall_clock=FakeClock()),
+             port.ShardedDenseCrdt("n0", 1024, mesh, wall_clock=FakeClock()))
+    errs = []
+    for crdt in crdts:
+        crdt.put_batch([1, 7], [10, 70])
+        with pytest.raises(Exception) as info:
+            SHARDED_REFUSALS[op](crdt)
+        errs.append((type(info.value).__name__, str(info.value)))
+    assert errs[0] == errs[1]
+    assert_dense_stores_equal(crdts[0].store, crdts[1].store, op)
+    assert crdts[0].canonical_time == crdts[1].canonical_time
+    assert crdts[1].get(7) == 70
 
 
 # --- the wire functions and the ops, against the JAX package's -------
@@ -445,8 +480,9 @@ def test_sem_lane_waits_for_typed_slots():
     crdt = port.DenseCrdt("n0", N, device="cpu")
     with pytest.raises(NotImplementedError, match="A5"):
         crdt.merge_packed(typed, ["w0"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        crdt.pack_since(ranges=((0, N),))
+    # An all-LWW store attaches no sem lane under any valid mode.
+    assert len(crdt.pack_since(sem_mode="include", ranges=((0, N),))[0]) \
+        == len(tp.PackedDelta._fields) == 5
 
 
 def test_pack_hlcs_and_unpack_hlc_match_jax():

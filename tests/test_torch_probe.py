@@ -47,6 +47,9 @@ from crdt_tpu_torch.ops import probe
 from crdt_tpu_torch.ops import split as ts
 
 import torch_probe_cases as pc
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 N = 8192                       # two (8, 512) tiles of the TPU grid
 NEG_HI = ts.NEG_HI

@@ -37,6 +37,9 @@ from crdt_tpu.testing import FakeClock, assert_dense_stores_equal
 from crdt_tpu_torch import parallel as tp
 from crdt_tpu_torch.ops import dense as td
 from crdt_tpu_torch.ops import fanin_kernel
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 START = 1_700_000_000_000
 TILE = 4096                      # the JAX kernel's per-shard alignment
@@ -501,10 +504,19 @@ def test_sharded_value_width_32_matches_jax():
 
 
 def test_sharded_model_refuses_what_waits_for_its_base():
+    """``clear``, ``purge``, ``grow`` and ``compact`` are ported (ROADMAP
+    A3b, A4); what the sharded model still refuses: a width that does
+    not divide over the key shards, a shrink, overlapping compaction
+    spans."""
     _, mesh = meshes((2, 2))
     c = port.ShardedDenseCrdt("n0", 8, mesh)
-    for op in ("clear", "purge", "grow", "compact"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            getattr(c, op)()
+    c.put_batch([1, 6], [10, 60])
+    with pytest.raises(ValueError, match="key shards"):
+        c.grow(9)
+    with pytest.raises(ValueError, match="cannot shrink"):
+        c.grow(4)
+    with pytest.raises(ValueError, match="overlap"):
+        c.compact(ranges=((0, 4), (2, 6)))
+    assert (c.get(1), c.get(6), c.n_slots) == (10, 60, 8)
     with pytest.raises(ValueError, match="key shards"):
         port.ShardedDenseCrdt("n0", 9, mesh)

@@ -38,6 +38,9 @@ from crdt_tpu_torch.ops import split as ts
 
 from test_torch_fanin import (BASE, LOCAL, N, R, WALL, assert_lanes_equal,
                               jax_lanes, make_inputs, torch_cs)
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 START = 1_700_000_000_000
 # Peer ordinals 0..5 -> local ordinals; peer ordinal 1 is the local node.

@@ -38,6 +38,9 @@ from test_torch_fanin import (BASE, LOCAL, N, WALL, assert_lanes_equal,
 from torch_stream_cases import (AHEAD, CLOSED_CASES, EMPTY_COL, FAR_AHEAD,
                                 ROW_TIE, TIE0, TIE_LAST, closed_inputs,
                                 exact_flags)
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
 
 
 def jax_stream(store, cs, canonical, n_chunks, guards, wall=WALL):
