@@ -93,6 +93,30 @@ Phases, in order; any failure raises and exits non-zero:
      ``digest_tree`` builds nothing); each step timed on the host
      clock, the syncs' device time under the profiler, the plain ops
      counted (`obs.device.OPS`);
+   - path G, typed slots at 2^20 slots: LWW on the first half of the
+     slots, then ``gcounter``, ``pncounter``, ``orset`` and ``mvreg`` on
+     four spans of an eighth each, every lane value its tag's
+     ``law_val`` of the row's (lt, node). Two replicas take the main
+     path's 16 flushes (encoded lanes, K2) and 1,000 typed ops each,
+     400 of them inside an ``ingest()`` window; one ``merge_many`` of 16
+     peer rows (``bench.data.make_changeset``, fill 0.8) through the
+     typed fold, and a 128-row coarse window on the card alone against
+     the same rows merged unpipelined; tagged ``pack_since(sem_mode=
+     "include")`` deltas of 65,536 (the sparse typed join) and 262,144
+     rows (the wide one) through ``pack_rows`` / ``unpack_rows`` into
+     ``merge_packed``, a ``"withhold"`` pack into an LWW-only replica,
+     a tagged pack it refuses with its store unchanged;
+     ``sync_merkle`` between two typed replicas diverged on 1% of the
+     slots, then a ``sync_packed`` round; half the live typed rows
+     tombstoned, ``gc_purge``, ``compact``, ``grow``, ``save`` /
+     ``load``; a typed ``ShardedDenseCrdt`` on (2, 2) against the
+     unsharded replica (the fan-in, digest tree and compaction); a
+     ``KeyedDenseCrdt`` with 10,000 string keys, typed ops and a
+     ``sync_json`` round with a ``MapCrdt``. Every replica is held bit
+     for bit against a host twin given the same calls (lanes, clock,
+     tag column, frames, reports, JSON); no typed merge launches K1,
+     K1s, K1p or K3; each step's host time, the card's busy time and
+     its idle share come from ``torch.profiler``;
    - path D, the probe entry point (``crdt_tpu_torch.bench``) at the JAX
      CLI's defaults: its seven variants (``full``, ``stream``,
      ``stream-noguard``, ``nojoin``, ``copy``, ``copy-batch``,
@@ -122,7 +146,7 @@ import numpy as np
 import torch
 
 from crdt_tpu_torch import (DenseCrdt, DuplicateNodeException, Hlc,
-                            ShardedDenseCrdt, _build, parallel)
+                            ShardedDenseCrdt, _build, parallel, semantics)
 from crdt_tpu_torch.hlc import MAX_DRIFT, SHIFT
 from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.bench import fanin as bench_fanin
@@ -1805,7 +1829,8 @@ class MethodClock:
             if not self.depth:
                 self.s[name] += time.perf_counter() - t0
             if name == "pack_since" and kw.get("ranges") is not None:
-                self.packs.append([lane.tobytes() for lane in out[0]])
+                self.packs.append([None if lane is None else lane.tobytes()
+                                   for lane in out[0]])
             return out
         return run
 
@@ -2285,6 +2310,536 @@ def path_f(card: str) -> dict:
                 digest=digest, storage=storage, snapshot=snapshot)
 
 
+# Path G: typed slots and the keyed surface at the main path's width.
+# The tag column: LWW on the first half of the slots, then gcounter,
+# pncounter, orset and mvreg on four spans of an eighth each. Every
+# lane value is type-canonical: its spec's law_val of the row's (lt,
+# node). Each replica has a twin on the host given the same calls.
+G_TYPES = ("gcounter", "pncounter", "orset", "mvreg")
+G_OPS = 1000                     # typed ops per replica in the seed
+G_OP_SLOTS = 25                  # slots per type each replica's ops use
+G_FANIN_ROWS = 16                # the typed fan-in, held against a twin
+G_WINDOW_ROWS = 128              # the card-only window
+G_DELTAS = (("sparse_65536", FLUSH_ROWS), ("wide_262144", 4 * FLUSH_ROWS))
+G_SCATTER = 10_486               # 1% of the slots, as path F
+G_KEYS = 10_000
+G_SNAPSHOT = os.path.join("chiprun_out", "path_g_snapshot.npz")
+
+
+def g_span(i: int) -> tuple:
+    """The slot span of typed semantics ``G_TYPES[i]``."""
+    lo = N_SLOTS // 2 + i * (N_SLOTS // 8)
+    return lo, lo + N_SLOTS // 8
+
+
+def g_tags() -> np.ndarray:
+    sem = np.zeros(N_SLOTS, np.int8)
+    for i, name in enumerate(G_TYPES):
+        sem[slice(*g_span(i))] = semantics.get_semantics(name).tag
+    return sem
+
+
+def g_type(crdt) -> None:
+    """The path's tag column on a replica, through `set_semantics`."""
+    for i, name in enumerate(G_TYPES):
+        crdt.set_semantics(np.arange(*g_span(i)), name)
+
+
+def g_values(sem, lt, node):
+    """Type-canonical lane values: each row's spec's ``law_val(lt,
+    node)``, on numpy arrays or tensors alike."""
+    out = lt * 0
+    for spec in semantics.all_semantics():
+        law = spec.law_val(lt, node)
+        if isinstance(out, np.ndarray):
+            out = np.where(sem == spec.tag, law, out)
+        else:
+            out = torch.where(sem == spec.tag, law, out)
+    return out
+
+
+def g_flush_rows(seed: int, slots: np.ndarray):
+    """Encoded rows for ``slots``: values from a drawn (lt, node) per
+    row, a fifth of them tombstones."""
+    rng = np.random.default_rng(seed)
+    k = len(slots)
+    lt = ((MILLIS + rng.integers(0, 1000, k)) << SHIFT) + rng.integers(0, 4, k)
+    node = rng.integers(1, 9, k)
+    return slots, g_values(g_tags()[slots], lt, node), rng.random(k) < 0.2
+
+
+def g_replica(node_id: str, device, typed: bool = True):
+    crdt = DenseCrdt(node_id, N_SLOTS, device=device,
+                     wall_clock=StepClock(MILLIS))
+    if typed:
+        g_type(crdt)
+    return crdt
+
+
+def g_seed(crdt) -> None:
+    """The main path's 16 flushes of 65,536 rows, lanes encoded by tag."""
+    with crdt.ingest(auto_flush_rows=FLUSH_ROWS):
+        for f in range(FLUSHES):
+            crdt.put_batch(*g_flush_rows(900 + f, flush_inputs(f)[0]))
+
+
+def g_equal(card, host, what: str) -> None:
+    """A card replica against its host twin: lanes, clock, tags."""
+    err = max_abs_err(card.store, [x.to("cuda") for x in host.store])
+    check(err == 0, f"path G: {what}'s lanes differ from its host twin "
+                    f"(max |err| {err})")
+    check(card.canonical_time == host.canonical_time,
+          f"path G: {what}'s clock differs from its host twin")
+    check(np.array_equal(card._sem_host(), host._sem_host())
+          and card._sem_version == host._sem_version,
+          f"path G: {what}'s tag column differs from its host twin")
+
+
+def g_profiled(fn) -> tuple:
+    """``fn()`` under ``torch.profiler`` (CUDA activity), timed on the
+    host clock: ``(result, row)`` with the host seconds, the card's busy
+    time and its count of device operations (kernels and copies), and
+    the idle share of the card over the host time. The profiler costs
+    the host a little per launch, so launch-bound steps read slower
+    here than unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    events = sorted((e for e in prof.key_averages()
+                     if getattr(e, "self_device_time_total", 0)),
+                    key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    return out, dict(host_s=host_s, device_ms=busy if events else None,
+                     device_ops=sum(e.count for e in events),
+                     idle_share=1 - busy / 1e3 / host_s if events else None,
+                     top_device_ops=[(e.key[:80], e.count,
+                                      e.self_device_time_total / 1e3)
+                                     for e in events[:6]])
+
+
+def g_report(name: str, row: dict) -> None:
+    busy, idle = row.get("device_ms"), row.get("idle_share")
+    twin = row.get("twin_s")
+    print(f"  path G {name}: host {row['host_s']:.4f} s, device "
+          f"{'not measured' if busy is None else f'{busy:.4f} ms'} in "
+          f"{row.get('device_ops')} device ops, idle "
+          f"{'not measured' if idle is None else f'{idle:.4f}'}"
+          + ("" if twin is None else f"; host twin {twin:.4f} s"))
+
+
+def g_twin_step(name: str, pair, fn, steps: dict):
+    """``fn`` on the card replica under the profiler, then on its twin;
+    the step's row goes to ``steps``. Returns both results."""
+    out, row = g_profiled(lambda: fn(pair[0]))
+    t0 = time.perf_counter()
+    twin_out = fn(pair[1])
+    row["twin_s"] = time.perf_counter() - t0
+    steps[name] = row
+    g_report(name, row)
+    return out, twin_out
+
+
+def g_op_slots() -> list:
+    """Each replica's op slots per typed span: slots no seed flush wrote
+    (an OR-set lane there starts empty, so no element saturates), the
+    two replicas' disjoint."""
+    seeded = np.unique(np.concatenate(
+        [flush_inputs(f)[0] for f in range(FLUSHES)]))
+    free = [np.setdiff1d(np.arange(*g_span(i)), seeded)
+            for i in range(len(G_TYPES))]
+    return [[f[r * G_OP_SLOTS:(r + 1) * G_OP_SLOTS] for f in free]
+            for r in (0, 1)]
+
+
+def g_typed_ops(crdt, op_slots) -> list:
+    """``G_OPS`` typed ops on one replica at its ``op_slots`` (one array
+    per typed span), the last 40% inside an ``ingest()`` window (staged
+    adds accumulate in the overlay): counter adds, OR-set adds and
+    removes, mvreg writes. Returns every op's result."""
+    gs, ps, os_, ms = op_slots
+
+    def op(i):
+        j = i // 4
+        s = j % G_OP_SLOTS
+        if i % 4 == 0:
+            return crdt.counter_add(int(gs[s]), 1 + j % 9)
+        if i % 4 == 1:
+            return crdt.counter_add(int(ps[s]), j % 19 - 9)
+        if i % 4 == 2:
+            e = (j // (2 * G_OP_SLOTS)) % 16
+            if (j // G_OP_SLOTS) % 2 == 0:
+                return crdt.orset_add(int(os_[s]), e)
+            return crdt.orset_remove(int(os_[s]), e)
+        return crdt.mvreg_put(int(ms[s]), 1 + (j * 37 + int(ms[0])) % 0x7FFF)
+
+    cut = G_OPS * 6 // 10
+    out = [op(i) for i in range(cut)]
+    with crdt.ingest():
+        out += [op(i) for i in range(cut, G_OPS)]
+    out.append([crdt.counter_value(int(s)) for s in gs[:4]]
+               + [crdt.counter_value(int(s)) for s in ps[:4]]
+               + [crdt.orset_members(int(s)) for s in os_[:4]]
+               + [crdt.mvreg_get(int(s)) for s in ms[:4]])
+    return out
+
+
+def g_changeset(rows: int, seed: int) -> DenseChangeset:
+    """``rows`` peer rows at fill 0.8 from `bench.data.make_changeset` on
+    the card, values re-encoded by the tag of their slot."""
+    from crdt_tpu_torch.bench.data import make_changeset as bench_changeset
+    cs = bench_changeset(rows, N_SLOTS, seed, device="cuda")
+    sem = torch.from_numpy(g_tags()).to("cuda")
+    return cs._replace(val=g_values(sem, cs.lt, cs.node.long()))
+
+
+def g_clone(crdt, node_id: str):
+    """A card replica holding ``crdt``'s lanes, node table, tags and
+    clock position: the same call on it gives the same result."""
+    clone = DenseCrdt(node_id, crdt.n_slots, store=crdt.store,
+                      node_ids=crdt._table.ids(),
+                      wall_clock=StepClock(crdt._wall_clock.t))
+    sem = crdt._sem_host()
+    for tag in np.unique(sem[sem != 0]).tolist():
+        clone.set_semantics(np.nonzero(sem == tag)[0], tag)
+    return clone
+
+
+def g_fanin(a, steps: dict) -> dict:
+    """One `merge_many` of ``G_FANIN_ROWS`` peer rows on replica a and its
+    twin, timed unprofiled; the same merge on a clone under the
+    profiler; then a ``G_WINDOW_ROWS``-row coarse window on a clone,
+    card only, held against the same rows merged unpipelined."""
+    cs = g_changeset(G_FANIN_ROWS, 3000)
+    host_cs = DenseChangeset(*(x.cpu() for x in cs))
+    clone = g_clone(a[0], a[0].node_id)
+    before = (obs_device.launches(), obs_device.op_launches())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a[0].merge_many([(cs, IDS)])
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    after = (obs_device.launches(), obs_device.op_launches())
+    kernels = {k: after[0][k] - before[0][k] for k in after[0]}
+    ops = {k: after[1][k] - before[1][k] for k in after[1]}
+    check(sum(kernels.values()) == 0 and ops["typed_fanin_step"] == 1,
+          f"path G: the typed fan-in launched {kernels}, ops {ops}")
+    t0 = time.perf_counter()
+    a[1].merge_many([(host_cs, IDS)])
+    twin_s = time.perf_counter() - t0
+    g_equal(*a, "the fan-in replica")
+    _, row = g_profiled(lambda: clone.merge_many([(cs, IDS)]))
+    check(max_abs_err(clone.store, a[0].store) == 0,
+          "path G: the profiled fan-in differs from the timed one")
+    row.update(unprofiled_s=merge_s, twin_s=twin_s, rows=G_FANIN_ROWS,
+               valid_records=int(cs.valid.sum()),
+               ops_per_row=row["device_ops"] / G_FANIN_ROWS)
+    steps["fanin_16"] = row
+    g_report("fanin_16", row)
+    for name, count, ms in row["top_device_ops"]:
+        print(f"    {count} x {name}: {ms:.4f} ms")
+    del cs, host_cs, clone
+
+    wide = g_changeset(G_WINDOW_ROWS, 3100)
+    win, ref = g_clone(a[0], "w0"), g_clone(a[0], "w0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with win.pipelined():
+        win.merge(wide, IDS)
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    _, row = g_profiled(lambda: ref.merge_many([(wide, IDS)]))
+    check(max_abs_err(win.store, ref.store) == 0
+          and win.canonical_time == ref.canonical_time,
+          "path G: the typed window differs from the same rows merged "
+          "unpipelined")
+    row.update(unprofiled_window_s=window_s, rows=G_WINDOW_ROWS,
+               ops_per_row=row["device_ops"] / G_WINDOW_ROWS)
+    steps["window_128"] = row
+    g_report("window_128 (unpipelined, profiled)", row)
+    print(f"  path G window_128: coarse window {window_s:.4f} s unprofiled")
+    return dict(rows=G_FANIN_ROWS, window_rows=G_WINDOW_ROWS)
+
+
+def g_gossip(a, b, steps: dict) -> dict:
+    """Typed deltas from a to b: ``pack_since(sem_mode="include")`` ->
+    ``pack_rows`` -> ``unpack_rows`` -> ``merge_packed`` at 65,536 rows
+    (the sparse typed join) and 262,144 (the wide one); a
+    ``"withhold"`` pack into an LWW-only receiver; a tagged pack the
+    LWW-only receiver refuses, its store unchanged."""
+    from crdt_tpu_torch.ops.packing import pack_rows, unpack_rows
+    perm = np.random.default_rng(950).permutation(N_SLOTS)
+    cuts = np.cumsum([0] + [rows for _, rows in G_DELTAS])
+    first = Hlc.from_logical_time(a[0].canonical_time.logical_time + 1,
+                                  "a0")
+    out = {}
+    for (name, rows), lo, hi in zip(G_DELTAS, cuts[:-1], cuts[1:]):
+        since = Hlc.from_logical_time(a[0].canonical_time.logical_time + 1,
+                                      "a0")
+        rows_in = g_flush_rows(960 + lo, perm[lo:hi])
+        for c in a:
+            with c.ingest(auto_flush_rows=FLUSH_ROWS):
+                c.put_batch(*rows_in)
+        frames = []
+        for c in a:
+            packed, ids = c.pack_since(since, sem_mode="include")
+            meta, bufs = pack_rows(packed)
+            frames.append((meta, b"".join(bytes(x) for x in bufs)))
+        check(frames[0] == frames[1], f"path G: the {name} frame differs "
+                                      "between card and host")
+        check([f[0] for f in frames[0][0]["lanes"]][-1] == "sem"
+              and frames[0][0]["lanes"][0][2][0] == rows,
+              f"path G: the {name} pack is not {rows} tagged rows")
+        g_twin_step(f"gossip_{name}", b, lambda c: c.merge_packed(
+            unpack_rows(*frames[0]), ids), steps)
+        g_equal(*b, f"the receiver after {name}")
+        out[name] = dict(rows=rows, route="wide" if rows * 4 >= N_SLOTS
+                         else "sparse", frame_bytes=len(frames[0][1]))
+    lww = [g_replica("c0", dev, typed=False) for dev in TWINS.values()]
+    withheld = [c.pack_since(first, sem_mode="withhold") for c in a]
+    tagged = a[0].pack_since(first, sem_mode="include")
+    typed_rows = int((tagged[0].sem != 0).sum())
+    check(withheld[0][0].sem is None and withheld[0][0].k
+          == tagged[0].k - typed_rows and typed_rows > 0
+          and int(withheld[0][0].slots.max()) < N_SLOTS // 2,
+          "path G: the withheld pack kept typed rows")
+    g_twin_step("withheld_to_lww", lww, lambda c: c.merge_packed(
+        *withheld[0]), steps)
+    g_equal(*lww, "the LWW-only receiver")
+    before = [x.clone() for x in lww[0].store]
+    clock = lww[0].canonical_time
+    try:
+        lww[0].merge_packed(*tagged)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise Failure("path G: a tag mismatch was merged")
+    check(refused.startswith("semantics tag mismatch at slot")
+          and max_abs_err(before, lww[0].store) == 0
+          and lww[0].canonical_time == clock,
+          "path G: the refused pack touched the receiver")
+    out.update(withheld_rows=typed_rows, kept_rows=int(withheld[0][0].k),
+               refusal=refused)
+    return out
+
+
+def g_antientropy(b, op_slots, steps: dict) -> dict:
+    """Two typed replicas cloned from b (and their twins from b's twin)
+    diverge on 1% of the slots, scattered, a fifth tombstones, values
+    encoded by tag, half written on each side; `sync_merkle` converges
+    them, the sem lane riding both ways; then a few typed ops on each
+    and one `sync_packed` round."""
+    from crdt_tpu_torch.sync import sync_merkle, sync_packed
+    pair = [g_clone(b[0], "c0"), g_clone(b[0], "d0")]
+    twins = []
+    for nid in ("c0", "d0"):
+        twin = DenseCrdt(nid, N_SLOTS, device="cpu", store=b[1].store,
+                         node_ids=b[1]._table.ids(),
+                         wall_clock=StepClock(b[1]._wall_clock.t))
+        g_type(twin)
+        twins.append(twin)
+    rng = np.random.default_rng(970)
+    slots = rng.choice(N_SLOTS, G_SCATTER, replace=False)
+    slots, vals, tombs = g_flush_rows(971, slots)
+    half = G_SCATTER // 2
+    for group in (pair, twins):
+        group[0].put_batch(slots[:half], vals[:half], tombs[:half])
+        group[1].put_batch(slots[half:], vals[half:], tombs[half:])
+    report, row = g_profiled(lambda: sync_merkle(*pair))
+    t0 = time.perf_counter()
+    twin_report = sync_merkle(*twins)
+    row["twin_s"] = time.perf_counter() - t0
+    fields = ("rounds", "digests", "ranges", "pushed_rows", "pulled_rows",
+              "payload_bytes")
+    check(all(getattr(report, f) == getattr(twin_report, f)
+              for f in fields) and report.ranges,
+          "path G: the merkle report differs from the host twins' (or "
+          "nothing diverged)")
+    row.update({f: getattr(report, f) for f in fields if f != "ranges"},
+               spans=len(report.ranges))
+    steps["sync_merkle_1pct"] = row
+    g_report("sync_merkle_1pct", row)
+    for c, h, what in zip(pair, twins, ("c", "d")):
+        g_equal(c, h, f"anti-entropy replica {what}")
+    check(pair[0].digest_tree().root == pair[1].digest_tree().root,
+          "path G: the typed replicas' roots differ after sync_merkle")
+    for group in (pair, twins):
+        for i, c in enumerate(group):
+            c.counter_add(int(op_slots[i][0][1]), 5 + i)
+            c.orset_add(int(op_slots[i][2][1]), 9)
+    g_twin_step("sync_packed", (pair, twins),
+                lambda group: sync_packed(*group), steps)
+    for c, h, what in zip(pair, twins, ("c", "d")):
+        g_equal(c, h, f"anti-entropy replica {what} after sync_packed")
+    return dict(scatter_rows=G_SCATTER, spans=len(report.ranges),
+                payload_bytes=report.payload_bytes)
+
+
+def g_storage(a, steps: dict) -> dict:
+    """On replica a and its twin: half the live typed rows tombstoned,
+    `gc_purge` at its own head (purged typed slots return to LWW),
+    `compact` (the tags move with the rows), `grow`; then `save` /
+    `load` (a snapshot holds no tag column)."""
+    sem = a[0]._sem_host()
+    live = torch.nonzero(a[0].live_mask).reshape(-1).cpu().numpy()
+    typed = live[sem[live] != 0][::2]
+    g_twin_step("tombstone_half_typed", a,
+                lambda c: c.delete_batch(typed), steps)
+    purged = g_twin_step("gc_purge", a, lambda c: c.gc_purge(
+        c.canonical_time, drift_slack_ms=0), steps)
+    check(purged[0] == purged[1] >= len(typed)
+          and not a[0]._sem_host()[typed].any(),
+          "path G: purged typed slots kept their tags")
+    g_equal(*a, "the purged replica")
+    translation = g_twin_step("compact", a, lambda c: c.compact(), steps)
+    check(np.array_equal(*translation), "path G: the typed compaction's "
+                                        "translation differs")
+    g_equal(*a, "the compacted replica")
+    check(a[0].digest_tree().root == a[1].digest_tree().root,
+          "path G: the compacted trees differ")
+    grown = N_SLOTS + FLUSH_ROWS
+    g_twin_step("grow", a, lambda c: c.grow(grown), steps)
+    g_equal(*a, "the grown replica")
+    os.makedirs("chiprun_out", exist_ok=True)
+    try:
+        _, row = g_profiled(lambda: a[0].save(G_SNAPSHOT))
+        steps["save"] = row
+        loaded, row = g_profiled(lambda: DenseCrdt.load(
+            "a0", G_SNAPSHOT, wall_clock=StepClock(MILLIS)))
+        steps["load"] = row
+    finally:
+        os.remove(G_SNAPSHOT)
+    check(max_abs_err(loaded.store, a[0].store) == 0
+          and loaded._sem is None and loaded.device.type == "cuda",
+          "path G: the loaded replica differs (or kept a tag column)")
+    return dict(tombstoned=len(typed), purged=purged[0],
+                live_after=len(a[0]), grown_to=grown)
+
+
+def g_sharded(steps: dict) -> tuple:
+    """`ShardedDenseCrdt` on a (2, 2) mesh on the one card against the
+    unsharded replica, both typed and seeded alike: the same typed
+    fan-in (each copy of each key shard folds its columns; no K1p).
+    Returns the pair, for `sharded_storage` (the digest tree and the
+    compaction) at the path's end: it resets the launch counters."""
+    mesh = parallel.make_fanin_mesh(2, 2)
+    s = ShardedDenseCrdt("s0", N_SLOTS, mesh, wall_clock=StepClock(MILLIS))
+    u = g_replica("s0", "cuda")
+    g_type(s)
+    for c in (s, u):
+        g_seed(c)
+    cs = g_changeset(G_FANIN_ROWS, 3000)
+    before = (obs_device.launches(), obs_device.op_launches())
+    _, row = g_profiled(lambda: s.merge_many([(cs, IDS)]))
+    after = (obs_device.launches(), obs_device.op_launches())
+    check(after[0]["fanin_batch_sharded"] == before[0]["fanin_batch_sharded"]
+          and after[1]["typed_fanin_step"]
+          == before[1]["typed_fanin_step"] + 1,
+          "path G: the sharded typed fan-in took another route")
+    u.merge_many([(cs, IDS)])
+    steps["sharded_fanin_16"] = row
+    g_report("sharded_fanin_16", row)
+    check(max_abs_err(s.store, u.store) == 0
+          and s.canonical_time == u.canonical_time,
+          "path G: the sharded typed fan-in differs from the unsharded")
+    check_copies(s._store, "path G sharded")
+    return s, u
+
+
+def g_keyed(steps: dict) -> dict:
+    """A `KeyedDenseCrdt` on the card (grown from 4,096 slots by
+    interning) and its host twin: 10,000 string keys, a fifth of them
+    typed, with typed ops; then a `sync_json` round with a `MapCrdt`
+    that rewrote some keys (its typed-key rows come back withheld)."""
+    from crdt_tpu_torch import KeyedDenseCrdt, MapCrdt
+    from crdt_tpu_torch.sync import sync_json
+    keys = [f"key{i:05d}" for i in range(G_KEYS)]
+    plain, typed = keys[:G_KEYS * 4 // 5], keys[G_KEYS * 4 // 5:]
+    quarter = len(typed) // 4
+    pairs = [(KeyedDenseCrdt(DenseCrdt("k0", 4096, device=dev,
+                                       wall_clock=StepClock(MILLIS))),
+              MapCrdt("m0", wall_clock=StepClock(MILLIS + 7)))
+             for dev in TWINS.values()]
+
+    def ops(kc):
+        kc.put_all({k: i for i, k in enumerate(plain)})
+        for i, name in enumerate(G_TYPES):
+            kc.set_semantics(typed[i * quarter:(i + 1) * quarter], name)
+        for j, k in enumerate(typed):
+            kind = j // quarter
+            if kind == 0:
+                kc.counter_add(k, 1 + j % 7)
+            elif kind == 1:
+                kc.counter_add(k, j % 11 - 5)
+            elif kind == 2:
+                kc.orset_add(k, j % 16)
+            else:
+                kc.mvreg_put(k, 1 + j)
+        return kc.dense.n_slots
+
+    slots = g_twin_step("keyed_ops", [p[0] for p in pairs], ops, steps)
+    for _, m in pairs:
+        m.put_all({k: -i for i, k in enumerate(keys[::7])})
+    g_twin_step("keyed_sync_json", pairs, lambda p: sync_json(*p), steps)
+    (k, m), (kt, mt) = pairs
+    check(k.to_json() == kt.to_json() and m.to_json() == mt.to_json(),
+          "path G: the keyed replicas' JSON differs from their twins'")
+    g_equal(k.dense, kt.dense, "the keyed replica")
+    check(k.counter_value(typed[0]) == 1 and len(k) == G_KEYS,
+          "path G: the keyed typed reads")
+    return dict(keys=G_KEYS, typed_keys=len(typed), slots=slots[0],
+                json_bytes=len(k.to_json()))
+
+
+def path_g(card: str) -> dict:
+    """Typed slots and the keyed surface at 2^20 slots (see the module
+    doc): seed, typed fan-in, gossip, anti-entropy, storage, sharded,
+    keyed; every replica held bit for bit against a host twin given the
+    same calls (the sharded one against the unsharded), and no typed
+    merge through K1, K1s, K1p or K3."""
+    steps: dict = {}
+    torch.cuda.synchronize()
+    obs_device.reset()
+    a = [g_replica("a0", dev) for dev in TWINS.values()]
+    b = [g_replica("b0", dev) for dev in TWINS.values()]
+    g_twin_step("seed_flushes", a, g_seed, steps)
+    for c in b:
+        g_seed(c)
+    check(a[0].digest_tree().root == b[0].digest_tree().root,
+          "path G: replicas seeded alike have different roots")
+    op_slots = g_op_slots()
+    for i, pair in enumerate((a, b)):
+        got = g_twin_step(f"typed_ops_{'ab'[i]}", pair,
+                          lambda c: g_typed_ops(c, op_slots[i]), steps)
+        check(got[0] == got[1],
+              "path G: typed op results differ from the host twin's")
+        g_equal(*pair, f"replica {'ab'[i]} after its typed ops")
+    fanin = g_fanin(a, steps)
+    gossip = g_gossip(a, b, steps)
+    antientropy = g_antientropy(b, op_slots, steps)
+    storage = g_storage(a, steps)
+    s, u = g_sharded(steps)
+    keyed = g_keyed(steps)
+    torch.cuda.synchronize()
+    launches, ops = obs_device.launches(), obs_device.op_launches()
+    check(all(launches[k] == 0 for k in ("fanin_batch", "fanin_split",
+                                         "fanin_batch_sharded",
+                                         "fanin_stream"))
+          and launches["ingest_scatter"] >= 4 * FLUSHES,
+          f"path G: launches {launches}")
+    sharded = dict(mesh=dict(s._mesh.shape),
+                   storage=sharded_storage(s, u, "path G (2, 2)"))
+    check(np.array_equal(s._sem_host(), u._sem_host()),
+          "path G: the sharded compaction's tags differ")
+    return dict(card=card, n_slots=N_SLOTS, typed_ops=G_OPS, steps=steps,
+                fanin=fanin, gossip=gossip, antientropy=antientropy,
+                storage=storage, sharded=sharded, keyed=keyed,
+                launches=launches, ops=ops)
+
+
 LOOPS = 48                       # the probe CLI's --loops
 STREAM_REPEATS = 64              # bench.py's --repeats
 
@@ -2432,6 +2987,13 @@ def main() -> int:
     print("phase 3: path F (sync_merkle over two divergences, gc_purge, "
           "the fenced replay, compact, save and load) equals the host "
           "replicas and the numpy-uint64 root")
+    typed = path_g(card)
+    print("phase 3: path G (typed slots: seed, typed fan-in and window, "
+          "tagged gossip, withheld and refused packs, sync_merkle and "
+          "sync_packed, gc_purge, compact, grow, save and load; the "
+          "sharded typed model; the keyed surface and sync_json) equals "
+          "the host replicas, with no typed merge through K1, K1s, K1p or "
+          "K3")
     probes = path_d(card, results)
     print(f"phase 3: path D (the probe entry point's seven variants, the "
           f"distinct and stream rows) ran; P2 "
@@ -2455,6 +3017,7 @@ def main() -> int:
     record = dict(card=card, build_s=build_s, main_path=path,
                   path_a=interchange, path_b=stream, path_c=sharded,
                   path_d=probes, path_e=gossip, path_f=storage,
+                  path_g=typed,
                   kernel_detail=results, torch=torch.__version__,
                   held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -2467,6 +3030,7 @@ def main() -> int:
     print(json.dumps({"path_d": probes}))
     print(json.dumps({"path_e": gossip}))
     print(json.dumps({"path_f": storage}))
+    print(json.dumps({"path_g": typed}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,24 +1,116 @@
-"""Columnar snapshot of a dense store: one compressed npz.
+"""Checkpoint and resume: the wire-format snapshot, the gossip
+watermarks, and the columnar snapshot of a dense store.
 
-The same file format as ``crdt_tpu/checkpoint.py`` (`save_dense`,
-`load_dense_with_node_ids`, `load_dense_digest`): the seven lanes under
-their field names, the ``magic`` tag, for model snapshots the
-``node_ids`` table the ordinal lanes index into and, where given, the
-Merkle digest tree with the cache key it was computed under
-(``digest_tree`` and ``digest_meta``). A snapshot written by either
-package loads in the other, digest tree included, so a replica restored
-from it answers its first anti-entropy walk from the persisted tree.
+Port of ``crdt_tpu/checkpoint.py``, every file in the same format, so
+either package restores what the other saved:
+
+- :func:`save_json` / :func:`load_json`: the reference's own checkpoint,
+  its wire JSON (``toJson`` is the snapshot, construction from the
+  records with ``refreshCanonicalTime`` the resume, crdt.dart:31-33,
+  100-135);
+- :func:`save_gossip_state` / :func:`load_gossip_state`: a gossip
+  node's per-peer watermark table, so a restarted node resumes delta
+  sync;
+- :func:`save_dense` / :func:`load_dense`: one compressed npz of the
+  seven lanes under their field names, the ``magic`` tag, for model
+  snapshots the ``node_ids`` table the ordinal lanes index into and,
+  where given, the Merkle digest tree with the cache key it was
+  computed under (``digest_tree`` and ``digest_meta``), so a replica
+  restored from it answers its first anti-entropy walk from the
+  persisted tree.
+
+Not carried over: the JAX package's checkpoint counter and trace-ring
+event (its metrics registry and tracer are not ported).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import Any, Callable, Optional, Type
 
 import numpy as np
 
+from .models.dense_crdt import resolve_device
 from .ops.dense import DenseStore, store_from_numpy, store_to_numpy
+from .record import KeyDecoder, KeyEncoder, ValueDecoder, ValueEncoder
+
+
+def save_json(crdt, path: str, key_encoder: Optional[KeyEncoder] = None,
+              value_encoder: Optional[ValueEncoder] = None) -> None:
+    """Snapshot through the wire format: the full state, tombstones
+    included (crdt.dart:124-135), written atomically (to ``path +
+    ".tmp"``, then renamed over ``path``). Any conformant backend can
+    restore it."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(crdt.to_json(key_encoder=key_encoder,
+                             value_encoder=value_encoder))
+    os.replace(tmp, path)
+
+
+def load_json(cls: Type, node_id: Any, path: str,
+              key_decoder: Optional[KeyDecoder] = None,
+              value_decoder: Optional[ValueDecoder] = None,
+              wall_clock: Optional[Callable[[], int]] = None, **kwargs):
+    """Restore a replica of ``cls`` (a backend built from ``seed``
+    records, such as `MapCrdt`) from its own snapshot: the records
+    seed the backend and the canonical clock rebuilds from their max
+    logical time (crdt.dart:31-33, 114-121). Not a merge: merging
+    records you authored into a fresh replica with the same node id
+    trips the duplicate-node guard by design (hlc.dart:88-90). To take
+    in ANOTHER replica's snapshot, call ``merge_json``."""
+    from . import crdt_json
+    from .hlc import Hlc
+
+    with open(path) as f:
+        records = crdt_json.decode(
+            f.read(), Hlc.zero(node_id), key_decoder=key_decoder,
+            value_decoder=value_decoder,
+            now_millis=wall_clock() if wall_clock else None)
+    return cls(node_id, seed=records, wall_clock=wall_clock, **kwargs)
+
+
+_GOSSIP_STATE_MAGIC = "crdt_tpu/gossip-state@1"
+
+
+def save_gossip_state(path: str, node_id: Any, watermarks: dict) -> None:
+    """The durable per-peer watermark table of a gossip node (``{peer
+    name: Hlc}``), written atomically, so a crash mid-write leaves the
+    previous state. The watermarks are all a restarted node needs to
+    resume DELTA sync; the replica itself persists through
+    :func:`save_json` or :func:`save_dense`. ``node_id`` is recorded so
+    a state file restored onto another node is refused."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"magic": _GOSSIP_STATE_MAGIC,
+                   "node_id": str(node_id),
+                   "watermarks": {str(name): str(hlc)
+                                  for name, hlc in watermarks.items()
+                                  if hlc is not None}}, f)
+    os.replace(tmp, path)
+
+
+def load_gossip_state(path: str, node_id: Any) -> dict:
+    """A watermark table saved by :func:`save_gossip_state`; ``{}`` when
+    the file does not exist (a cold start). Raises ``ValueError`` on a
+    foreign file or another node's state: resuming from someone else's
+    watermarks would skip records."""
+    from .hlc import Hlc
+
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        state = json.load(f)
+    if not isinstance(state, dict) \
+            or state.get("magic") != _GOSSIP_STATE_MAGIC:
+        raise ValueError(f"not a gossip state file: {path}")
+    if state.get("node_id") != str(node_id):
+        raise ValueError(
+            f"{path} holds watermarks for node "
+            f"{state.get('node_id')!r}, not {node_id!r}")
+    return {name: Hlc.parse(mark)
+            for name, mark in state.get("watermarks", {}).items()}
 
 _DENSE_MAGIC_V1 = "crdt_tpu/dense-store@1"
 _DENSE_MAGIC = "crdt_tpu/dense-store@2"
@@ -58,10 +150,13 @@ def _validated_npz(z, path: str):
     return z
 
 
-def load_dense_with_node_ids(path: str, device="cpu"):
+def load_dense_with_node_ids(path: str, device=None):
     """``(DenseStore on device, node_ids-or-None)``. ``None`` marks a
     lane-only snapshot whose ordinals only a caller holding the
-    original table can interpret."""
+    original table can interpret. ``device=None`` is the card, and
+    raises without one unless the caller passes ``device="cpu"``, as
+    every entry point of this package does."""
+    device = resolve_device(device)
     with np.load(path) as z:
         _validated_npz(z, path)
         store = store_from_numpy(z, device)
@@ -70,7 +165,8 @@ def load_dense_with_node_ids(path: str, device="cpu"):
     return store, ids
 
 
-def load_dense(path: str, device="cpu") -> DenseStore:
+def load_dense(path: str, device=None) -> DenseStore:
+    """The store of a snapshot, on ``device`` (None: the card)."""
     return load_dense_with_node_ids(path, device)[0]
 
 

@@ -35,6 +35,16 @@ is a batched tensor op. The replication loop:
   watermark has passed and arms the resurrection fence that the merge
   paths apply; ``compact`` packs the surviving rows to a dense prefix
   and returns the slot translation.
+- **Typed slots.** ``set_semantics`` gives slots a registered semantics
+  (`crdt_tpu_torch.semantics`: counters, an OR-set, a multi-value
+  register) kept as a host tag column; the typed ops (``counter_add``,
+  ``orset_add``, ``mvreg_put``, ...) write encoded lanes through the
+  ordinary writes (so the ingest kernel still carries them), and every
+  merge of a typed store takes the typed joins (plain torch, as the
+  JAX package takes XLA code there): never the LWW fan-in kernels.
+  ``pack_since(sem_mode=...)`` attaches the tag lane or withholds typed
+  rows, and ``merge_packed`` refuses a tag that differs from the local
+  column before it touches the clock.
 
 `ShardedDenseCrdt` is the same model with its key space sharded over a
 device mesh (`crdt_tpu_torch.parallel`); `sync_dense` is one
@@ -77,14 +87,20 @@ from ..ops.packing import NodeTable, PackedDelta, pack_into_arena
 from ..parallel.fanin import (KEY_AXIS, gather_lane, gather_store,
                               make_sharded_compact, make_sharded_digest,
                               make_sharded_fanin, make_sharded_ingest,
-                              shard_changeset, shard_store,
-                              sharded_delta_mask, sharded_max_logical_time)
+                              make_sharded_typed_fanin, shard_changeset,
+                              shard_store, sharded_delta_mask,
+                              sharded_max_logical_time)
 from ..ops.split import (MAX_NODE_ORDINAL, SPLIT_DTYPES, TILE,
                          NarrowSplitChangeset, SplitChangeset, _cs_shape,
                          split_changeset, split_changeset_narrow,
                          split_guard_lanes, split_to_wide, tile_changeset)
 from ..record import (KeyDecoder, KeyEncoder, Record, ValueDecoder,
                       ValueEncoder)
+from ..semantics import (ORSET_MAX_LEN, ORSET_UNIVERSE, SemanticsSpec,
+                         by_tag, get_semantics)
+from ..semantics.kernels import (_PN_HALF, typed_fanin_step,
+                                 typed_sparse_join_step,
+                                 typed_wire_join_step)
 from ..utils.host_guards import recv_fold_columns
 from ..utils.stats import MergeStats, merge_annotation
 from ..watch import ChangeHub, ChangeStream
@@ -200,8 +216,11 @@ class DenseCrdt:
         self._pack_cache: "OrderedDict[Any, Any]" = OrderedDict()
         self._digest_cache: Optional[Tuple[Any, Any]] = None
         self._store_gen = 0
-        # The semantics-column version of the cache and snapshot keys:
-        # 0 for as long as every slot is LWW (typed slots: ROADMAP A5).
+        # The per-slot semantics tags (host int8, None while every slot
+        # is LWW), their device mirror, and the version the pack, digest
+        # and snapshot keys carry.
+        self._sem: Optional[np.ndarray] = None
+        self._sem_dev: Optional[torch.Tensor] = None
         self._sem_version = 0
         # Tombstone GC: the armed fence floor (a packed logical time),
         # the last floor purged at (an unadvanced watermark costs
@@ -701,6 +720,187 @@ class DenseCrdt:
         occ, tomb = self._slot_fields(slot, "occupied", "tomb")
         return bool(tomb) if occ else None
 
+    # --- per-slot semantics (crdt_tpu_torch.semantics) ---
+
+    def _sem_host(self) -> np.ndarray:
+        """The per-slot tag column as host int8 (all zeros when every
+        slot is LWW). Changed only through `_set_sem`, which versions
+        it."""
+        if self._sem is None:
+            return np.zeros(self.n_slots, np.int8)
+        return self._sem
+
+    def _sem_device(self) -> torch.Tensor:
+        """The tag column on this replica's device, rebuilt after each
+        change."""
+        if self._sem_dev is None:
+            self._sem_dev = self._to_device(self._sem_host())
+        return self._sem_dev
+
+    def _set_sem(self, sem: np.ndarray) -> None:
+        """Install a new tag column (None once every slot is LWW again)
+        and bump the version the cache and snapshot keys carry."""
+        self._sem = sem if sem.any() else None
+        self._sem_dev = None
+        self._sem_version += 1
+
+    def set_semantics(self, slots, semantics) -> None:
+        """Assign a registered semantics (`crdt_tpu_torch.semantics`) to
+        slots, by spec, name or tag. Typed slots join through their
+        tag's sub-semilattice instead of the LWW winner-takes-all rule;
+        the clock lanes, watermarks and guards are unchanged.
+
+        This is replica-local configuration, not replicated state: every
+        peer runs the same migration before it syncs typed slots (the
+        packed wire form carries the tags and refuses a mismatch).
+        Migrating a slot does not rewrite its lane: migrate before the
+        first write."""
+        self._refuse_in_pipeline("set_semantics")
+        self.drain_ingest()
+        if isinstance(semantics, SemanticsSpec):
+            spec = semantics
+        elif isinstance(semantics, str):
+            spec = get_semantics(semantics)
+        else:
+            spec = by_tag(int(semantics))
+        if spec.tag != 0 and self._value_width != 64:
+            raise ValueError(
+                "typed semantics pack state into the full int64 value "
+                "lane; this replica was built with value_width=32")
+        slots = np.asarray(slots, np.int32).reshape(-1)
+        self._check_slots(slots)
+        sem = self._sem_host().copy()
+        sem[slots] = np.int8(spec.tag)
+        self._set_sem(sem)
+        # Cached packs may hold rows under the old tags (or withhold rows
+        # now LWW), and the digests mix the tags.
+        self._pack_cache.clear()
+        self._digest_cache = None
+
+    def semantics_of(self, slot: int) -> SemanticsSpec:
+        """The registered `SemanticsSpec` governing a slot."""
+        self._check_slot(slot)
+        return by_tag(0 if self._sem is None else int(self._sem[slot]))
+
+    def _lane_value(self, slot: int) -> int:
+        """The raw int64 lane at a slot, ingest-overlay aware: what a
+        typed read-modify-write builds on. A tombstone does not zero a
+        typed lane (deletion is the LWW action on top; un-deleting
+        reveals the converged state), so this reads the lane itself."""
+        if self._ingest is not None:
+            staged, v = self._ingest.pending_value(slot)
+            if staged:
+                return 0 if v is None else int(v)
+        occ, val = self._slot_fields(slot, "occupied", "val")
+        return val if occ else 0
+
+    def _typed_spec(self, slot: int, *names: str) -> SemanticsSpec:
+        self._check_slot(slot)
+        spec = self.semantics_of(slot)
+        if spec.name not in names:
+            raise TypeError(
+                f"slot {slot} holds {spec.name!r} semantics; this op "
+                f"needs {' / '.join(names)} (set_semantics first)")
+        return spec
+
+    def counter_add(self, slot: int, delta: int) -> int:
+        """Add ``delta`` to a counter slot and return the new decoded
+        value. ``gcounter`` slots refuse negative deltas; ``pncounter``
+        slots credit the pos or neg half. Inside ``ingest()`` the staged
+        overlay makes consecutive adds accumulate. One writer per slot:
+        the join is a per-lane max, so concurrent writers on one slot
+        lose increments (give each replica its own slot and sum)."""
+        spec = self._typed_spec(slot, "gcounter", "pncounter")
+        delta = int(delta)
+        lane = self._lane_value(slot)
+        if spec.name == "gcounter":
+            if delta < 0:
+                raise ValueError(
+                    "gcounter is grow-only; use pncounter semantics "
+                    "for decrements")
+            lane = lane + delta
+            if lane >= 1 << 63:
+                raise OverflowError("gcounter lane overflow")
+        else:
+            pos = (lane >> 32) & _PN_HALF
+            neg = lane & _PN_HALF
+            if delta >= 0:
+                pos += delta
+            else:
+                neg -= delta
+            if pos > _PN_HALF or neg > _PN_HALF:
+                raise OverflowError(
+                    "pncounter half overflow (31 bits per direction)")
+            lane = (pos << 32) | neg
+        self.put_batch([slot], [lane])
+        return int(spec.decode(lane))
+
+    def counter_value(self, slot: int) -> int:
+        """Decoded counter value at a slot (pos - neg for pncounter)."""
+        spec = self._typed_spec(slot, "gcounter", "pncounter")
+        return int(spec.decode(self._lane_value(slot)))
+
+    def _orset_step(self, slot: int, element: int, odd: bool) -> frozenset:
+        """Bump an element's causal length to the next ``odd`` (add) or
+        even (remove) value; a no-op when it already is. Returns the
+        membership."""
+        spec = self._typed_spec(slot, "orset")
+        e = int(element)
+        if not 0 <= e < ORSET_UNIVERSE:
+            raise ValueError(
+                f"orset element out of universe [0, {ORSET_UNIVERSE}): "
+                f"{e}")
+        lane = self._lane_value(slot)
+        n = (lane >> (4 * e)) & 0xF
+        if n % 2 == int(odd):
+            return spec.decode(lane)
+        if n >= ORSET_MAX_LEN:
+            raise OverflowError(
+                f"orset causal length saturated at {ORSET_MAX_LEN} "
+                f"for element {e} (no further add/remove cycles)")
+        lane = (lane & ~(0xF << (4 * e))) | ((n + 1) << (4 * e))
+        self.put_batch([slot], [lane])
+        return spec.decode(lane)
+
+    def orset_add(self, slot: int, element: int) -> frozenset:
+        """Add an element (``[0, ORSET_UNIVERSE)``) to an OR-set slot:
+        its causal length goes even to odd. Adding a present element is
+        a no-op (no write, no clock tick). Returns the membership."""
+        return self._orset_step(slot, element, odd=True)
+
+    def orset_remove(self, slot: int, element: int) -> frozenset:
+        """Remove an element: its causal length goes odd to even.
+        Removing an absent element is a no-op. Returns the
+        membership."""
+        return self._orset_step(slot, element, odd=False)
+
+    def orset_members(self, slot: int) -> frozenset:
+        """Current members of an OR-set slot (odd causal lengths)."""
+        spec = self._typed_spec(slot, "orset")
+        return spec.decode(self._lane_value(slot))
+
+    def mvreg_put(self, slot: int, value: int) -> None:
+        """Write a multi-value register. The write's fresh HLC is newer
+        than anything this replica has seen, so it replaces the local
+        values; concurrent peer writes (equal lt, other nodes) union on
+        merge up to the top ``MVREG_K``."""
+        spec = self._typed_spec(slot, "mvreg")
+        self.put_batch([slot], [spec.encode(value)])
+
+    def mvreg_get(self, slot: int) -> Tuple[int, ...]:
+        """Concurrent values at an mvreg slot, largest first."""
+        spec = self._typed_spec(slot, "mvreg")
+        return spec.decode(self._lane_value(slot))
+
+    def _watch_decode(self, slot: int, value):
+        """One committed lane value as a watch event carries it: a typed
+        slot emits what its reads return (`spec.decode`), never the raw
+        lane."""
+        if value is None or self._sem is None:
+            return value
+        tag = int(self._sem[slot])
+        return value if tag == 0 else by_tag(tag).decode(int(value))
+
     # --- watch/reactivity (C13, crdt.dart:162-164) ---
 
     def watch(self, slot: Optional[int] = None) -> ChangeStream:
@@ -714,7 +914,8 @@ class DenseCrdt:
         if not self._hub.active:
             return
         sl = slots.tolist()
-        vals = [None if tombs is not None and tombs[i] else v
+        vals = [None if tombs is not None and tombs[i]
+                else self._watch_decode(sl[i], v)
                 for i, v in enumerate(values.tolist())]
         self._emit_slots(sl, vals)
 
@@ -743,8 +944,9 @@ class DenseCrdt:
         idx = torch.nonzero(win).reshape(-1)
         tomb = store.tomb[idx].tolist()
         val = store.val[idx].tolist()
-        self._emit_slots(idx.tolist(), [None if t else v
-                                        for v, t in zip(val, tomb)])
+        sl = idx.tolist()
+        self._emit_slots(sl, [None if t else self._watch_decode(s, v)
+                              for s, v, t in zip(sl, val, tomb)])
 
     # --- deltas out (crdt.dart:124-169, map_crdt.dart:44-45) ---
 
@@ -834,7 +1036,9 @@ class DenseCrdt:
         if self._hub.active:
             for slot, rec in record_map.items():
                 self._hub.add(int(slot),
-                              None if rec.is_deleted else int(rec.value))
+                              None if rec.is_deleted
+                              else self._watch_decode(int(slot),
+                                                      int(rec.value)))
 
     def _scatter_records(self, slots: np.ndarray,
                          rows: Dict[str, np.ndarray]) -> None:
@@ -888,22 +1092,32 @@ class DenseCrdt:
         while len(self._pack_cache) > self.PACK_CACHE_SLOTS:
             self._pack_cache.popitem(last=False)
 
-    def _pack_rows_at(self, mask: torch.Tensor
+    def _pack_rows_at(self, mask: torch.Tensor, resolved: str
                       ) -> Tuple[PackedDelta, List[Any]]:
-        return (pack_into_arena(*self._rows_at(mask, "lt", "node", "val",
-                                               "tomb")),
-                self._table.ids())
+        """The rows at ``mask`` in the packed form of mode ``resolved``
+        (`_resolve_sem_mode`): ``"withhold"`` drops the typed rows,
+        ``"include"`` attaches the tag lane."""
+        rows = self._rows_at(mask, "lt", "node", "val", "tomb")
+        sem = None
+        if resolved == "withhold":
+            lww = self._sem[rows[0]] == 0
+            if not lww.all():
+                rows = tuple(lane[lww] for lane in rows)
+        elif resolved == "include":
+            sem = self._sem[rows[0]]
+        return pack_into_arena(*rows, sem=sem), self._table.ids()
 
     def _resolve_sem_mode(self, sem_mode: str) -> str:
-        """The JAX package's ``sem_mode`` check: ``"auto"``,
-        ``"include"`` and ``"withhold"`` are valid and anything else
-        raises. Every slot is LWW until typed slots land (ROADMAP A5),
-        so every valid mode resolves to ``"plain"``: no sem lane to
-        attach, no typed row to withhold, as an all-LWW JAX replica
-        resolves it."""
+        """``"auto"``, ``"include"`` or ``"withhold"`` (anything else
+        raises) -> what the pack does: ``"plain"`` on an untyped store
+        (no lane to attach, nothing to withhold, whatever was asked),
+        else ``"withhold"`` for ``"auto"`` and the mode itself
+        otherwise."""
         if sem_mode not in ("auto", "include", "withhold"):
             raise ValueError(f"unknown sem_mode {sem_mode!r}")
-        return "plain"
+        if self._sem is None:
+            return "plain"
+        return "withhold" if sem_mode == "auto" else sem_mode
 
     def _normalize_ranges(self, ranges):
         """A range pack's spans: a sequence of half-open ``(lo, hi)``
@@ -942,10 +1156,13 @@ class DenseCrdt:
         form, plus the node-id list its ordinals index into — what
         ``merge_packed`` takes, here or on a JAX replica.
 
-        ``sem_mode`` is the JAX package's typed-slot switch
-        (``"auto"``, ``"include"`` or ``"withhold"``, anything else
-        raises ``ValueError``); with every slot LWW, each mode gives the
-        same 5-lane pack (`_resolve_sem_mode`). ``ranges`` restricts the
+        ``sem_mode`` says what a typed store ships (any other value
+        raises ``ValueError``): ``"include"`` attaches the uint8
+        ``sem`` tag lane, for a peer with typed slots of its own;
+        ``"withhold"`` drops the typed rows instead (withheld, never
+        sent as LWW rows); ``"auto"`` withholds on a typed store. An
+        all-LWW store gives the same 5-lane pack under every mode.
+        ``ranges`` restricts the
         pack to a union of half-open ``(lo, hi)`` slot spans (validated
         against ``n_slots``, overlaps allowed), the Merkle walk's tail:
         only the divergent leaf ranges re-ship; ``ranges=((0,
@@ -966,7 +1183,7 @@ class DenseCrdt:
             return cached
         mask = (self._delta_mask(since) if spans is None
                 else self._range_delta_mask(since, spans))
-        out = self._pack_rows_at(mask)
+        out = self._pack_rows_at(mask, resolved)
         self._pack_cache_store(key, out)
         return out
 
@@ -996,8 +1213,15 @@ class DenseCrdt:
                 self._store_gen)
 
     def _digest_levels(self) -> Tuple[torch.Tensor, ...]:
-        """Digest-tree levels (root-first) of the store, on its device."""
-        return digest_tree_device(self._store, None, self.DIGEST_LEAF_WIDTH)
+        """Digest-tree levels (root-first) of the store, on its device,
+        the tags mixed in on a typed store."""
+        return digest_tree_device(self._store, self._sem_or_none(),
+                                  self.DIGEST_LEAF_WIDTH)
+
+    def _sem_or_none(self) -> Optional[torch.Tensor]:
+        """The device tag column of a typed store, None on an untyped
+        one."""
+        return None if self._sem is None else self._sem_device()
 
     def digest_tree(self):
         """The Merkle digest tree of the replicated lanes (`ops.digest`),
@@ -1046,6 +1270,14 @@ class DenseCrdt:
         self._last_gc_floor_lt = floor
         self._gc_floor_lt = max(self._gc_floor_lt, floor)
         self._fence_add(purged)
+        if n_purged and self._sem is not None:
+            typed = self._purged_host(purged) & (self._sem != 0)
+            if typed.any():
+                # A purged slot returns to LWW: its tag described the
+                # tombstoned record, which is gone.
+                sem = self._sem.copy()
+                sem[typed] = 0
+                self._set_sem(sem)
         return n_purged
 
     def _purge_stable(self, floor: int):
@@ -1053,6 +1285,11 @@ class DenseCrdt:
         on the writable store."""
         _, count, purged = gc_purge(self._writable_store(), floor)
         return int(count), purged
+
+    def _purged_host(self, purged) -> np.ndarray:
+        """A `_purge_stable` mask as one host bool array over the
+        slots."""
+        return purged.cpu().numpy()
 
     def _fence_add(self, purged) -> None:
         self._gc_fence = (purged if self._gc_fence is None
@@ -1098,26 +1335,40 @@ class DenseCrdt:
         spans = self._normalize_ranges(
             ((0, self.n_slots),) if ranges is None else ranges)
         self._check_disjoint(spans)
-        new_store, translation, levels = self._compact_store(
+        new_store, new_sem, translation, levels = self._compact_store(
             spans, whole=ranges is None)
         translation = translation.cpu().numpy()
         self._store = new_store
         self._store_escaped = False
+        if new_sem is not None:
+            self._set_sem(new_sem.cpu().numpy())
         self._set_fence(None)
-        # Seed AFTER the store swap (which cleared the cache), under the
-        # key the next `digest_tree` builds.
+        # Seed AFTER the store swap (which cleared the cache) and the
+        # tags' version bump, under the key the next `digest_tree`
+        # builds.
         self._digest_cache = (self._digest_key(), build_digest_tree(
             self.n_slots, self.DIGEST_LEAF_WIDTH, levels))
         return translation
 
     def _compact_store(self, spans, whole: bool):
-        """``(new store lanes, translation, digest levels)`` of one
-        compaction over ``spans`` (``whole``: the caller gave no
-        ranges)."""
-        new_store, translation, _, levels = compact_remap(
-            self._store, *self._span_lanes(spans),
+        """``(new store lanes, new tag column or None, translation,
+        digest levels)`` of one compaction over ``spans`` (``whole``:
+        the caller gave no ranges)."""
+        return self._compact_remap(self._store, spans)
+
+    def _compact_remap(self, store: DenseStore, spans):
+        """`ops.dense.compact_remap` of ``store`` (in global slot order)
+        over ``spans``, the tag column moved with the rows on a typed
+        store."""
+        if self._sem is None:
+            new_store, translation, _, levels = compact_remap(
+                store, *self._span_lanes(spans),
+                leaf_width=self.DIGEST_LEAF_WIDTH)
+            return new_store, None, translation, levels
+        new_store, new_sem, translation, _, levels = compact_remap(
+            store, *self._span_lanes(spans), self._sem_device(),
             leaf_width=self.DIGEST_LEAF_WIDTH)
-        return new_store, translation, levels
+        return new_store, new_sem, translation, levels
 
     # --- checkpoint/resume ---
 
@@ -1140,9 +1391,12 @@ class DenseCrdt:
         attribution survives via the persisted node table. A persisted
         digest tree seeds the digest cache when its key still matches
         the rebuilt state (clock, semantics version, geometry); any
-        other tree is ignored and rebuilt on the first walk."""
+        other tree is ignored and rebuilt on the first walk. Snapshots
+        hold no tag column: a loaded replica is untyped until
+        ``set_semantics`` runs again. The lanes load straight onto the
+        device the keyword arguments name."""
         from ..checkpoint import load_dense_digest, load_dense_with_node_ids
-        store, ids = load_dense_with_node_ids(path)
+        store, ids = load_dense_with_node_ids(path, cls._load_device(kwargs))
         if ids is None:
             raise ValueError(
                 f"{path} has no node-id table (store-level snapshot); "
@@ -1161,6 +1415,12 @@ class DenseCrdt:
                 crdt._digest_cache = (crdt._digest_key(), tree)
         return crdt
 
+    @staticmethod
+    def _load_device(kwargs) -> Any:
+        """The device `load` puts a snapshot's lanes on: the one the
+        constructor's keyword arguments name (None: the card)."""
+        return kwargs.get("device")
+
     # --- capacity ---
 
     def grow(self, n_slots: int) -> None:
@@ -1172,10 +1432,9 @@ class DenseCrdt:
         this replica's wider changesets into an ungrown peer raises
         there until the peer grows too.
 
-        Not carried over: the reference's executor tile check (the
-        card's kernels take any ``n_slots``), and its padding of the
-        per-slot semantics tags, which this package does not have yet
-        (ROADMAP A5)."""
+        New slots take the LWW tag. Not carried over: the reference's
+        executor tile check (the card's kernels take any
+        ``n_slots``)."""
         if n_slots < self.n_slots:
             raise ValueError(
                 f"cannot shrink {self.n_slots} -> {n_slots} slots "
@@ -1185,6 +1444,10 @@ class DenseCrdt:
             return
         self.drain_ingest()
         extra = n_slots - self.n_slots
+        if self._sem is not None:
+            # New slots start as LWW (tag 0).
+            self._sem = np.concatenate([self._sem, np.zeros(extra, np.int8)])
+            self._sem_dev = None
         fence = self._fence_mask()
         pad = empty_dense_store(extra, self._device)
         self._store = self._adopt_store(n_slots, DenseStore(*(
@@ -1248,7 +1511,9 @@ class DenseCrdt:
             Tuple[DenseChangeset, Sequence[Any]]]) -> None:
         """N-replica fan-in: concatenate peer changesets along the
         replica axis (earlier entries win identical-HLC ties, the
-        sequential-merge order) and run ONE fused lattice join."""
+        sequential-merge order) and run ONE fused lattice join: the
+        fan-in kernel, or on a typed store the typed fold (one typed
+        join per row), in every window."""
         self.drain_ingest()
         self.stats.merges += 1
         if not changesets:
@@ -1282,7 +1547,8 @@ class DenseCrdt:
                 (cs.lt <= self._gc_floor_lt) & fence[None, :]))
         local = self._local_ordinal()
         pipe = self._pipe
-        if pipe is not None and not pipe.exact and self._FUSED_COARSE:
+        if pipe is not None and not pipe.exact and self._FUSED_COARSE \
+                and self._sem is None:
             # Both wall reads up front (absorption + send bump): the
             # count and order of the unpipelined path.
             wall_merge = self._wall_clock()
@@ -1307,7 +1573,14 @@ class DenseCrdt:
     def _dispatch_fanin(self, cs: DenseChangeset, wall: int):
         """One merge of a changeset in this replica's table: ``(new_store,
         result, seen, val_overflow, guard_cs)``, ``guard_cs`` the
-        changeset whose lanes the exact guards read."""
+        changeset whose lanes the exact guards read. A typed store takes
+        the typed fold, never the kernel."""
+        if self._sem is not None:
+            cs, seen, voverflow = mask_value_width(cs, self._value_width)
+            new_store, res = typed_fanin_step(
+                self._store, self._sem_device(), cs, self._canonical_lt(),
+                self._local_ordinal(), wall)
+            return new_store, res, seen, voverflow, cs
         new_store, res, seen, voverflow = model_fanin_batch(
             self._store, cs, self._canonical_lt(), self._local_ordinal(),
             wall, value_width=self._value_width)
@@ -1451,7 +1724,9 @@ class DenseCrdt:
         as they arrive; the ordinal remap runs inside it. Semantics —
         guards, value-width enforcement, pipelined windows, watch, stats,
         clock — are those of ``merge``. The changeset must cover exactly
-        ``n_slots``."""
+        ``n_slots``. A typed store widens the lanes and merges them as
+        ``merge`` does (the typed fold has no split form), the JAX
+        package's route off its kernel."""
         scs = self._fit_split(scs)
         self.drain_ingest()
         _, n = _cs_shape(scs)
@@ -1460,6 +1735,8 @@ class DenseCrdt:
                 f"pre-split changeset covers {n} slots but this replica "
                 f"holds {self.n_slots}; use merge() (the wide path pads "
                 "or refuses capacity mismatches)")
+        if self._sem is not None:
+            return self.merge(split_to_wide(scs), node_ids)
         self.stats.merges += 1
         self._intern_ids(node_ids)
         node_map = torch.tensor([self._table.ordinal(i) for i in node_ids],
@@ -1587,15 +1864,16 @@ class DenseCrdt:
         gossip relay: the sparse join returns the next pack's delta mask
         from the same call (`ops.dense.merge_repack_step`), and the pack
         seeds the cache under `pack_since`'s key, so the next
-        `pack_since(since)` hits. An empty delta, one the GC fence
-        empties, or the wide join takes `pack_since`. An unknown
+        `pack_since(since)` hits. An empty delta, one the GC fence or
+        the typed-row withholding empties, the wide join or a typed
+        store takes `pack_since`. An unknown
         ``sem_mode`` raises before the merge."""
         resolved = self._resolve_sem_mode(sem_mode)
         since_lt = 0 if since is None else int(since.logical_time)
         mask = self._merge_packed_impl(packed, node_ids, since_lt)
         if mask is None:
             return self.pack_since(since, sem_mode)
-        out = self._pack_rows_at(mask)
+        out = self._pack_rows_at(mask, resolved)
         self._pack_cache_store(self._pack_key(since, resolved), out)
         return out
 
@@ -1605,17 +1883,16 @@ class DenseCrdt:
                            ) -> Optional[torch.Tensor]:
         self._refuse_in_pipeline("merge_packed")  # host recv fold
         self.drain_ingest()
-        if getattr(packed, "sem", None) is not None:
-            raise NotImplementedError(
-                "a packed delta's sem lane (typed slots) is not ported "
-                "yet (ROADMAP A5)")
         slots = np.asarray(packed.slots)
         lt = np.asarray(packed.lt, np.int64)
         ni = np.asarray(packed.node)
         val = np.asarray(packed.val, np.int64)
         tomb = np.asarray(packed.tomb).astype(bool)
+        sem = getattr(packed, "sem", None)
+        sem = None if sem is None else np.asarray(sem).astype(np.int8)
         k = len(slots)
-        if not len(lt) == len(ni) == len(val) == len(tomb) == k:
+        if not len(lt) == len(ni) == len(val) == len(tomb) == k \
+                or (sem is not None and len(sem) != k):
             raise ValueError("packed delta lanes are ragged")
         if k == 0:
             self.merge_many([])
@@ -1628,44 +1905,69 @@ class DenseCrdt:
         if keep is not None:
             slots, lt, ni, val, tomb = (slots[keep], lt[keep], ni[keep],
                                         val[keep], tomb[keep])
+            if sem is not None:
+                sem = sem[keep]
             k = len(slots)
         self.stats.merges += 1
         self.stats.add_seen_lazy(k)
         self._check_slots(slots)
+        if sem is not None:
+            # Never join one slot under two lattices: the peer's tags
+            # must match the local column exactly (LWW rows included),
+            # refused before the first clock mutation.
+            local = self._sem_host()[slots]
+            mism = sem != local
+            if mism.any():
+                i = int(np.nonzero(mism)[0][0])
+                raise ValueError(
+                    f"semantics tag mismatch at slot {int(slots[i])}: "
+                    f"peer sent tag {int(sem[i])}, local column holds "
+                    f"{int(local[i])}; run the same set_semantics "
+                    "migration on both replicas before syncing")
         self._check_value_width(val)
         self._intern_ids(node_ids)
         node = self._table.encode(node_ids)[ni]
         return self._merge_validated(slots, lt, node, val, tomb,
-                                     repack_since_lt)
+                                     sem_ok=sem is not None,
+                                     repack_since_lt=repack_since_lt)
 
     def _merge_validated(self, slots: np.ndarray, lt: np.ndarray,
                          node: np.ndarray, val: np.ndarray,
-                         tomb: np.ndarray,
+                         tomb: np.ndarray, sem_ok: bool = False,
                          repack_since_lt: Optional[int] = None
                          ) -> Optional[torch.Tensor]:
         """The columnar merge tail on validated lanes (``node`` in local
         ordinals, slots unique): the recv fold, the store join, watch
         events in payload order, the final send bump. With
         ``repack_since_lt`` the sparse join also returns the next pack's
-        delta mask; None on every other route."""
+        delta mask; None on every other route.
+
+        ``sem_ok`` says the caller checked the payload's semantics tags
+        against the local column (`merge_packed` with a ``sem`` lane).
+        Without it, rows landing on typed slots are WITHHELD: an
+        LWW-framed payload (record dicts, JSON, a 5-lane pack) cannot
+        prove it joins under the right lattice, and joining a counter
+        lane by LWW would corrupt it."""
+        drop = np.zeros(len(slots), bool)
+        if not sem_ok and self._sem is not None:
+            drop |= self._sem[slots] != 0
         if self._gc_floor_lt and self._fence_mask() is not None:
             # The GC fence: a row at or below the floor onto a slot this
             # replica PURGED replays purged state (the stability
             # watermark proves every peer delivered everything below the
             # floor), and is dropped. Rows for never-purged slots
             # (first-time deliveries) pass.
-            stale = self._fence_rows(slots, lt)
-            if stale.any():
-                keep = ~stale
-                slots, lt, node, val, tomb = (slots[keep], lt[keep],
-                                              node[keep], val[keep],
-                                              tomb[keep])
-                if not len(slots):
-                    # The two clock ticks of an empty merge.
-                    self._wall_clock()
-                    self._canonical_time = Hlc.send(
-                        self._canonical_time, millis=self._wall_clock())
-                    return None
+            drop |= self._fence_rows(slots, lt)
+        if drop.any():
+            keep = ~drop
+            slots, lt, node, val, tomb = (slots[keep], lt[keep], node[keep],
+                                          val[keep], tomb[keep])
+            if not len(slots):
+                # The two clock ticks of an empty merge.
+                self._wall_clock()
+                self._canonical_time = Hlc.send(
+                    self._canonical_time, millis=self._wall_clock())
+                return None
         k = len(slots)
         my_ord = self._local_ordinal()
         wall = self._wall_clock()
@@ -1726,12 +2028,15 @@ class DenseCrdt:
                           tomb: np.ndarray, new_canonical: int,
                           my_ord: int, repack_since_lt: Optional[int]):
         """A validated columnar delta through the store join, IN PLACE
-        on the writable store. Returns ``(win, slot_aligned,
-        repack_mask)``: ``win`` per slot (N-wide) when ``slot_aligned``,
-        else per padded row; ``repack_mask`` only from the sparse join
-        asked for it."""
+        on the writable store; on a typed store the typed joins, with
+        the tag lane per slot (wide) or per row (sparse). Returns
+        ``(win, slot_aligned, repack_mask)``: ``win`` per slot (N-wide)
+        when ``slot_aligned``, else per padded row; ``repack_mask`` only
+        from the untyped sparse join asked for it (a relay on a typed
+        store packs afresh, as the JAX package's does)."""
         k, n = len(slots), self.n_slots
         store = self._writable_store()
+        typed = self._sem is not None
         if k * self.WIDE_JOIN_FRACTION >= n:
             # The k rows cross to the card, which lays them out N-wide.
             at = self._to_device(slots.astype(np.int64))
@@ -1741,10 +2046,15 @@ class DenseCrdt:
                 lane[at] = self._to_device(rows).to(dtype)
                 return lane
 
-            _, win = wire_join_step(
-                store, wide(lt, torch.int64), wide(node, torch.int32),
-                wide(val, torch.int64), wide(tomb, torch.bool),
-                wide(np.ones(k, bool), torch.bool), new_canonical, my_ord)
+            lanes = (wide(lt, torch.int64), wide(node, torch.int32),
+                     wide(val, torch.int64), wide(tomb, torch.bool),
+                     wide(np.ones(k, bool), torch.bool), new_canonical,
+                     my_ord)
+            if typed:
+                _, win = typed_wire_join_step(store, self._sem_device(),
+                                              *lanes)
+            else:
+                _, win = wire_join_step(store, *lanes)
             return win, True, None
         # Padded to a power of two with invalid rows at the n_slots
         # sentinel, so a steady stream of deltas reuses a few sizes.
@@ -1758,6 +2068,11 @@ class DenseCrdt:
         rows = (pad(slots, n, np.int64), pad(lt, 0, np.int64),
                 pad(node, 0, np.int32), pad(val, 0, np.int64),
                 pad(tomb, False, bool), pad(True, False, bool))
+        if typed:
+            _, win = typed_sparse_join_step(
+                store, pad(self._sem[slots], 0, np.int8), *rows,
+                new_canonical, my_ord)
+            return win, False, None
         if repack_since_lt is not None:
             _, win, mask = merge_repack_step(store, *rows, new_canonical,
                                              my_ord, repack_since_lt)
@@ -1794,6 +2109,12 @@ class ShardedDenseCrdt(DenseCrdt):
     (`parallel.make_sharded_digest`, `make_sharded_compact`), with the
     JAX sharded model's fallbacks to the whole store when a leaf would
     straddle two shards or ``compact`` is given ranges.
+
+    A typed store's merges fold per key shard on every copy of that
+    shard (`parallel.make_sharded_typed_fanin`; the columnar merges
+    take the typed joins shard by shard), never K1p, and the digest and
+    compaction carry the tag column. The host tag column and its device
+    mirror are global, on the first device; each block takes its slice.
     """
 
     _FUSED_COARSE = False
@@ -1806,6 +2127,7 @@ class ShardedDenseCrdt(DenseCrdt):
         self._mesh = mesh
         self._sharded_step = make_sharded_fanin(mesh)
         self._sharded_ingest = make_sharded_ingest(mesh)
+        self._typed_step = make_sharded_typed_fanin(mesh)
         super().__init__(node_id, n_slots, device=mesh.home,
                          wall_clock=wall_clock, node_ids=node_ids,
                          value_width=value_width, store=store)
@@ -1898,12 +2220,14 @@ class ShardedDenseCrdt(DenseCrdt):
         shard's rows go to every copy of that shard, at shard-local
         slots, through the route the unsharded model takes for the
         whole delta (the wide join when it covers a quarter of the
-        slots, else the sparse join); no store is gathered. ``win``
-        comes back on the first device, per slot when wide, else per
-        payload row; ``repack_mask`` is the shard-local delta mask over
-        the joined store."""
+        slots, else the sparse join; their typed forms on a typed
+        store); no store is gathered. ``win`` comes back on the first
+        device, per slot when wide, else per payload row;
+        ``repack_mask`` is the shard-local delta mask over the joined
+        untyped store."""
         k_rows, n = len(slots), self.n_slots
         wide = k_rows * self.WIDE_JOIN_FRACTION >= n
+        typed = self._sem is not None
         w = self._writable_store().width
         win = torch.zeros(n if wide else k_rows, dtype=torch.bool,
                           device=self._device)
@@ -1920,9 +2244,18 @@ class ShardedDenseCrdt(DenseCrdt):
                         out[at] = r
                         return out
 
-                    _, part = wire_join_step(
-                        blk, *(lane(r) for r in rows + [valid]),
-                        new_canonical, my_ord)
+                    lanes = [lane(r) for r in rows + [valid]]
+                    if typed:
+                        _, part = typed_wire_join_step(
+                            blk, self._sem_device()[k * w:(k + 1) * w]
+                            .to(dev), *lanes, new_canonical, my_ord)
+                    else:
+                        _, part = wire_join_step(blk, *lanes,
+                                                 new_canonical, my_ord)
+                elif typed:
+                    _, part = typed_sparse_join_step(
+                        blk, torch.tensor(self._sem[slots[sel]], device=dev),
+                        at, *rows, valid, new_canonical, my_ord)
                 else:
                     _, part = sparse_fanin_step(blk, at, *rows, valid,
                                                 new_canonical, my_ord)
@@ -1933,7 +2266,7 @@ class ShardedDenseCrdt(DenseCrdt):
                         win[torch.from_numpy(sel).to(self._device)] = \
                             part.to(self._device)
         mask = None
-        if repack_since_lt is not None and not wide:
+        if repack_since_lt is not None and not wide and not typed:
             mask = self._since_mask(repack_since_lt)
         return win, wide, mask
 
@@ -1948,9 +2281,14 @@ class ShardedDenseCrdt(DenseCrdt):
 
     def _dispatch_fanin(self, cs: DenseChangeset, wall: int):
         cs, seen, voverflow = mask_value_width(cs, self._value_width)
-        new_store, res = self._sharded_step(
-            self._store, shard_changeset(cs, self._mesh),
-            self._canonical_lt(), self._local_ordinal(), wall)
+        if self._sem is not None:
+            new_store, res = self._typed_step(
+                self._store, self._sem_device(), cs, self._canonical_lt(),
+                self._local_ordinal(), wall)
+        else:
+            new_store, res = self._sharded_step(
+                self._store, shard_changeset(cs, self._mesh),
+                self._canonical_lt(), self._local_ordinal(), wall)
         return new_store, res, seen, voverflow, cs
 
     def _emit_merge_wins(self, store, win: torch.Tensor) -> None:
@@ -2009,10 +2347,10 @@ class ShardedDenseCrdt(DenseCrdt):
         (`parallel.make_sharded_digest`); when a leaf would straddle two
         shards, the digest of the gathered store."""
         if self._store.width % self.DIGEST_LEAF_WIDTH:
-            return digest_tree_device(self._gathered(), None,
+            return digest_tree_device(self._gathered(), self._sem_or_none(),
                                       self.DIGEST_LEAF_WIDTH)
-        return make_sharded_digest(self._mesh,
-                                   self.DIGEST_LEAF_WIDTH)(self._store)
+        return make_sharded_digest(self._mesh, self.DIGEST_LEAF_WIDTH)(
+            self._store, self._sem_or_none())
 
     def _purge_stable(self, floor: int):
         """`ops.dense.gc_purge` on every copy of every key shard; the
@@ -2025,6 +2363,9 @@ class ShardedDenseCrdt(DenseCrdt):
                     n_purged += int(count)
                     masks.append(purged)
         return n_purged, masks
+
+    def _purged_host(self, purged) -> np.ndarray:
+        return torch.cat([m.cpu() for m in purged]).numpy()
 
     # The GC fence is one slice per key shard, on its rank-0 copy's
     # device.
@@ -2051,13 +2392,18 @@ class ShardedDenseCrdt(DenseCrdt):
         shards, the gathered store compacts as one and is sharded
         again."""
         if whole and not self._store.width % self.DIGEST_LEAF_WIDTH:
-            return make_sharded_compact(
-                self._mesh, self.DIGEST_LEAF_WIDTH)(self._store)
-        new_store, translation, _, levels = compact_remap(
-            self._gathered(), *self._span_lanes(spans),
-            leaf_width=self.DIGEST_LEAF_WIDTH)
-        return self._adopt_store(self.n_slots, new_store), translation, \
-            levels
+            return make_sharded_compact(self._mesh, self.DIGEST_LEAF_WIDTH)(
+                self._store, self._sem_or_none())
+        new_store, new_sem, translation, levels = self._compact_remap(
+            self._gathered(), spans)
+        return (self._adopt_store(self.n_slots, new_store), new_sem,
+                translation, levels)
+
+    @staticmethod
+    def _load_device(kwargs) -> Any:
+        """A sharded snapshot loads onto the mesh's first device."""
+        mesh = kwargs.get("mesh")
+        return None if mesh is None else mesh.home
 
     def grow(self, n_slots: int) -> None:
         """`DenseCrdt.grow` on the gathered store, sharded again at the

@@ -172,8 +172,10 @@ class WriteCombiner:
         if keep is not None:
             slots, vals, tombs = slots[keep], vals[keep], tombs[keep]
         sl = slots.tolist()
-        svals = [None if t else v
-                 for v, t in zip(vals.tolist(), tombs.tolist())]
+        # A typed slot's event carries what its reads return, decoded.
+        decode = self._owner._watch_decode
+        svals = [None if t else decode(s, v)
+                 for s, v, t in zip(sl, vals.tolist(), tombs.tolist())]
         pos = {s: i for i, s in enumerate(sl)}
         hub.add_batch(lambda: (sl, svals),
                       lambda q: ((True, svals[pos[q]])

@@ -13,9 +13,10 @@ blocks, once per device per merge. The four kernel probes (`ops.probe`)
 count under their source names.
 
 `OPS` counts, beside them, the plain-torch ops of the anti-entropy and
-storage plane (the JAX package runs them through XLA, not Pallas, and
-no hand kernel replaces them): each digest-tree build, range delta
-mask, GC purge and compaction remap, on any device. A cached
+storage plane and of the typed joins (the JAX package runs them through
+XLA, not Pallas, and no hand kernel replaces them): each digest-tree
+build, range delta mask, GC purge and compaction remap, and each typed
+wire, sparse and fan-in join step, on any device. A cached
 ``digest_tree()`` counts nothing, which is how a run shows that a tree
 came from the cache.
 """
@@ -28,7 +29,9 @@ KERNELS = ("fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream",
            "fanin_batch_sharded", "probe_join", "probe_copy",
            "probe_stream_noguard", "probe_copy_batch")
 
-OPS = ("digest_tree", "range_delta_mask", "gc_purge", "compact_remap")
+OPS = ("digest_tree", "range_delta_mask", "gc_purge", "compact_remap",
+       "typed_wire_join_step", "typed_sparse_join_step",
+       "typed_fanin_step")
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _OPS: Dict[str, int] = dict.fromkeys(OPS, 0)

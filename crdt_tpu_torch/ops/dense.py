@@ -501,23 +501,27 @@ def remap_rows(store: DenseStore, keep: torch.Tensor,
     ``new_slot`` (unique among kept rows) and empty slots elsewhere.
     The rows are selected before the indexed write: no row goes to a
     sentinel."""
-    at = new_slot[keep]
+    return DenseStore(*(remap_lane(lane, keep, new_slot) for lane in store))
 
-    def moved(lane):
-        out = torch.zeros_like(lane)
-        out[at] = lane[keep]
-        return out
 
-    return DenseStore(*(moved(lane) for lane in store))
+def remap_lane(lane: torch.Tensor, keep: torch.Tensor,
+               new_slot: torch.Tensor) -> torch.Tensor:
+    """One lane of `remap_rows`: the ``keep`` entries at ``new_slot``,
+    zeros elsewhere."""
+    out = torch.zeros_like(lane)
+    out[new_slot[keep]] = lane[keep]
+    return out
 
 
 def compact_remap(store: DenseStore, los: torch.Tensor, his: torch.Tensor,
-                  *, leaf_width: int):
+                  sem: Optional[torch.Tensor] = None, *, leaf_width: int):
     """Online compaction: the surviving rows of each span ``[los[i],
     his[i])`` (sorted, disjoint: the caller validates) move to the dense
     prefix of their span, rows outside every span keep their slot, and
-    the digest-tree levels of the result come back with it. Returns
-    ``(new_store, translation, live_count, digest_levels)``:
+    the digest-tree levels of the result come back with it. ``sem`` is
+    the optional per-slot semantics tag column, moved with the rows so
+    typed lanes keep their joins (and mixed into the digest). Returns
+    ``(new_store[, new_sem], translation, live_count, digest_levels)``:
     ``translation[old] = new`` (int32, ``-1`` for unoccupied slots) is
     what every external slot reference must be rewritten through.
     Counted as one ``compact_remap`` op."""
@@ -526,7 +530,12 @@ def compact_remap(store: DenseStore, los: torch.Tensor, his: torch.Tensor,
     keep = store.occupied
     new_slot = compact_targets(keep, los, his)
     out = remap_rows(store, keep, new_slot)
+    new_sem = None if sem is None else remap_lane(sem, keep, new_slot)
     translation = torch.where(keep, new_slot, -1).to(torch.int32)
     levels = digest_levels_from_lanes(out.lt, out.val, out.tomb,
-                                      out.occupied, leaf_width=leaf_width)
-    return out, translation, keep.sum(dtype=torch.int32), levels
+                                      out.occupied, sem=new_sem,
+                                      leaf_width=leaf_width)
+    live = keep.sum(dtype=torch.int32)
+    if sem is None:
+        return out, translation, live, levels
+    return out, new_sem, translation, live, levels

@@ -75,11 +75,11 @@ class NodeTable:
 
 
 # Exact host lane dtypes of the PACKED wire form, in field order.
-# Anything else from a peer is a protocol violation. The JAX form's
-# optional sixth lane (``sem``, uint8 semantics tags) rides only between
-# peers that negotiated typed slots, which this package does not have
-# yet (ROADMAP A5).
+# Anything else from a peer is a protocol violation. The optional sixth
+# lane (``sem``, uint8 semantics tags) rides only between peers that
+# both have typed slots (``pack_since(sem_mode="include")``).
 PACKED_LANE_DTYPES = ("int32", "int64", "int32", "int64", "uint8")
+PACKED_SEM_DTYPE = "uint8"
 
 
 class PackedDelta(NamedTuple):
@@ -87,14 +87,16 @@ class PackedDelta(NamedTuple):
     numpy lanes in the exact wire dtypes. ``node`` carries ordinals into
     the ``node_ids`` list that travels beside the delta; ``modified``
     stamps are local-only and never serialized (record.dart:28-31).
-    (The JAX form's optional ``sem`` tag lane comes with typed slots in
-    a later slice.)"""
+    ``sem`` (None on all-LWW deltas) carries each row's semantics tag:
+    the receiver checks the tags against its own per-slot column before
+    merging, so two replicas never join one slot under two lattices."""
 
     slots: np.ndarray   # int32[k], unique
     lt: np.ndarray      # int64[k] packed logical times
     node: np.ndarray    # int32[k] ordinals into the wire node_ids
     val: np.ndarray     # int64[k] (0 where tombstoned)
     tomb: np.ndarray    # uint8[k] 0/1 tombstone flags
+    sem: Optional[np.ndarray] = None  # uint8[k] semantics tags
 
     @property
     def k(self) -> int:
@@ -102,14 +104,16 @@ class PackedDelta(NamedTuple):
 
     @property
     def nbytes(self) -> int:
-        return sum(lane.nbytes for lane in self)
+        return sum(lane.nbytes for lane in self if lane is not None)
 
 
 def pack_into_arena(slots: np.ndarray, lt: np.ndarray, node: np.ndarray,
-                    val: np.ndarray, tomb: np.ndarray) -> PackedDelta:
+                    val: np.ndarray, tomb: np.ndarray,
+                    sem: Optional[np.ndarray] = None) -> PackedDelta:
     """Land already-selected rows in ONE preallocated arena; the
     returned delta's lanes are aligned views into it, in the exact wire
-    dtypes. Unlike ``crdt_tpu``'s version, which gathers ``idx`` out of
+    dtypes (``sem``, the rows' semantics tags, as a sixth lane when
+    given). Unlike ``crdt_tpu``'s version, which gathers ``idx`` out of
     whole host columns, the rows arrive gathered: the port selects them
     on the device and copies only those ``k`` rows to the host."""
     specs = [("slots", np.dtype(np.int32)),
@@ -117,6 +121,10 @@ def pack_into_arena(slots: np.ndarray, lt: np.ndarray, node: np.ndarray,
              ("node", np.dtype(np.int32)),
              ("val", np.dtype(np.int64)),
              ("tomb", np.dtype(np.uint8))]
+    lanes = [slots, lt, node, val, tomb]
+    if sem is not None:
+        specs.append(("sem", np.dtype(np.uint8)))
+        lanes.append(sem)
     k = int(len(slots))
     offs = []
     total = 0
@@ -127,28 +135,28 @@ def pack_into_arena(slots: np.ndarray, lt: np.ndarray, node: np.ndarray,
     arena = np.empty(total, np.uint8)
     views = {name: arena[off:off + k * dt.itemsize].view(dt)
              for (name, dt), off in zip(specs, offs)}
-    for name, lane in zip(("slots", "lt", "node", "val", "tomb"),
-                          (slots, lt, node, val, tomb)):
+    for (name, _), lane in zip(specs, lanes):
         views[name][:] = lane           # cast-assign into the arena
     return PackedDelta(**views)
 
 
-def _no_sem_lane() -> None:
-    raise NotImplementedError(
-        "the packed delta's sem lane (typed slots) is not ported yet "
-        "(ROADMAP A5)")
-
-
 def pack_rows(delta) -> Tuple[dict, List[memoryview]]:
     """``(meta, bufs)`` for a packed delta: lane descriptors plus host
-    buffers in field order, the JAX package's raw binary frame. A lane
-    already in its wire dtype, flat and contiguous (every
-    `pack_into_arena` lane) is framed as a view of its own storage;
-    any other lane is copied once into its wire dtype."""
-    if getattr(delta, "sem", None) is not None:
-        _no_sem_lane()
+    buffers in field order, the JAX package's raw binary frame; the
+    ``sem`` lane is appended only when present. A lane already in its
+    wire dtype, flat and contiguous (every `pack_into_arena` lane) is
+    framed as a view of its own storage; any other lane is copied once
+    into its wire dtype."""
+    lanes = list(delta[:5])
+    fields = list(PackedDelta._fields[:5])
+    dtypes = list(PACKED_LANE_DTYPES)
+    sem = getattr(delta, "sem", None)
+    if sem is not None:
+        lanes.append(sem)
+        fields.append("sem")
+        dtypes.append(PACKED_SEM_DTYPE)
     arrs = []
-    for lane, dtype in zip(delta[:5], PACKED_LANE_DTYPES):
+    for lane, dtype in zip(lanes, dtypes):
         want = np.dtype(dtype)
         if not (isinstance(lane, np.ndarray) and lane.dtype == want
                 and lane.ndim == 1 and lane.flags.c_contiguous):
@@ -156,7 +164,7 @@ def pack_rows(delta) -> Tuple[dict, List[memoryview]]:
         arrs.append(lane)
     meta = {"form": "packed",
             "lanes": [[f, str(a.dtype), [len(a)]]
-                      for f, a in zip(PackedDelta._fields, arrs)]}
+                      for f, a in zip(fields, arrs)]}
     return meta, [a.data.cast("B") for a in arrs]
 
 
@@ -164,21 +172,22 @@ def unpack_rows(meta: Any, blob: bytes) -> PackedDelta:
     """Validate and rebuild the packed delta a peer announced. Raises
     ValueError on any structural violation (wrong fields or dtypes,
     ragged lane lengths, frame size mismatch) BEFORE the replica is
-    touched. ``k == 0`` is a legal empty delta. The lanes are read-only
-    views of ``blob``."""
+    touched. ``k == 0`` is a legal empty delta. Takes the 5-lane form
+    and the 6-lane form with the trailing ``sem`` tag lane. The lanes
+    are read-only views of ``blob``."""
     if not isinstance(meta, dict) or meta.get("form") != "packed":
         raise ValueError("bad packed meta")
     lanes_meta = meta.get("lanes")
-    base = list(PackedDelta._fields)
+    base = list(PackedDelta._fields[:5])
     if not isinstance(lanes_meta, list) \
             or [l[0] for l in lanes_meta] not in (base, base + ["sem"]):
         raise ValueError("packed lane fields mismatch")
-    if len(lanes_meta) == 6:
-        _no_sem_lane()
+    want_dtypes = PACKED_LANE_DTYPES + (
+        (PACKED_SEM_DTYPE,) if len(lanes_meta) == 6 else ())
     lanes = []
     off = 0
     k = None
-    for (_, dt, shape), want in zip(lanes_meta, PACKED_LANE_DTYPES):
+    for (_, dt, shape), want in zip(lanes_meta, want_dtypes):
         if dt != want:
             raise ValueError(f"lane dtype {dt!r} != expected {want!r}")
         if not isinstance(shape, list) or len(shape) != 1 \

@@ -47,10 +47,11 @@ from ..hlc import MAX_COUNTER, MAX_DRIFT, SHIFT
 from ..obs import device as obs_device
 from ..ops.dense import (_I32_NEG, _NEG, DenseChangeset, DenseStore,
                          compact_targets, dense_delta_mask,
-                         dense_max_logical_time, remap_rows)
+                         dense_max_logical_time, remap_lane, remap_rows)
 from ..ops.digest import fold_leaves, slot_digests, tree_levels_from_leaves
 from ..ops.fanin_kernel import fanin_cuda_many, fanin_join_reference
 from ..ops.ingest_kernel import ingest_scatter
+from ..semantics.kernels import typed_fold, typed_guards, typed_result
 
 REPLICA_AXIS = "replica"
 KEY_AXIS = "key"
@@ -408,12 +409,25 @@ def _check_leaf_width(width: int, leaf_width: int) -> None:
 
 
 def _shard_leaves(blk: DenseStore, k: int, leaf_width: int,
-                  home: torch.device) -> torch.Tensor:
+                  home: torch.device,
+                  sem: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Key shard ``k``'s leaf digests, mixed against its global slot
-    positions, on the first device."""
-    h = slot_digests(blk.lt, blk.val, blk.tomb, blk.occupied,
+    positions (and with the shard's slice of the tag column ``sem``,
+    on ``blk``'s device, where the store is typed), on the first
+    device."""
+    h = slot_digests(blk.lt, blk.val, blk.tomb, blk.occupied, sem=sem,
                      idx_offset=k * blk.n_slots)
     return fold_leaves(h, leaf_width).to(home)
+
+
+def _shard_sem(sem: Optional[torch.Tensor], k: int, blk: DenseStore
+               ) -> Optional[torch.Tensor]:
+    """Key shard ``k``'s slice of a global tag column, on ``blk``'s
+    device (None stays None)."""
+    if sem is None:
+        return None
+    w = blk.n_slots
+    return sem[k * w:(k + 1) * w].to(blk.lt.device)
 
 
 def make_sharded_digest(mesh: FaninMesh, leaf_width: int):
@@ -425,34 +439,39 @@ def make_sharded_digest(mesh: FaninMesh, leaf_width: int):
     multiple of ``leaf_width``, so no leaf straddles two shards
     (`ShardedDenseCrdt._digest_levels` falls back to the gathered store
     otherwise). The levels equal `ops.digest.digest_tree_device` of the
-    gathered store; one ``digest_tree`` op a call."""
+    gathered store, ``sem`` (a typed store's global tag column) mixed in
+    alike; one ``digest_tree`` op a call."""
 
-    def fn(store: ShardedStore) -> Tuple[torch.Tensor, ...]:
+    def fn(store: ShardedStore, sem: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, ...]:
         _check_leaf_width(store.width, leaf_width)
         obs_device.note_op("digest_tree")
         return tree_levels_from_leaves(torch.cat([
-            _shard_leaves(blk, k, leaf_width, mesh.home)
+            _shard_leaves(blk, k, leaf_width, mesh.home,
+                          _shard_sem(sem, k, blk))
             for k, blk in enumerate(store.blocks[0])]))
 
     return fn
 
 
 def make_sharded_compact(mesh: FaninMesh, leaf_width: int):
-    """Whole-store compaction over a sharded store: ``fn(store) ->
-    (new_store, translation, levels)``. Each key shard packs its rows to
-    its OWN prefix, on every copy alike, so no row crosses a shard and
-    every copy stays equal; ``translation`` (int32, global slots, ``-1``
-    for empty slots) and ``levels`` (the digest tree of the compacted
-    store, leaves against global positions as in `make_sharded_digest`)
-    come back on the first device. The shard width must be a multiple
-    of ``leaf_width``; one ``compact_remap`` op a call."""
+    """Whole-store compaction over a sharded store: ``fn(store, sem=None)
+    -> (new_store, new_sem, translation, levels)``. Each key shard packs
+    its rows to its OWN prefix, on every copy alike, so no row crosses a
+    shard and every copy stays equal; a typed store's global tag column
+    ``sem`` moves with the rows (``new_sem``, else None), and
+    ``translation`` (int32, global slots, ``-1`` for empty slots) and
+    ``levels`` (the digest tree of the compacted store, leaves against
+    global positions as in `make_sharded_digest`) come back on the first
+    device. The shard width must be a multiple of ``leaf_width``; one
+    ``compact_remap`` op a call."""
 
-    def fn(store: ShardedStore):
+    def fn(store: ShardedStore, sem: Optional[torch.Tensor] = None):
         w = store.width
         _check_leaf_width(w, leaf_width)
         obs_device.note_op("compact_remap")
         new_blocks = [[None] * len(row) for row in store.blocks]
-        translation, leaves = [], []
+        translation, leaves, new_sem = [], [], []
         for k in range(len(store.blocks[0])):
             for rank, blk in enumerate(store.column(k)):
                 keep = blk.occupied
@@ -463,9 +482,52 @@ def make_sharded_compact(mesh: FaninMesh, leaf_width: int):
                     translation.append(torch.where(
                         keep, new_slot + k * w, -1).to(torch.int32)
                         .to(mesh.home))
+                    sem_k = _shard_sem(sem, k, blk)
+                    if sem_k is not None:
+                        sem_k = remap_lane(sem_k, keep, new_slot)
+                        new_sem.append(sem_k.to(mesh.home))
             leaves.append(_shard_leaves(new_blocks[0][k], k, leaf_width,
-                                        mesh.home))
-        return (ShardedStore(new_blocks), torch.cat(translation),
+                                        mesh.home, sem_k))
+        return (ShardedStore(new_blocks),
+                torch.cat(new_sem) if new_sem else None,
+                torch.cat(translation),
                 tree_levels_from_leaves(torch.cat(leaves)))
+
+    return fn
+
+
+def make_sharded_typed_fanin(mesh: FaninMesh):
+    """The typed fan-in over a sharded store: ``fn(store, sem, cs,
+    canonical_lt, local_node, wall_millis) -> (new_store,
+    BatchResult)``. The recv guards (exact, in row-major visit order)
+    and the absorbed canonical come from the whole changeset on the
+    first device; then every copy of each key shard folds the
+    changeset's columns of that shard into itself
+    (`semantics.kernels.typed_fold`: one typed join per row, no store
+    gathered, no kernel). The typed joins are elementwise, so each copy
+    ends equal to the unsharded fold's slice. ``win`` comes back
+    gathered on the first device; one ``typed_fanin_step`` op a
+    call."""
+
+    def fn(store: ShardedStore, sem: torch.Tensor, cs: DenseChangeset,
+           canonical_lt, local_node: int, wall_millis: int):
+        obs_device.note_op("typed_fanin_step")
+        new_canonical, any_bad = typed_guards(cs, canonical_lt,
+                                              local_node, wall_millis)
+        w = store.width
+        blocks = [[None] * len(row) for row in store.blocks]
+        wins = []
+        for k in range(len(store.blocks[0])):
+            for rank, blk in enumerate(store.column(k)):
+                dev = blk.lt.device
+                part = DenseChangeset(*(lane[:, k * w:(k + 1) * w].to(dev)
+                                        for lane in cs))
+                blocks[rank][k], win = typed_fold(
+                    blk, _shard_sem(sem, k, blk), part,
+                    new_canonical.to(dev), local_node)
+                if rank == 0:
+                    wins.append(win.to(mesh.home))
+        return ShardedStore(blocks), typed_result(
+            new_canonical, torch.cat(wins), cs, any_bad)
 
     return fn

@@ -1,20 +1,24 @@
 """In-process anti-entropy rounds between two replicas.
 
-Port of the packed and Merkle rounds of ``crdt_tpu/sync.py``; either
-replica may be this package's `DenseCrdt` or the JAX package's (a
-replica of each package joins through the same `PackedDelta` bytes and
-bit-identical digest trees):
+Port of ``crdt_tpu/sync.py``. The reference keeps its sync round in its
+tests (test/map_crdt_test.dart:273-279): capture the local canonical
+time, push everything to the remote, then pull what the remote modified
+at or after that time (inclusive, map_crdt.dart:44-45). Either replica
+may be this package's or the JAX package's (they join through the same
+JSON, `PackedDelta` bytes and digest trees):
 
+- :func:`sync`: in-process record maps (any `Crdt`);
+- :func:`sync_json`: the JSON wire format (crdt_json.dart);
 - :func:`sync_packed`: one push/pull round on the packed columnar form
-  (``pack_since`` / ``merge_packed``), bounded by one watermark;
+  (``pack_since`` / ``merge_packed``), bounded by one watermark, the
+  semantics tag lane riding when both replicas have typed slots;
 - :func:`sync_merkle`: compare digest trees, walk only the subtrees
   that differ, then exchange just the divergent leaf ranges through
   ``pack_since(ranges=...)`` both ways; traffic follows divergence, not
   store size. It returns a :class:`MerkleSyncReport`.
 
-``sync`` and ``sync_json`` take the record-map `Crdt` base, which this
-package does not have yet (ROADMAP A6); the socket forms wait for the
-wire (A7).
+The socket forms wait for the wire (ROADMAP A7), and the collective
+group round for the group join (A9).
 """
 
 from __future__ import annotations
@@ -23,11 +27,46 @@ from typing import Optional, Tuple
 
 from .hlc import Hlc
 from .ops.digest import coalesce_leaf_ranges, walk_divergent_leaves
+from .record import KeyDecoder, KeyEncoder, ValueDecoder, ValueEncoder
 
 # Default for ``since``: pull from the SAME round's pre-push canonical
 # time, the reference's one-shot round. Distinct from None, which asks
 # for a cold-start FULL exchange.
 _SAME_ROUND = object()
+
+
+def sync(local, remote, since=_SAME_ROUND) -> Hlc:
+    """One push/pull round between two in-process record-map replicas
+    (`Crdt`s): a full push of ``local.record_map()``, then a pull of the
+    remote's records modified since the watermark. Omit ``since`` for
+    the reference's one-shot round (the pull bounded by this round's
+    pre-push canonical time), pass None for a cold-start full pull, or
+    a previous round's return to resume delta sync. Returns the
+    watermark."""
+    watermark = local.canonical_time
+    remote.merge(local.record_map())
+    local.merge(remote.record_map(
+        modified_since=watermark if since is _SAME_ROUND else since))
+    return watermark
+
+
+def sync_json(local, remote, key_encoder: Optional[KeyEncoder] = None,
+              value_encoder: Optional[ValueEncoder] = None,
+              key_decoder: Optional[KeyDecoder] = None,
+              value_decoder: Optional[ValueDecoder] = None,
+              since=_SAME_ROUND) -> Hlc:
+    """The same round over the JSON wire format: a full-state push, then
+    a pull keyed on the watermark (crdt.dart:124-135); ``since`` as in
+    :func:`sync`."""
+    watermark = local.canonical_time
+    remote.merge_json(local.to_json(key_encoder=key_encoder,
+                                    value_encoder=value_encoder),
+                      key_decoder=key_decoder, value_decoder=value_decoder)
+    local.merge_json(remote.to_json(
+        modified_since=watermark if since is _SAME_ROUND else since,
+        key_encoder=key_encoder, value_encoder=value_encoder),
+        key_decoder=key_decoder, value_decoder=value_decoder)
+    return watermark
 
 
 def _pack_for_peer(crdt, since: Optional[Hlc], sem_include: bool,

@@ -60,6 +60,12 @@ def lanes(rng, n, rows):
     return store, cs
 
 
+def lane_bytes(packed):
+    """A packed delta's lanes as bytes; the optional ``sem`` lane stays
+    None where absent."""
+    return [None if lane is None else lane.tobytes() for lane in packed]
+
+
 def on(device, store, cs):
     return (td.store_from_numpy(store, device),
             td.DenseChangeset(**{k: torch.tensor(v, device=device)
@@ -218,8 +224,7 @@ def test_columnar_merges_on_card_match_host(cuda, k):
     for x, y in zip(a.store, b.store):
         assert torch.equal(x.cpu(), y)
     assert str(a.canonical_time) == str(b.canonical_time)
-    for f in ra._fields:
-        assert getattr(ra, f).tobytes() == getattr(rb, f).tobytes()
+    assert lane_bytes(ra) == lane_bytes(rb)
 
 
 def test_kernel_wrapper_refuses_bad_lanes(cuda):
@@ -645,7 +650,7 @@ def storage_run(c, n, spans):
     return dict(store=[x.cpu() for x in c.store], clock=str(c.canonical_time),
                 purged=purged, translation=translation,
                 trees=[tree.levels, seeded.levels, fresh.levels],
-                packs=[[lane.tobytes() for lane in p] for p in packs])
+                packs=[lane_bytes(p) for p in packs])
 
 
 def assert_runs_equal(a, b):
@@ -669,7 +674,9 @@ def test_storage_plane_on_card_matches_host(cuda):
         if device is cuda:
             assert obs_device.launches()["fanin_batch"] == 1
         assert obs_device.op_launches() == dict(
-            digest_tree=2, range_delta_mask=2, gc_purge=1, compact_remap=1)
+            digest_tree=2, range_delta_mask=2, gc_purge=1, compact_remap=1,
+            typed_wire_join_step=0, typed_sparse_join_step=0,
+            typed_fanin_step=0)
     a, b = runs
     assert a["purged"] >= 8 and (a["translation"][8:16] == -1).all()
     # The seeded tree equals the fresh one.
@@ -702,3 +709,131 @@ def test_sharded_storage_plane_on_card_matches_host(cuda):
                 assert torch.equal(x, y)
         runs.append(run)
     assert_runs_equal(*runs)
+
+
+# --- typed slots: plain torch on the card, never the LWW kernels ------------
+
+
+def typed_join_inputs(rng, n):
+    """Both sides of a typed join over every tag (and an unknown one),
+    with top-bit lanes, top-4 packs with repeats and exact (lt, node)
+    ties; numpy, so card and host get the same bits."""
+    shifts = np.array([48, 32, 16, 0], np.int64)
+    mv = (rng.integers(0, 6, (n, 4)).astype(np.int64) << shifts).sum(1)
+    wild = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64,
+                        endpoint=True)
+    sem = rng.integers(0, 6, n).astype(np.int8)
+
+    def vals():
+        return np.where(sem == 4, mv[rng.permutation(n)], wild[
+            rng.permutation(n)])
+
+    return dict(sem=sem,
+                l_lt=(rng.integers(0, 3, n) << 16).astype(np.int64),
+                l_node=rng.integers(0, 3, n).astype(np.int32),
+                l_val=vals(), l_occ=rng.random(n) < 0.7,
+                l_tomb=rng.random(n) < 0.3,
+                r_lt=(rng.integers(0, 3, n) << 16).astype(np.int64),
+                r_node=rng.integers(0, 3, n).astype(np.int32),
+                r_val=vals(), r_tomb=rng.random(n) < 0.3,
+                r_valid=rng.random(n) < 0.7)
+
+
+def test_typed_joins_on_card_match_host(cuda):
+    """Each typed join (`typed_join_lanes`, the wire, sparse and fan-in
+    steps) on the card against the same call on the host, at an odd
+    width; the sparse join gets losing and padding rows (slot ==
+    n_slots) whose indexed writes must never happen."""
+    from crdt_tpu_torch.semantics import kernels as tk
+    n = 4097
+    rng = np.random.default_rng(21)
+    x = typed_join_inputs(rng, n)
+    order = ("sem", "l_lt", "l_node", "l_val", "l_occ", "l_tomb", "r_lt",
+             "r_node", "r_val", "r_tomb", "r_valid")
+    host = tk.typed_join_lanes(*(torch.from_numpy(x[k]) for k in order))
+    card = tk.typed_join_lanes(*(torch.from_numpy(x[k]).to(cuda)
+                                 for k in order))
+    for a, b in zip(host, card):
+        assert torch.equal(a, b.cpu())
+
+    store, cs = lanes(rng, n, 5)
+    sem = x["sem"]
+    outs = []
+    for dev in ("cpu", cuda):
+        s, c = on(dev, store, cs)
+        sem_d = torch.from_numpy(sem).to(dev)
+        wide, wwin = tk.typed_wire_join_step(
+            td.DenseStore(*(lane.clone() for lane in s)), sem_d,
+            c.lt[0], c.node[0], c.val[0], c.tomb[0], c.valid[0],
+            BASE + 50, 2)
+        fan, res = tk.typed_fanin_step(s, sem_d, c, BASE + 1, 2,
+                                       (BASE >> 16) + 5)
+        # Sparse: 1,000 unique slots padded to 1,024 with n_slots
+        # sentinels; about half the valid rows lose to the store.
+        k = 1000
+        slot = np.full(1024, n, np.int64)
+        slot[:k] = np.random.default_rng(22).choice(n, k, replace=False)
+        valid = np.zeros(1024, bool)
+        valid[:k] = True
+        rows = [torch.from_numpy(np.resize(cs[f][1], 1024)).to(dev)
+                for f in ("lt", "node", "val", "tomb")]
+        sparse, swin = tk.typed_sparse_join_step(
+            td.DenseStore(*(lane.clone() for lane in s)),
+            torch.from_numpy(np.where(valid, sem[np.minimum(slot, n - 1)],
+                                      0).astype(np.int8)).to(dev),
+            torch.from_numpy(slot).to(dev), *rows,
+            torch.from_numpy(valid).to(dev), BASE + 60, 3)
+        if dev is cuda:
+            torch.cuda.synchronize()    # a bad index would assert here
+        outs.append([t.cpu() for t in (*wide, wwin, *fan, res.win,
+                                       res.new_canonical, *sparse, swin)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    swin = outs[1][-1]
+    assert 0 < int(swin[:1000].sum()) < 1000 and not swin[1000:].any()
+
+
+@pytest.mark.parametrize("model", ["dense", "sharded"])
+def test_typed_merge_many_launches_no_lww_kernel(cuda, model):
+    """A typed store's merge_many, coarse window and merge_split take the
+    typed fold on the card (one typed_fanin_step op each), launch none
+    of K1, K1p, K1s or K3, and equal the same ops on the host."""
+    n = 4097 if model == "dense" else 4100
+    runs = []
+    for dev in (cuda, "cpu"):
+        tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
+        if model == "dense":
+            c = port.DenseCrdt("r0", n, device=dev, wall_clock=tick.__next__)
+        else:
+            mesh = parallel.make_fanin_mesh(
+                2, 2, None if dev is cuda else ["cpu"] * 4)
+            c = port.ShardedDenseCrdt("r0", n, mesh,
+                                      wall_clock=tick.__next__)
+        for name, lo in (("gcounter", 0), ("pncounter", 1000),
+                         ("orset", 2000), ("mvreg", 3000)):
+            c.set_semantics(range(lo, lo + 1000), name)
+        c.counter_add(5, 3)
+        c.orset_add(2001, 4)
+        rng = np.random.default_rng(31)
+        _, cs = lanes(rng, n, 6)
+        cs["val"][:, 3000:4000] = (rng.integers(1, 9, (6, 1000)) << 48)
+        peer = td.DenseChangeset(**{k: torch.tensor(v, device=c.device)
+                                    for k, v in cs.items()})
+        ids = ["a0", "b1", "c2", "d3"]
+        obs_device.reset()
+        c.merge_many([(peer, ids)])
+        with c.pipelined():
+            c.merge(peer, ids)
+        scs = ts.split_changeset(td.DenseChangeset(*(
+            lane[:2].contiguous() for lane in peer)))
+        c.merge_split(scs, ids)
+        launches = obs_device.launches()
+        assert obs_device.op_launches()["typed_fanin_step"] == 3
+        for k1 in ("fanin_batch", "fanin_batch_sharded", "fanin_split",
+                   "fanin_stream"):
+            assert launches[k1] == 0, k1
+        runs.append((c.store, str(c.canonical_time), c.to_json()))
+    (a, ta, ja), (b, tb, jb) = runs
+    for x, y in zip(a, b):
+        assert torch.equal(x.cpu(), y)
+    assert (ta, ja) == (tb, jb)

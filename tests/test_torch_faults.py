@@ -18,6 +18,12 @@ each held against ``crdt_tpu`` on the same numpy inputs:
   passes: a round between a port replica and a JAX replica converges in
   either order, each replica equal to a JAX-JAX run of the same
   operations, and an unknown mode raises the same ``ValueError``.
+- C5: the snapshot loaders put the lanes on the card by default, as the
+  JAX loaders put them on the default accelerator: without a card,
+  ``load_dense`` / ``load_dense_with_node_ids`` raise the port's
+  default-device ``RuntimeError`` unless asked for ``device="cpu"``,
+  and ``DenseCrdt.load`` / ``ShardedDenseCrdt.load`` load onto the
+  device (or the mesh) they are given.
 """
 
 import importlib
@@ -250,3 +256,34 @@ def test_unknown_sem_mode_raises_like_jax(op):
         for mode in ("auto", "include", "withhold"):
             assert c.pack_since(None, sem_mode=mode)[0].k == 1
     assert errs[0] == errs[1] == "unknown sem_mode 'typed'"
+
+
+# --- C5: the snapshot loaders default to the card -----------------------------
+
+
+def test_snapshot_loaders_default_to_the_card(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = port.DenseCrdt("s", 64, device="cpu", wall_clock=FakeClock())
+    src.put_batch([1, 5, 63], [10, 50, 630])
+    path = str(tmp_path / "s.npz")
+    src.save(path)
+    with pytest.raises(RuntimeError) as refused:
+        port_model.resolve_device(None)
+    for load in (port.load_dense,
+                 port.checkpoint.load_dense_with_node_ids):
+        with pytest.raises(RuntimeError) as e:
+            load(path)
+        assert str(e.value) == str(refused.value)
+    store = port.load_dense(path, device="cpu")
+    assert store.lt.device.type == "cpu"
+    store, ids = port.checkpoint.load_dense_with_node_ids(path, "cpu")
+    assert ids == ["s"] and store.val[5] == 50
+    with pytest.raises(RuntimeError):
+        port.DenseCrdt.load("r", path)
+    back = port.DenseCrdt.load("r", path, device="cpu")
+    assert back.get(63) == 630 and back.device.type == "cpu"
+    _, tmesh = meshes((2, 2))
+    sharded = port.ShardedDenseCrdt.load("r", path, mesh=tmesh)
+    assert sharded.get(5) == 50
+    jax_back = JaxDense.load("r", path, executor="xla")
+    assert_dense_stores_equal(jax_back.store, back.store, "C5 load")

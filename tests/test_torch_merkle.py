@@ -35,7 +35,6 @@ from crdt_tpu import checkpoint as jax_ckpt
 from crdt_tpu.ops import digest as jd
 from crdt_tpu.testing import FakeClock
 from crdt_tpu_torch import checkpoint as port_ckpt
-from crdt_tpu_torch import sync as port_sync
 from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.ops import dense as td
 from crdt_tpu_torch.ops import digest as tdg
@@ -43,8 +42,9 @@ from torch_threads import cap_torch_threads
 
 cap_torch_threads()
 
-# The module, not the package-level function of the same name.
+# The modules, not the package-level functions of the same name.
 jax_sync = importlib.import_module("crdt_tpu.sync")
+port_sync = importlib.import_module("crdt_tpu_torch.sync")
 BASE = 1_700_000_000_000
 SYNCS = {"port": port_sync, "jax": jax_sync}
 

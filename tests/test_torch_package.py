@@ -146,7 +146,7 @@ def test_store_numpy_round_trip_copies(tmp_path):
         assert back[f].dtype == lanes[f].dtype
     path = str(tmp_path / "s.npz")
     port_ckpt.save_dense(td.store_from_numpy(lanes), path)
-    loaded, ids = port_ckpt.load_dense_with_node_ids(path)
+    loaded, ids = port_ckpt.load_dense_with_node_ids(path, device="cpu")
     assert ids is None
     for f in lanes:
         np.testing.assert_array_equal(getattr(loaded, f).numpy(), lanes[f])

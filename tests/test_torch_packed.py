@@ -409,7 +409,8 @@ def test_sharded_model_refuses_until_ported(op):
 def test_pack_rows_frames_equal_bytes_and_views():
     rng = np.random.default_rng(42)
     lanes = packed_lanes(rng, 33, 4)
-    arena = tp.pack_into_arena(*(lanes[f] for f in tp.PackedDelta._fields))
+    base = tp.PackedDelta._fields[:5]       # without the optional sem lane
+    arena = tp.pack_into_arena(*(lanes[f] for f in base))
     meta, bufs = tp.pack_rows(arena)
     jmeta, jbufs = jp.pack_rows(jp.PackedDelta(**lanes))
     assert meta == jmeta
@@ -424,9 +425,17 @@ def test_pack_rows_frames_equal_bytes_and_views():
     assert wire(tp.pack_rows, loose) == wire(jp.pack_rows,
                                              jp.PackedDelta(**lanes))
     back = tp.unpack_rows(meta, b"".join(bytes(b) for b in bufs))
-    for f in tp.PackedDelta._fields:
+    for f in base:
         assert getattr(back, f).dtype == getattr(arena, f).dtype
         np.testing.assert_array_equal(getattr(back, f), getattr(arena, f))
+    assert back.sem is None
+    # The sem lane, an int8 tag column cast into the arena: JAX's bytes.
+    sem = rng.integers(0, 5, 33).astype(np.int8)
+    typed = tp.pack_into_arena(*(lanes[f] for f in base), sem=sem)
+    assert wire(tp.pack_rows, typed) == wire(
+        jp.pack_rows, jp.PackedDelta(**lanes, sem=sem.astype(np.uint8)))
+    assert all(np.shares_memory(np.frombuffer(b, np.uint8), lane)
+               for b, lane in zip(tp.pack_rows(typed)[1], typed))
 
 
 def bad_frames():
@@ -469,20 +478,39 @@ def test_unpack_rows_refuses_like_jax(case):
 
 
 def test_sem_lane_waits_for_typed_slots():
+    """The sem lane (typed slots, since the semantics port): a frame with
+    it unpacks to the same lanes in both packages and packs to the same
+    bytes; an all-LWW store takes a delta whose tags are all LWW as
+    JAX's does, refuses a typed tag before it touches the clock, and
+    attaches no sem lane under any valid mode."""
     rng = np.random.default_rng(44)
     lanes = packed_lanes(rng, 4, 1)
     typed = jp.PackedDelta(**lanes, sem=np.zeros(4, np.uint8))
     meta, blob = wire(jp.pack_rows, typed)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tp.unpack_rows(meta, blob)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tp.pack_rows(typed)
-    crdt = port.DenseCrdt("n0", N, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        crdt.merge_packed(typed, ["w0"])
+    got = tp.unpack_rows(meta, blob)
+    assert [a.tobytes() for a in got] == \
+        [a.tobytes() for a in jp.unpack_rows(meta, blob)]
+    assert wire(tp.pack_rows, got) == (meta, blob)
+    p = Pair("n0")
+    p.each(lambda c: c.merge_packed(typed, ["w0"]))
+    p.check("all-LWW tags merged")
+    bad = typed._replace(sem=np.array([0, 0, 3, 0], np.uint8))
+    before = p.snapshot()
+    errs = []
+    for c in (p.jax, p.port):
+        with pytest.raises(ValueError, match="semantics tag mismatch") as e:
+            c.merge_packed(bad, ["w0"])
+        errs.append(str(e.value))
+    assert errs[0] == errs[1]
+    after = p.snapshot()
+    assert all(np.array_equal(x, y) for x, y in zip(before[0], after[0]))
+    assert before[1:] == after[1:]
     # An all-LWW store attaches no sem lane under any valid mode.
-    assert len(crdt.pack_since(sem_mode="include", ranges=((0, N),))[0]) \
-        == len(tp.PackedDelta._fields) == 5
+    crdt = p.port
+    assert crdt.pack_since(sem_mode="include", ranges=((0, N),))[0].sem \
+        is None
+    assert len(tp.pack_rows(crdt.pack_since(sem_mode="include")[0])[1]) \
+        == 5
 
 
 def test_pack_hlcs_and_unpack_hlc_match_jax():
