@@ -117,6 +117,27 @@ Phases, in order; any failure raises and exits non-zero:
      tag column, frames, reports, JSON); no typed merge launches K1,
      K1s, K1p or K3; each step's host time, the card's busy time and
      its idle share come from ``torch.profiler``;
+   - path H, the wire and gossip at 2^20 slots: two replicas seeded by
+     the main path's 16 flushes (K2), each behind a ``GossipNode``'s
+     ``SyncServer`` on 127.0.0.1, each with a host twin given the same
+     calls; over hello-negotiated ``PeerConnection``s through a
+     recording relay: ``sync_dense_over_conn`` (the split form's one
+     raw frame a way, K1s on both ends) with zlib agreed and refused,
+     ``sync_packed_over_conn`` at path E's delta sizes (262,144, 65,536
+     and 4,096 rows) and once with a typed span under the
+     ``semantics`` cap, ``sync_merkle_over_conn`` on path F's 1%
+     scattered divergence with the digest prefetch, ``sync_over_conn``
+     (JSON) of a 4,096-row replica through the C codec beside
+     ``decode_columns`` in the pure-Python branch; then a three-node
+     gossip sweep (the two replicas and a 10,000-key
+     ``KeyedDenseCrdt`` that speaks only JSON, one link through the
+     port's ``testing_faults`` proxy on a seeded schedule) until every
+     pair converges, and ``fetch_metrics`` / ``fetch_debug_dump`` from
+     each server, whose counters must be what the run did. After every
+     round each replica equals its twin (lanes, clock, tags) and the
+     card's frames equal the twin's, byte for byte; each round's host
+     time, wire bytes, device time and idle share (``torch.profiler``)
+     and K1s / K2 launches are recorded;
    - path D, the probe entry point (``crdt_tpu_torch.bench``) at the JAX
      CLI's defaults: its seven variants (``full``, ``stream``,
      ``stream-noguard``, ``nojoin``, ``copy``, ``copy-batch``,
@@ -2840,6 +2861,476 @@ def path_g(card: str) -> dict:
                 launches=launches, ops=ops)
 
 
+# Path H: the wire and gossip at the main path's width. Two replicas
+# seeded by the main path's flushes sit behind gossip nodes' servers on
+# 127.0.0.1; every round runs over a hello-negotiated `PeerConnection`
+# through a recording relay, and on a host twin of each replica with
+# the same calls. Lanes, clocks, tags and the frames must be equal.
+H_PACKED = (("packed_262144", 4 * FLUSH_ROWS), ("packed_65536", FLUSH_ROWS),
+            ("packed_4096", DELTA_ROWS))
+H_TYPED_SLOTS = 4096             # the typed span's width (gcounter)
+H_SCATTER = 10_486               # 1% of the slots, as path F
+H_KEYS = 10_000
+H_WANT = ("zlib", "packed", "semantics", "merkle", "trace", "sketch")
+H_IDLE_S = 50.0                  # a parked gossip session's bound
+
+
+def h_wire():
+    """`tests/torch_wire.py` (the recording relay, the frame reader)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    import torch_wire
+    return torch_wire
+
+
+class HSide:
+    """One side of path H: the card's replicas, or their host twins."""
+
+    def __init__(self, role: str):
+        import random
+
+        from crdt_tpu_torch import GossipNode, RetryPolicy, BreakerPolicy
+        self.role, self.device = role, TWINS[role]
+        device = self.device
+        self.h0, self.h1 = f_replica("h0", device), f_replica("h1", device)
+        # Sessions stay parked between a node's rounds while the other
+        # nodes and the twins run theirs (the keyed rounds take about
+        # 10 s a side): the servers' idle bound is raised past that, so
+        # no session closes on a timer and each side reconnects exactly
+        # when its twin does.
+        kw = dict(rng=random.Random(7), sleep=lambda _s: None,
+                  round_timeout=120.0, io_timeout=H_IDLE_S * 2,
+                  retry=RetryPolicy(max_attempts=6, base_delay=0.001,
+                                    max_delay=0.01),
+                  breaker=BreakerPolicy(failure_threshold=50))
+        self.n0 = GossipNode(self.h0, **kw).start()
+        self.n1 = GossipNode(self.h1, **kw).start()
+        self.kw = kw
+        self.flushes = 2 * FLUSHES       # each replica's seed flushes
+
+    def ingest(self, crdt, slots, seed: int, lock=None) -> None:
+        """One flush of ``slots`` (random values, a fifth tombstones)."""
+        rng = np.random.default_rng(seed)
+        vals = rng.integers(-2 ** 62, 2 ** 62, len(slots))
+        tombs = rng.random(len(slots)) < 0.2
+        import contextlib
+        with lock if lock is not None else contextlib.nullcontext():
+            with crdt.ingest(auto_flush_rows=len(slots) + 1) as wc:
+                crdt.put_batch(slots, vals, tombs)
+            if crdt.node_id in ("h0", "h1"):
+                self.flushes += wc.flushes
+
+    def conn(self, target, zlib: bool = True):
+        from crdt_tpu_torch import PeerConnection
+        caps = H_WANT if zlib else tuple(c for c in H_WANT if c != "zlib")
+        return PeerConnection(target.host, target.port, timeout=120.0,
+                              want_caps=caps)
+
+    def stop(self) -> None:
+        for n in (self.n0, self.n1, getattr(self, "nk", None)):
+            if n is not None:
+                n.stop()
+
+
+def h_equal(card, host, what: str) -> None:
+    err = max_abs_err(card.store, [x.to("cuda") for x in host.store])
+    check(err == 0, f"path H: {what}'s lanes differ from its host twin "
+                    f"(max |err| {err})")
+    check(card.canonical_time == host.canonical_time,
+          f"path H: {what}'s clock differs from its host twin")
+    check(np.array_equal(card._sem_host(), host._sem_host()),
+          f"path H: {what}'s tag column differs from its host twin")
+    check(all(lane.device.type == "cuda" for lane in card.store),
+          f"path H: {what} left the card")
+
+
+def h_round(name: str, sides, fn, rounds: dict, wire) -> dict:
+    """Round ``name``: ``fn(side, relay)`` on the card side under the
+    profiler, then on the host side; each through its own recording
+    relay to the side's ``n1`` server. The card's and the host's frames
+    must be equal, byte for byte."""
+    out = {}
+    streams = []
+    for side in sides:
+        with wire.RecordingProxy(side.n1.host, side.n1.port) as relay:
+            before = obs_device.launches()
+            if side.role == "card":
+                got, row = g_profiled(lambda: fn(side, relay))
+            else:
+                t0 = time.perf_counter()
+                got = fn(side, relay)
+                row = dict(host_s=time.perf_counter() - t0)
+            after = obs_device.launches()
+            streams.append(relay.streams())
+        row["launches"] = {k: after[k] - before[k]
+                           for k in ("fanin_split", "ingest_scatter",
+                                     "fanin_batch")}
+        out[side.role] = (got, row)
+    check(streams[0] == streams[1], f"path H {name}: the card's frames "
+                                    "differ from the host twin's")
+    card, host = sides
+    h_equal(card.h0, host.h0, f"h0 after {name}")
+    h_equal(card.h1, host.h1, f"h1 after {name}")
+    got, row = out["card"]
+    check(got == out["host"][0],
+          f"path H {name}: the round's report differs from the host's")
+    row.update(host_twin_s=out["host"][1]["host_s"],
+               frames=sum(len(wire.frames(c)) + len(wire.frames(s))
+                          for c, s in streams[0]),
+               wire_bytes=sum(len(c) + len(s) for c, s in streams[0]))
+    if isinstance(got, dict):
+        row.update(got)
+    rounds[name] = row
+    busy, idle = row.get("device_ms"), row.get("idle_share")
+    print(f"  path H {name}: host {row['host_s']:.4f} s (twin "
+          f"{row['host_twin_s']:.4f} s), wire {row['wire_bytes']} B in "
+          f"{row['frames']} frames, device "
+          f"{'not measured' if busy is None else f'{busy:.4f} ms'}, idle "
+          f"{'not measured' if idle is None else f'{idle:.4f}'}, "
+          f"launches {row['launches']}")
+    return row
+
+
+def h_tally(tally) -> dict:
+    """A `WireTally` as raw (before zlib) and wire bytes each way."""
+    return dict(sent_wire=tally.sent, received_wire=tally.received,
+                z_raw=tally.z_raw, z_wire=tally.z_wire,
+                sent_raw=tally.sent - tally.z_wire + tally.z_raw)
+
+
+def h_dense(side, relay, zlib: bool) -> dict:
+    from crdt_tpu_torch import WireTally, sync_dense_over_conn
+    rng = np.random.default_rng(1000 + zlib)
+    slots = rng.choice(N_SLOTS, 2 * DELTA_ROWS, replace=False)
+    side.ingest(side.h0, slots[:DELTA_ROWS], 1010 + zlib, side.n0.lock)
+    side.ingest(side.h1, slots[DELTA_ROWS:], 1020 + zlib, side.n1.lock)
+    tally = WireTally()
+    with side.conn(relay, zlib) as conn:
+        conn.ensure(tally)
+        caps = sorted(conn.caps)
+        side.mark = sync_dense_over_conn(side.h0, conn, lock=side.n0.lock,
+                                         tally=tally)
+    check(("zlib" in caps) == zlib, f"path H: zlib agreed {caps}")
+    return dict(caps=caps, **h_tally(tally))
+
+
+def h_packed(side, relay, rows: int, seed: int) -> dict:
+    from crdt_tpu_torch import WireTally, sync_packed_over_conn
+    perm = np.random.default_rng(500).permutation(N_SLOTS)
+    side.ingest(side.h0, perm[seed:seed + rows], 1100 + seed, side.n0.lock)
+    tally = WireTally()
+    with side.conn(relay) as conn:
+        side.mark = sync_packed_over_conn(side.h0, conn, since=side.mark,
+                                          lock=side.n0.lock, tally=tally,
+                                          fused_repack=True)
+    return dict(rows=rows, **h_tally(tally))
+
+
+def h_typed_span(side) -> np.ndarray:
+    """The first H_TYPED_SLOTS slots empty on both replicas: the typed
+    span (gcounter) both replicas migrate before any write lands there."""
+    free = ~(side.h0.store.occupied | side.h1.store.occupied)
+    return torch.nonzero(free).flatten()[:H_TYPED_SLOTS].cpu().numpy()
+
+
+def h_typed(side, relay) -> dict:
+    from crdt_tpu_torch import WireTally, sync_packed_over_conn
+    span = h_typed_span(side)
+    side.span = span
+    for c, node in ((side.h0, side.n0), (side.h1, side.n1)):
+        with node.lock:
+            c.set_semantics(span, "gcounter")
+    with side.n0.lock:
+        for i, slot in enumerate(span[:64]):
+            side.h0.counter_add(int(slot), 1 + i % 5)
+    with side.n1.lock:
+        for i, slot in enumerate(span[32:96]):
+            side.h1.counter_add(int(slot), 2 + i % 3)
+    tally = WireTally()
+    with side.conn(relay) as conn:
+        side.mark = sync_packed_over_conn(side.h0, conn, since=side.mark,
+                                          lock=side.n0.lock, tally=tally)
+        sem = "semantics" in conn.caps
+    values = [side.h1.counter_value(int(s)) for s in span[:96]]
+    check(sem and values == [side.h0.counter_value(int(s))
+                             for s in span[:96]],
+          "path H: the typed span did not converge under the cap")
+    return dict(typed_slots=len(span), counters=sum(values),
+                **h_tally(tally))
+
+
+def h_untyped_slots(side, rows: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    ok = np.ones(N_SLOTS, bool)
+    ok[side.span] = False
+    return rng.permutation(np.nonzero(ok)[0])[:rows]
+
+
+def h_merkle(side, relay) -> dict:
+    from crdt_tpu_torch import WireTally, sync_merkle_over_conn
+    slots = h_untyped_slots(side, H_SCATTER, 1200)
+    half = H_SCATTER // 2
+    side.ingest(side.h0, slots[:half], 1210, side.n0.lock)
+    side.ingest(side.h1, slots[half:], 1220, side.n1.lock)
+    tally, stats = WireTally(), {}
+    with side.conn(relay) as conn:
+        side.mark = sync_merkle_over_conn(side.h0, conn, lock=side.n0.lock,
+                                          tally=tally, _stats=stats)
+        prefetch = conn.digest_prefetch
+    check(prefetch and stats["pushed_rows"] >= half
+          and stats["pulled_rows"] >= half,
+          f"path H: the merkle walk {stats}")
+    return dict(walk_rounds=stats["rounds"], digests=stats["digests"],
+                ranges=len(stats["ranges"]),
+                pushed_rows=stats["pushed_rows"],
+                pulled_rows=stats["pulled_rows"], **h_tally(tally))
+
+
+def h_json(side, relay) -> dict:
+    from crdt_tpu_torch import WireTally, native, sync_over_conn
+    from crdt_tpu_torch import crdt_json
+    side.j0 = DenseCrdt("j0", N_SLOTS, device=side.device,
+                        wall_clock=StepClock(MILLIS + 20_000))
+    side.j0.put_batch(h_untyped_slots(side, DELTA_ROWS, 1300),
+                      np.arange(DELTA_ROWS) - 2000)
+    tally = WireTally()
+    with side.conn(relay) as conn:
+        sync_over_conn(side.j0, conn, since=side.j0.canonical_time,
+                       tally=tally)
+    # The payload's decode in C and in the pure-Python branch, the
+    # median of five each.
+    payload = side.j0.to_json()
+    cols, side.decode_s = {}, {}
+    for branch, load in (("c", native.load), ("python", lambda: None)):
+        native_load, native.load = native.load, load
+        try:
+            reps = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                cols[branch] = crdt_json.decode_columns(payload)
+                reps.append(time.perf_counter() - t0)
+        finally:
+            native.load = native_load
+        side.decode_s[branch] = sorted(reps)[2]
+    check(cols["c"][0] == cols["python"][0]
+          and np.array_equal(cols["c"][1], cols["python"][1]),
+          "path H: the C codec's columns differ from the Python branch")
+    return dict(rows=DELTA_ROWS, payload_bytes=len(payload),
+                **h_tally(tally))
+
+
+def h_keyed(side):
+    from crdt_tpu_torch import GossipNode, KeyedDenseCrdt
+    keyed = KeyedDenseCrdt(DenseCrdt("k0", 4096, device=side.device,
+                                     wall_clock=StepClock(MILLIS + 30_000)))
+    keys = h_untyped_slots(side, H_KEYS, 1400)
+    keyed.put_all({int(k): i for i, k in enumerate(keys)})
+    side.keyed = keyed
+    side.nk = GossipNode(keyed, key_decoder=int, **side.kw).start()
+
+
+def h_replicated(crdt, slots=None) -> tuple:
+    """The replicated lanes of ``crdt`` at ``slots`` (all by default):
+    occupancy, lt, the node ids, the value (0 on tombstones) and the
+    tombstone flag; the `modified` lanes are each replica's own."""
+    s = crdt.store
+    idx = slice(None) if slots is None else slots
+    ids = np.asarray(crdt._table.ids(), object)
+    occ = s.occupied[idx]
+    return (occ, s.lt[idx], np.where(occ.cpu().numpy(),
+                                     ids[s.node[idx].cpu().numpy()], None),
+            torch.where(s.tomb[idx], 0, s.val[idx]), s.tomb[idx])
+
+
+def h_same(x: tuple, y: tuple) -> bool:
+    return all(np.array_equal(a, b) if isinstance(a, np.ndarray)
+               else torch.equal(a, b) for a, b in zip(x, y))
+
+
+def h_converged(side) -> bool:
+    """h0 and h1 hold the same records, and the keyed replica every
+    record of h0, each under its slot as key."""
+    a = h_replicated(side.h0)
+    if not h_same(a, h_replicated(side.h1)):
+        return False
+    keys = list(side.keyed._key_to_slot)
+    ks = torch.tensor(keys, device=side.device)
+    ss = torch.tensor([side.keyed._key_to_slot[k] for k in keys],
+                      device=side.device)
+    if len(keys) != int(a[0].sum()) or not bool(a[0][ks].all()):
+        return False
+    return h_same(h_replicated(side.h0, ks),
+                  h_replicated(side.keyed.dense, ss))
+
+
+def h_sweep(sides, wire) -> dict:
+    """Three gossip nodes until every pair converges: the keyed node's
+    only peer is h0 (JSON, through a recording relay); h0's peer h1
+    through the port's fault proxy on a seeded schedule; h1's peer h0.
+    Each node's round runs on the card side under the profiler, then on
+    the host side; the twins must stay equal after every round."""
+    from crdt_tpu_torch.obs import default_recorder
+    from crdt_tpu_torch.testing_faults import FaultProxy, FaultSchedule
+    # A flight-recorder bundle, fetched by `h_metrics`: captured before
+    # the keyed nodes exist, whose lag section counts every record.
+    default_recorder().trigger("path_h", {"what": "chip_smoke"})
+    relays, proxies = [], []
+    for side in sides:
+        h_keyed(side)
+        relay = wire.RecordingProxy(side.n0.host, side.n0.port).__enter__()
+        proxy = FaultProxy(side.n1.host, side.n1.port, FaultSchedule(
+            seed=11, rate=0.5, max_delay=0.005)).start()
+        relays.append(relay)
+        proxies.append(proxy)
+        peers = (side.nk.add_peer("h0", relay.host, relay.port),
+                 side.n0.add_peer("h1", proxy.host, proxy.port),
+                 side.n1.add_peer("h0", side.n0.host, side.n0.port))
+        for peer in peers:
+            peer.conn.idle_timeout = H_IDLE_S
+    order = ("n0", "n1", "nk")
+    steps, done = [], False
+    try:
+        for sweep in range(6):
+            for proxy in proxies:
+                proxy.passthrough = sweep >= 3
+            for name in order:
+                outs = []
+                for side in sides:
+                    node = getattr(side, name)
+                    if side.role == "card":
+                        got, row = g_profiled(node.run_round)
+                    else:
+                        t0 = time.perf_counter()
+                        got = node.run_round()
+                        row = dict(host_s=time.perf_counter() - t0)
+                    outs.append((got, row))
+                check(outs[0][0] == outs[1][0],
+                      f"path H sweep {sweep} {name}: outcomes differ from "
+                      f"the host twin's: {outs[0][0]} vs {outs[1][0]}")
+                card, host = sides
+                h_equal(card.h0, host.h0, f"h0 after sweep {sweep} {name}")
+                h_equal(card.h1, host.h1, f"h1 after sweep {sweep} {name}")
+                h_equal(card.keyed.dense, host.keyed.dense,
+                        f"the keyed replica after sweep {sweep} {name}")
+                row = outs[0][1]
+                row.update(sweep=sweep, node=name, outcomes=outs[0][0],
+                           host_twin_s=outs[1][1]["host_s"])
+                steps.append(row)
+                print(f"  path H sweep {sweep} {name}: {outs[0][0]} host "
+                      f"{row['host_s']:.4f} s (twin "
+                      f"{row['host_twin_s']:.4f} s), device "
+                      f"{row.get('device_ms')} ms, idle "
+                      f"{row.get('idle_share')}")
+                done = all(h_converged(side) for side in sides)
+                if done:
+                    break
+            if done:
+                break
+        check(done, "path H: the gossip sweeps did not converge")
+        streams = [relay.streams(wait=0.0) for relay in relays]
+        check(streams[0] == streams[1], "path H: the keyed link's frames "
+                                        "differ from the host twin's")
+        fired = [{k: v for k, v in p.counters.items()} for p in proxies]
+        check(fired[0] == fired[1], f"path H: faults {fired}")
+        stats = [{n: s.__getattribute__(n).stats_snapshot()
+                  for n in order} for s in sides]
+        check(stats[0] == stats[1],
+              "path H: the peers' counters differ from the host twin's")
+    finally:
+        for relay, proxy in zip(relays, proxies):
+            proxy.stop()
+            relay.__exit__(None, None, None)
+    return dict(steps=steps, faults=fired[0], peers=stats[0],
+                keyed_keys=len(sides[0].keyed._key_to_slot),
+                json_link_bytes=sum(len(c) + len(s)
+                                    for c, s in streams[0]))
+
+
+def h_metrics(sides, before: dict, wire) -> dict:
+    """``fetch_metrics`` and ``fetch_debug_dump`` from each card-side
+    server: the counters they serve must be what the run did."""
+    from crdt_tpu_torch import fetch_metrics, metrics_snapshot
+    from crdt_tpu_torch.net import fetch_debug_dump
+    card, host = sides
+    out = {}
+    for name in ("n0", "n1", "nk"):
+        node = getattr(card, name)
+        m = fetch_metrics(node.host, node.port)
+        bundles = fetch_debug_dump(node.host, node.port)
+        check(any(b["kind"] == "path_h" for b in bundles),
+              f"path H: {name}'s debug dump lacks the bundle")
+        check(set(m["lag"]) == set(node.peers)
+              and m["node"]["node_id"] == str(node.crdt.node_id),
+              f"path H: {name}'s lag section {m.get('lag')}")
+        rows = {r["labels"]["peer"]: r["values"]
+                for r in m["stats"].get("peer_sync", [])
+                if r["labels"]["node"] == str(node.crdt.node_id)}
+        snap = node.stats_snapshot()
+        for peer, row in rows.items():
+            check(all(snap[peer][k] == v for k, v in row.items()),
+                  f"path H: {name}'s served peer counters for {peer}")
+        out[name] = dict(counters=len(m["counters"]), bundles=len(bundles),
+                         peers=sorted(rows))
+    deltas = wire.counter_deltas(before, metrics_snapshot())
+    flushes = sum(v for (name, labels), v in deltas.items()
+                  if name == "crdt_tpu_ingest_flush_total"
+                  and dict(labels).get("node") in ("h0", "h1"))
+    want = card.flushes + host.flushes
+    check(flushes == want, f"path H: {flushes} flushes counted, {want} run")
+    out["ingest_flushes"] = flushes
+    out["counters_grown"] = len(deltas)
+    return out
+
+
+def path_h(card: str) -> dict:
+    """The wire and gossip at 2^20 slots (see the module doc)."""
+    from crdt_tpu_torch import metrics_snapshot, native
+    wire = h_wire()
+    check(native.load() is not None, "path H: the C codec did not load")
+    t0 = time.perf_counter()
+    before = metrics_snapshot()
+    torch.cuda.synchronize()
+    obs_device.reset()
+    sides = [HSide(role) for role in TWINS]
+    seeded = obs_device.launches()["ingest_scatter"]
+    rounds: dict = {}
+    try:
+        for zlib in (True, False):
+            h_round(f"dense_{'zlib' if zlib else 'raw'}", sides,
+                    lambda s, r: h_dense(s, r, zlib), rounds, wire)
+        off = 0
+        for name, rows in H_PACKED:
+            h_round(name, sides, lambda s, r: h_packed(s, r, rows, off),
+                    rounds, wire)
+            off += rows
+        h_round("packed_typed", sides, h_typed, rounds, wire)
+        h_round("merkle_1pct", sides, h_merkle, rounds, wire)
+        h_round("json_4096", sides, h_json, rounds, wire)
+        decode = dict(sides[0].decode_s)
+        print(f"  path H decode_columns of the 4,096-row JSON: C "
+              f"{decode['c'] * 1e3:.3f} ms, Python "
+              f"{decode['python'] * 1e3:.3f} ms")
+        sweep = h_sweep(sides, wire)
+        metrics = h_metrics(sides, before, wire)
+    finally:
+        for side in sides:
+            side.stop()
+    torch.cuda.synchronize()
+    launches = obs_device.launches()
+    dense = sum(rounds[f"dense_{z}"]["launches"]["fanin_split"]
+                for z in ("zlib", "raw"))
+    check(dense == 4 and seeded == 2 * FLUSHES
+          and launches["fanin_split"] >= 4,
+          f"path H: launches {launches} (dense rounds' K1s {dense}, "
+          f"seed K2 {seeded})")
+    held_s = time.perf_counter() - t0
+    print(f"  path H held {held_s:.2f} s (seeding, rounds, sweep, polls; "
+          f"card and host twins)")
+    return dict(card=card, n_slots=N_SLOTS, rounds=rounds, sweep=sweep,
+                metrics=metrics, decode_columns_s=decode,
+                launches=launches, held_s=held_s)
+
+
 LOOPS = 48                       # the probe CLI's --loops
 STREAM_REPEATS = 64              # bench.py's --repeats
 
@@ -2994,6 +3485,12 @@ def main() -> int:
           "sharded typed model; the keyed surface and sync_json) equals "
           "the host replicas, with no typed merge through K1, K1s, K1p or "
           "K3")
+    wire = path_h(card)
+    print("phase 3: path H (dense with and without zlib, packed at three "
+          "delta sizes and under the semantics cap, the merkle walk, JSON "
+          "through the C codec, a three-node gossip sweep through a fault "
+          "proxy, the metrics and debug-dump ops) equals the host twins, "
+          "frame for frame")
     probes = path_d(card, results)
     print(f"phase 3: path D (the probe entry point's seven variants, the "
           f"distinct and stream rows) ran; P2 "
@@ -3008,6 +3505,10 @@ def main() -> int:
                          ("probe_stream_noguard", probes),
                          ("probe_copy_batch", probes)):
         results[name]["launches"] = counts["launches"][name]
+    # Path H's rounds run K2 (the seed flushes) and K1s (the dense
+    # rounds' merge_split on both ends).
+    for name in ("fanin_split", "ingest_scatter"):
+        results[name]["launches"] += wire["launches"][name]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3017,7 +3518,7 @@ def main() -> int:
     record = dict(card=card, build_s=build_s, main_path=path,
                   path_a=interchange, path_b=stream, path_c=sharded,
                   path_d=probes, path_e=gossip, path_f=storage,
-                  path_g=typed,
+                  path_g=typed, path_h=wire,
                   kernel_detail=results, torch=torch.__version__,
                   held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -3031,6 +3532,7 @@ def main() -> int:
     print(json.dumps({"path_e": gossip}))
     print(json.dumps({"path_f": storage}))
     print(json.dumps({"path_g": typed}, default=str))
+    print(json.dumps({"path_h": wire}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

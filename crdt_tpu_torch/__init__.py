@@ -10,7 +10,10 @@ tensors and which the CPU tests hold against the JAX package.
 
 Beside the dense models sit the record-map surface (the `Crdt` base,
 the host `MapCrdt`, `KeyedDenseCrdt` over a dense model), typed slots
-(`semantics`), the in-process sync rounds and the checkpoints.
+(`semantics`), the in-process sync rounds and the checkpoints, the TCP
+wire (`net`: the JAX package's frames, byte for byte), the resilient
+`gossip` runtime and the host observability the wire serves (`obs`:
+the metrics registry and the trace ring).
 
 The JAX package ``crdt_tpu`` is the reference; this package imports
 nothing of it (not even its jax-free modules) and never imports jax.
@@ -30,8 +33,18 @@ from .models.dense_crdt import (DenseCrdt, PipelinedGuardError,
 from .models.keyed_dense import KeyedDenseCrdt
 from . import parallel, semantics
 from .sync import sync, sync_json, sync_merkle, sync_packed
+from .net import (FrameCodec, PeerConnection, SyncError,
+                  SyncProtocolError, SyncRedirectError, SyncServer,
+                  SyncTransportError, WireTally, fetch_metrics,
+                  sync_dense_over_conn, sync_dense_over_tcp,
+                  sync_merkle_over_conn, sync_over_conn, sync_over_tcp,
+                  sync_packed_over_conn)
+from .obs import (MetricsRegistry, TraceRing, default_registry,
+                  metrics_snapshot, tracer)
 from .checkpoint import (load_dense, load_gossip_state, load_json,
                          save_dense, save_gossip_state, save_json)
+from .gossip import (BreakerPolicy, CircuitBreaker, GossipNode, Peer,
+                     RetryPolicy)
 
 __all__ = [
     "Hlc", "ClockDriftException", "DuplicateNodeException",
@@ -42,4 +55,13 @@ __all__ = [
     "sync_json", "sync_packed", "sync_merkle", "parallel", "semantics",
     "load_dense", "save_dense", "load_json", "save_json",
     "load_gossip_state", "save_gossip_state",
+    "SyncServer", "sync_dense_over_tcp", "sync_over_tcp",
+    "PeerConnection", "FrameCodec",
+    "sync_over_conn", "sync_dense_over_conn", "sync_packed_over_conn",
+    "sync_merkle_over_conn",
+    "SyncError", "SyncTransportError", "SyncProtocolError",
+    "SyncRedirectError", "WireTally", "fetch_metrics",
+    "GossipNode", "Peer", "RetryPolicy", "BreakerPolicy", "CircuitBreaker",
+    "MetricsRegistry", "TraceRing", "default_registry",
+    "metrics_snapshot", "tracer",
 ]

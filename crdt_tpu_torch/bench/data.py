@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..hlc import SHIFT
-from ..models.dense_crdt import resolve_device
+from ..utils.devices import resolve_device
 from ..ops.dense import DenseChangeset
 
 TARGET = 100e6  # merges/s north star (BASELINE.json)

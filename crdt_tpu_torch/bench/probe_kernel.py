@@ -43,7 +43,7 @@ import time
 import torch
 
 from ..hlc import SHIFT
-from ..models.dense_crdt import resolve_device
+from ..utils.devices import resolve_device
 from ..ops import probe
 from ..ops.dense import empty_dense_store
 from ..ops.split import (split_changeset, split_changeset_narrow,

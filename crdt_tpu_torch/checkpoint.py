@@ -19,21 +19,44 @@ either package restores what the other saved:
   restored from it answers its first anti-entropy walk from the
   persisted tree.
 
-Not carried over: the JAX package's checkpoint counter and trace-ring
-event (its metrics registry and tracer are not ported).
+Every completed save or load counts in the registry's
+``crdt_tpu_checkpoints_total`` and, with the tracer on, emits an
+HLC-stamped ``checkpoint`` event with its duration and size.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from typing import Any, Callable, Optional, Type
 
 import numpy as np
 
-from .models.dense_crdt import resolve_device
+from .utils.devices import resolve_device
 from .ops.dense import DenseStore, store_from_numpy, store_to_numpy
+from .obs.trace import tracer as _tracer
 from .record import KeyDecoder, KeyEncoder, ValueDecoder, ValueEncoder
+
+
+def _note(action: str, path: str, start: float, hlc=None) -> None:
+    """Account one completed checkpoint op: bump the process counter,
+    and, when the tracer is on, emit an HLC-stamped ``checkpoint``
+    event with its duration and on-disk size. Checkpoints are rare and
+    already did file I/O, so this is never on a hot path."""
+    from .obs.registry import default_registry
+    default_registry().counter(
+        "crdt_tpu_checkpoints_total",
+        "checkpoint save/load operations by action").inc(action=action)
+    ring = _tracer()
+    if ring.enabled:
+        fields = {"action": action, "path": path,
+                  "dur_s": time.perf_counter() - start}
+        try:
+            fields["bytes"] = os.path.getsize(path)
+        except OSError:
+            pass
+        ring.emit("checkpoint", hlc=hlc, **fields)
 
 
 def save_json(crdt, path: str, key_encoder: Optional[KeyEncoder] = None,
@@ -42,11 +65,13 @@ def save_json(crdt, path: str, key_encoder: Optional[KeyEncoder] = None,
     included (crdt.dart:124-135), written atomically (to ``path +
     ".tmp"``, then renamed over ``path``). Any conformant backend can
     restore it."""
+    start = time.perf_counter()
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         f.write(crdt.to_json(key_encoder=key_encoder,
                              value_encoder=value_encoder))
     os.replace(tmp, path)
+    _note("save_json", path, start, hlc=crdt.canonical_time)
 
 
 def load_json(cls: Type, node_id: Any, path: str,
@@ -63,12 +88,15 @@ def load_json(cls: Type, node_id: Any, path: str,
     from . import crdt_json
     from .hlc import Hlc
 
+    start = time.perf_counter()
     with open(path) as f:
         records = crdt_json.decode(
             f.read(), Hlc.zero(node_id), key_decoder=key_decoder,
             value_decoder=value_decoder,
             now_millis=wall_clock() if wall_clock else None)
-    return cls(node_id, seed=records, wall_clock=wall_clock, **kwargs)
+    crdt = cls(node_id, seed=records, wall_clock=wall_clock, **kwargs)
+    _note("load_json", path, start, hlc=crdt.canonical_time)
+    return crdt
 
 
 _GOSSIP_STATE_MAGIC = "crdt_tpu/gossip-state@1"
@@ -81,6 +109,7 @@ def save_gossip_state(path: str, node_id: Any, watermarks: dict) -> None:
     resume DELTA sync; the replica itself persists through
     :func:`save_json` or :func:`save_dense`. ``node_id`` is recorded so
     a state file restored onto another node is refused."""
+    start = time.perf_counter()
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         json.dump({"magic": _GOSSIP_STATE_MAGIC,
@@ -89,6 +118,7 @@ def save_gossip_state(path: str, node_id: Any, watermarks: dict) -> None:
                                   for name, hlc in watermarks.items()
                                   if hlc is not None}}, f)
     os.replace(tmp, path)
+    _note("save_gossip_state", path, start)
 
 
 def load_gossip_state(path: str, node_id: Any) -> dict:
@@ -125,6 +155,7 @@ def save_dense(store: DenseStore, path: str,
     it was computed under, which `load_dense_digest` hands back. The
     root-first levels have widths 1, 2, 4, ..., so one flat uint64
     concatenation round-trips them."""
+    start = time.perf_counter()
     tmp = path + ".tmp"
     extra = ({} if node_ids is None
              else {"node_ids": np.array(json.dumps(list(node_ids)))})
@@ -142,6 +173,7 @@ def save_dense(store: DenseStore, path: str,
         np.savez_compressed(f, magic=np.array(_DENSE_MAGIC), **extra,
                             **store_to_numpy(store))
     os.replace(tmp, path)
+    _note("save_dense", path, start)
 
 
 def _validated_npz(z, path: str):
@@ -157,11 +189,13 @@ def load_dense_with_node_ids(path: str, device=None):
     raises without one unless the caller passes ``device="cpu"``, as
     every entry point of this package does."""
     device = resolve_device(device)
+    start = time.perf_counter()
     with np.load(path) as z:
         _validated_npz(z, path)
         store = store_from_numpy(z, device)
         ids = (json.loads(str(z["node_ids"]))
                if "node_ids" in z else None)
+    _note("load_dense", path, start)
     return store, ids
 
 

@@ -132,7 +132,8 @@ class Crdt(ABC, Generic[K, V]):
     # --- merge: the lattice join (crdt.dart:77-94) ---
 
     def merge(self, remote_records: Dict[K, Record[V]]) -> None:
-        with merge_annotation("crdt_tpu_torch.host_merge"):
+        with merge_annotation("crdt_tpu_torch.host_merge",
+                              hlc=lambda: self._canonical_time):
             self._merge_impl(remote_records)
 
     def _merge_impl(self, remote_records: Dict[K, Record[V]]) -> None:

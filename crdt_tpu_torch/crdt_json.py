@@ -1,8 +1,8 @@
 """JSON wire codec (L3) — the replica-boundary format.
 
-The pure-Python path of ``crdt_tpu/crdt_json.py`` (the C codec there is
-an accelerator of the same bytes; the JAX suite runs both modes against
-each other). Matches the reference `lib/src/crdt_json.dart:1-38`
+Port of ``crdt_tpu/crdt_json.py``: the pure-Python path, and the C
+codec (`crdt_tpu_torch.native`) as an accelerator of the same bytes
+where it loaded, as the JAX package wires it. Matches the reference `lib/src/crdt_json.dart:1-38`
 byte-for-byte on the golden strings in `test/map_crdt_test.dart:114-150`:
 
 - ``encode``: ``{key: {"hlc": "<iso>-<hex4>-<node>", "value": v}}``,
@@ -25,7 +25,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from .hlc import SHIFT, Hlc
+from . import native
+from .hlc import MAX_COUNTER, SHIFT, Hlc
 from .record import (KeyDecoder, KeyEncoder, NodeIdDecoder, Record,
                      ValueDecoder, ValueEncoder)
 
@@ -64,11 +65,46 @@ def encode(record_map: Dict[Any, Record],
            key_encoder: Optional[KeyEncoder] = None,
            value_encoder: Optional[ValueEncoder] = None) -> str:
     """Map of records -> wire JSON string (crdt_json.dart:8-17)."""
-    return compact_dumps({
-        (dart_str(key) if key_encoder is None else key_encoder(key)):
-            record.to_json(key, value_encoder=value_encoder)
-        for key, record in record_map.items()
-    })
+    codec = native.load()
+    if codec is not None and record_map:
+        # Batch-format the HLC strings natively. None entries defer to
+        # the Python formatter per record: out-of-window years (which
+        # raise there) and non-UTF-8 node ids (which serialize fine).
+        recs = list(record_map.values())
+        hlcs = codec.format_hlc_batch(
+            [r.hlc.millis for r in recs], [r.hlc.counter for r in recs],
+            [str(r.hlc.node_id) for r in recs])
+        # Keys/values are computed ONCE and shared with the dict
+        # fallback below — user encoders must not be double-called
+        # when format_wire defers (surrogates, key collisions).
+        keys = ([dart_str(k) for k in record_map]
+                if key_encoder is None
+                else [key_encoder(k) for k in record_map])
+        values = ([r.value for r in recs] if value_encoder is None
+                  else [value_encoder(k, r.value)
+                        for k, r in zip(record_map, recs)])
+        if None not in hlcs and len(set(keys)) == len(keys):
+            # One-pass C assembly, byte-identical to the json.dumps of
+            # the dict below (scalar values serialize in C; containers
+            # and custom objects go through `compact_dumps`). Colliding
+            # stringified keys must collapse dict-style, so those use
+            # the dict build instead.
+            out = codec.format_wire(keys, hlcs, values, compact_dumps)
+            if out is not None:
+                return out
+        obj = {}
+        for k, record, hlc_str, v in zip(keys, recs, hlcs, values):
+            obj[k] = {
+                "hlc": record.hlc.to_json() if hlc_str is None else hlc_str,
+                "value": v,
+            }
+    else:
+        obj = {
+            (dart_str(key) if key_encoder is None else key_encoder(key)):
+                record.to_json(key, value_encoder=value_encoder)
+            for key, record in record_map.items()
+        }
+    return compact_dumps(obj)
 
 
 def decode(json_str: str, canonical_time: Hlc,
@@ -83,12 +119,54 @@ def decode(json_str: str, canonical_time: Hlc,
     """
     now = Hlc.now(canonical_time.node_id, millis=now_millis)
     modified = canonical_time if canonical_time >= now else now
+    codec = native.load()
+    if codec is not None and node_id_decoder is None:
+        scanned = codec.parse_wire(json_str)
+        if scanned is not None:
+            keys, lt_buf, nodes, values, bad = scanned
+            lt = np.frombuffer(lt_buf, np.int64)
+            raw_hlc = Hlc._raw
+            out = {}
+            bad_set = set(bad)
+            for i, key in enumerate(keys):
+                if i in bad_set:
+                    h = Hlc.parse(nodes[i])
+                else:
+                    ltv = int(lt[i])
+                    h = raw_hlc(ltv >> SHIFT, ltv & MAX_COUNTER, nodes[i])
+                v = values[i]
+                if value_decoder is not None and v is not None:
+                    v = value_decoder(key, v)
+                out[key if key_decoder is None else key_decoder(key)] = \
+                    Record(h, v, modified)
+            return out
+    raw = json.loads(json_str)
+    if codec is not None and node_id_decoder is None and raw:
+        # Batch-parse the canonical-shape HLC strings natively; None
+        # entries (non-canonical shapes) fall back to the full Python
+        # parser per item.
+        items = list(raw.items())
+        millis_l, counter_l, node_l = codec.parse_hlc_batch(
+            [v["hlc"] for _, v in items])
+        out = {}
+        for (key, value), ms, counter, node in zip(items, millis_l,
+                                                   counter_l, node_l):
+            if ms is None:
+                record = Record.from_json(key, value, modified,
+                                          value_decoder=value_decoder)
+            else:
+                raw_v = value.get("value")
+                decoded = (raw_v if value_decoder is None or raw_v is None
+                           else value_decoder(key, raw_v))
+                record = Record(Hlc(ms, counter, node), decoded, modified)
+            out[key if key_decoder is None else key_decoder(key)] = record
+        return out
     return {
         (key if key_decoder is None else key_decoder(key)):
             Record.from_json(key, value, modified,
                              value_decoder=value_decoder,
                              node_id_decoder=node_id_decoder)
-        for key, value in json.loads(json_str).items()
+        for key, value in raw.items()
     }
 
 
@@ -112,16 +190,56 @@ def decode_columns(json_str: str,
     which is the merging store's concern (winners are re-stamped with
     the post-absorption canonical, crdt.dart:86-87). A repeated wire key
     keeps its first position and its last record, as the JSON object's
-    dict does; ``value_decoder`` sees the raw wire key."""
+    dict does; ``value_decoder`` sees the raw wire key. The C codec's
+    one-pass scan serves the canonical wire shape; anything it does
+    not model exactly takes ``json.loads``."""
+    codec = native.load()
+    if codec is not None:
+        scanned = codec.parse_wire(json_str, False)
+        if scanned is not None:
+            keys, lt_buf, nodes, values, bad = scanned
+            # bytearray buffer -> writable int64 view, zero copies
+            lt = np.frombuffer(lt_buf, np.int64)
+            for i in bad:
+                h = Hlc.parse(nodes[i])
+                _check_lane_millis(h.millis)
+                lt[i] = (h.millis << SHIFT) + h.counter
+                nodes[i] = h.node_id
+            if node_id_decoder is not None:
+                nodes = [node_id_decoder(n) for n in nodes]
+            if value_decoder is not None:
+                # the decoder sees the RAW wire key, as below
+                values = [None if v is None else value_decoder(k, v)
+                          for k, v in zip(keys, values)]
+            if key_decoder is not None:
+                keys = [key_decoder(k) for k in keys]
+            return keys, lt, nodes, values
     items = list(json.loads(json_str).items())
+    m = len(items)
     hlc_strs = [v["hlc"] for _, v in items]
-    lt = np.empty(len(items), np.int64)
-    nodes = [None] * len(items)
-    for i, s in enumerate(hlc_strs):
-        h = Hlc.parse(s)
-        _check_lane_millis(h.millis)
-        lt[i] = (h.millis << SHIFT) + h.counter
-        nodes[i] = h.node_id
+    millis_l = counter_l = node_l = None
+    if codec is not None and m:
+        millis_l, counter_l, node_l = codec.parse_hlc_batch(hlc_strs)
+    if millis_l is not None and None not in millis_l:
+        ms_arr = np.array(millis_l, np.int64)
+        # (millis << 16) would wrap int64 outside the lane range.
+        _check_lane_millis(int(ms_arr.max()))
+        _check_lane_millis(int(ms_arr.min()))
+        lt = (ms_arr << SHIFT) + np.array(counter_l, np.int64)
+        nodes = node_l
+    else:
+        # Item by item for non-canonical shapes (or no C codec).
+        lt = np.empty(m, np.int64)
+        nodes = [None] * m
+        for i, hs in enumerate(hlc_strs):
+            if millis_l is not None and millis_l[i] is not None:
+                ms, c, n = millis_l[i], counter_l[i], node_l[i]
+            else:
+                h = Hlc.parse(hs)
+                ms, c, n = h.millis, h.counter, h.node_id
+            _check_lane_millis(ms)
+            lt[i] = (ms << SHIFT) + c
+            nodes[i] = n
     if node_id_decoder is not None:
         nodes = [node_id_decoder(n) for n in nodes]
     keys = ([k for k, _ in items] if key_decoder is None

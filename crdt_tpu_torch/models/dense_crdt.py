@@ -67,6 +67,8 @@ import numpy as np
 import torch
 
 from .. import crdt_json
+from ..obs.registry import default_registry
+from ..obs.trace import span
 from ..hlc import (MAX_COUNTER, MAX_DRIFT, SHIFT, ClockDriftException,
                    DuplicateNodeException, Hlc, wall_clock_millis)
 from ..ops.dense import (CHANGESET_DTYPES, DenseChangeset, DenseStore,
@@ -101,6 +103,7 @@ from ..semantics import (ORSET_MAX_LEN, ORSET_UNIVERSE, SemanticsSpec,
 from ..semantics.kernels import (_PN_HALF, typed_fanin_step,
                                  typed_sparse_join_step,
                                  typed_wire_join_step)
+from ..utils.devices import resolve_device  # noqa: F401 (re-exported)
 from ..utils.host_guards import recv_fold_columns
 from ..utils.stats import MergeStats, merge_annotation
 from ..watch import ChangeHub, ChangeStream
@@ -171,18 +174,6 @@ def reencode(store: DenseStore, remap: np.ndarray) -> DenseStore:
                           mod_node=rd[store.mod_node.long()])
 
 
-def resolve_device(device) -> torch.device:
-    """``None`` means the CUDA card, and raises without one: the port
-    never carries on silently on the host."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "DenseCrdt runs on the CUDA card by default and this host "
-                "has none; pass device='cpu' to run the plain torch path")
-        device = "cuda"
-    return torch.device(device)
-
-
 class DenseCrdt:
     """LWW-map CRDT over slots ``[0, n_slots)`` with int64 values."""
 
@@ -240,7 +231,8 @@ class DenseCrdt:
         self._store_escaped = store is not None
         if node_id not in self._table:
             self._intern_ids([node_id])
-        self.stats = MergeStats()
+        self.stats = MergeStats().register(backend="DenseCrdt",
+                                           node=str(node_id))
         self._hub = ChangeHub()
         self._pipe: Optional[_PipeState] = None
         self._ingest = None     # active WriteCombiner (models/ingest.py)
@@ -442,7 +434,7 @@ class DenseCrdt:
             yield wc
         finally:
             try:
-                wc.flush()
+                wc.flush("exit")
             except Exception:
                 # Never shadow the exception that interrupted the body;
                 # with none in flight the flush failure IS the error.
@@ -455,7 +447,7 @@ class DenseCrdt:
         """Commit any staged ingest-window writes NOW. No-op outside a
         window (returns False)."""
         ing = self._ingest
-        return False if ing is None else ing.flush()
+        return False if ing is None else ing.flush("barrier")
 
     @staticmethod
     def _last_wins_order(slots: np.ndarray
@@ -1071,10 +1063,42 @@ class DenseCrdt:
                 key_encoder: Optional[KeyEncoder] = None,
                 value_encoder: Optional[ValueEncoder] = None) -> str:
         """Wire JSON export (crdt.dart:124-135): slots stringify as int
-        keys, the reference's int-key golden format."""
+        keys, the reference's int-key golden format. With the default
+        coders and the C codec loaded it is assembled straight from the
+        lanes (`_to_json_fast`), byte-identical to the generic encoder
+        without a `Record` per slot."""
+        self.drain_ingest()
+        if key_encoder is None and value_encoder is None:
+            fast = self._to_json_fast(modified_since)
+            if fast is not None:
+                return fast
         return crdt_json.encode(self.record_map(modified_since),
                                 key_encoder=key_encoder,
                                 value_encoder=value_encoder)
+
+    def _to_json_fast(self, modified_since: Optional[Hlc]) -> Optional[str]:
+        """Lane-direct wire export through the C codec (batch HLC
+        formatting, one-pass assembly), or None to defer to the generic
+        path: no codec, an out-of-range year, a node id that is not
+        UTF-8 encodable."""
+        from .. import native
+        codec = native.load()
+        if codec is None:
+            return None
+        idx, lt, node, val, tomb = self._delta_rows(
+            modified_since, "lt", "node", "val", "tomb")
+        if idx.size == 0:
+            return "{}"
+        ids = np.array([str(n) for n in self._table.ids()], object)
+        hlcs = codec.format_hlc_batch((lt >> SHIFT).tolist(),
+                                      (lt & MAX_COUNTER).tolist(),
+                                      ids[node].tolist())
+        if None in hlcs:
+            return None
+        values = [None if tb else v
+                  for v, tb in zip(val.tolist(), tomb.tolist())]
+        return codec.format_wire(idx.tolist(), hlcs, values,
+                                 crdt_json.compact_dumps)
 
     # pack_since cache depth: a replica gossiping with a few peers at a
     # few watermarks reuses this many packs; LRU eviction past it.
@@ -1087,10 +1111,17 @@ class DenseCrdt:
                 self._store_gen, resolved, ranges)
 
     def _pack_cache_store(self, key, out) -> None:
-        """Insert a finished pack, LRU-evicting past PACK_CACHE_SLOTS."""
+        """Insert a finished pack, LRU-evicting past PACK_CACHE_SLOTS
+        with the eviction counter: churn stays bounded and visible."""
         self._pack_cache[key] = out
-        while len(self._pack_cache) > self.PACK_CACHE_SLOTS:
-            self._pack_cache.popitem(last=False)
+        if len(self._pack_cache) > self.PACK_CACHE_SLOTS:
+            ev = default_registry().counter(
+                "crdt_tpu_pack_cache_evictions_total",
+                "pack_since cache entries LRU-evicted at the "
+                "PACK_CACHE_SLOTS depth bound")
+            while len(self._pack_cache) > self.PACK_CACHE_SLOTS:
+                self._pack_cache.popitem(last=False)
+                ev.inc(node=str(self._node_id))
 
     def _pack_rows_at(self, mask: torch.Tensor, resolved: str
                       ) -> Tuple[PackedDelta, List[Any]]:
@@ -1102,6 +1133,12 @@ class DenseCrdt:
         if resolved == "withhold":
             lww = self._sem[rows[0]] == 0
             if not lww.all():
+                default_registry().counter(
+                    "crdt_tpu_sync_semantics_downgrade_total",
+                    "typed rows withheld from LWW-only wire forms "
+                    "by direction").inc(int((~lww).sum()),
+                                        direction="outbound",
+                                        node=str(self._node_id))
                 rows = tuple(lane[lww] for lane in rows)
         elif resolved == "include":
             sem = self._sem[rows[0]]
@@ -1177,13 +1214,21 @@ class DenseCrdt:
         # Drain BEFORE the key reads the canonical: a flush advances it.
         self.drain_ingest()
         key = self._pack_key(since, resolved, spans)
+        counter = default_registry().counter(
+            "crdt_tpu_pack_cache_total",
+            "pack_since cache lookups by outcome")
         cached = self._pack_cache.get(key)
         if cached is not None:
             self._pack_cache.move_to_end(key)
+            counter.inc(outcome="hit", node=str(self._node_id))
             return cached
-        mask = (self._delta_mask(since) if spans is None
-                else self._range_delta_mask(since, spans))
-        out = self._pack_rows_at(mask, resolved)
+        counter.inc(outcome="miss", node=str(self._node_id))
+        with span("pack_since", kind="pack",
+                  hlc=lambda: self._canonical_time,
+                  node=str(self._node_id)):
+            mask = (self._delta_mask(since) if spans is None
+                    else self._range_delta_mask(since, spans))
+            out = self._pack_rows_at(mask, resolved)
         self._pack_cache_store(key, out)
         return out
 
@@ -1234,11 +1279,19 @@ class DenseCrdt:
         # Drain BEFORE the key reads the canonical clock.
         self.drain_ingest()
         key = self._digest_key()
+        counter = default_registry().counter(
+            "crdt_tpu_digest_cache_total",
+            "digest_tree cache lookups by outcome")
         cached = self._digest_cache
         if cached is not None and cached[0] == key:
+            counter.inc(outcome="hit", node=str(self._node_id))
             return cached[1]
-        tree = build_digest_tree(self.n_slots, self.DIGEST_LEAF_WIDTH,
-                                 self._digest_levels())
+        counter.inc(outcome="miss", node=str(self._node_id))
+        with span("digest_tree", kind="digest",
+                  hlc=lambda: self._canonical_time,
+                  node=str(self._node_id)):
+            tree = build_digest_tree(self.n_slots, self.DIGEST_LEAF_WIDTH,
+                                     self._digest_levels())
         self._digest_cache = (key, tree)
         return tree
 
@@ -1278,6 +1331,14 @@ class DenseCrdt:
                 sem = self._sem.copy()
                 sem[typed] = 0
                 self._set_sem(sem)
+        default_registry().counter(
+            "crdt_tpu_gc_purged_slots_total",
+            "tombstoned slots physically reclaimed by epoch GC").inc(
+                n_purged, node=str(self._node_id))
+        default_registry().counter(
+            "crdt_tpu_gc_passes_total",
+            "gc_purge dispatches (watermark advanced)").inc(
+                node=str(self._node_id))
         return n_purged
 
     def _purge_stable(self, floor: int):
@@ -1348,6 +1409,9 @@ class DenseCrdt:
         # builds.
         self._digest_cache = (self._digest_key(), build_digest_tree(
             self.n_slots, self.DIGEST_LEAF_WIDTH, levels))
+        default_registry().counter(
+            "crdt_tpu_compact_passes_total",
+            "compact_remap dispatches").inc(node=str(self._node_id))
         return translation
 
     def _compact_store(self, spans, whole: bool):
@@ -1553,7 +1617,8 @@ class DenseCrdt:
             # count and order of the unpipelined path.
             wall_merge = self._wall_clock()
             wall_send = self._wall_clock()
-            with merge_annotation("crdt_tpu_torch.dense_merge"):
+            with merge_annotation("crdt_tpu_torch.dense_merge",
+                                  hlc=lambda: self._canonical_time):
                 out = pipelined_model_step(
                     self._store, cs, pipe.canonical, pipe.any_bad,
                     pipe.overflow, pipe.drift, pipe.val_overflow,
@@ -1563,7 +1628,8 @@ class DenseCrdt:
             return
 
         wall = self._wall_clock()
-        with merge_annotation("crdt_tpu_torch.dense_merge"):
+        with merge_annotation("crdt_tpu_torch.dense_merge",
+                              hlc=lambda: self._canonical_time):
             new_store, res, seen, voverflow, cs = self._dispatch_fanin(
                 cs, wall)
         self.stats.add_seen_lazy(seen)
@@ -1733,8 +1799,8 @@ class DenseCrdt:
         if n != self.n_slots:
             raise ValueError(
                 f"pre-split changeset covers {n} slots but this replica "
-                f"holds {self.n_slots}; use merge() (the wide path pads "
-                "or refuses capacity mismatches)")
+                f"holds {self.n_slots}; use merge() (the wide path pads"
+                "/refuses capacity mismatches)")
         if self._sem is not None:
             return self.merge(split_to_wide(scs), node_ids)
         self.stats.merges += 1
@@ -1746,7 +1812,8 @@ class DenseCrdt:
         if pipe is not None and not pipe.exact:
             wall_merge = self._wall_clock()
             wall_send = self._wall_clock()
-            with merge_annotation("crdt_tpu_torch.dense_merge"):
+            with merge_annotation("crdt_tpu_torch.dense_merge",
+                                  hlc=lambda: self._canonical_time):
                 out = pipelined_model_step_split(
                     self._store, scs, node_map, pipe.canonical,
                     pipe.any_bad, pipe.overflow, pipe.drift,
@@ -1756,7 +1823,8 @@ class DenseCrdt:
             self._finish_coarse(out)
             return
         wall = self._wall_clock()
-        with merge_annotation("crdt_tpu_torch.dense_merge"):
+        with merge_annotation("crdt_tpu_torch.dense_merge",
+                              hlc=lambda: self._canonical_time):
             new_store, res, seen, voverflow = model_fanin_split(
                 self._store, scs, node_map, self._canonical_lt(), local,
                 wall, value_width=self._value_width)
@@ -1793,10 +1861,17 @@ class DenseCrdt:
         k = len(record_map)
         slots = np.fromiter(record_map.keys(), np.int64, count=k)
         recs = list(record_map.values())
-        lt = np.fromiter((r.hlc.logical_time for r in recs), np.int64,
-                         count=k)
-        self._merge_columns(slots, lt, [r.hlc.node_id for r in recs],
-                            [r.value for r in recs])
+        from .. import native
+        codec = native.load()
+        if codec is not None:
+            lt_buf, nodes, values = codec.records_to_columns(recs, False)
+            lt = np.frombuffer(lt_buf, np.int64)
+        else:
+            lt = np.fromiter((r.hlc.logical_time for r in recs), np.int64,
+                             count=k)
+            nodes = [r.hlc.node_id for r in recs]
+            values = [r.value for r in recs]
+        self._merge_columns(slots, lt, nodes, values)
 
     def merge_json(self, json_str: str,
                    key_decoder: Optional[KeyDecoder] = None,
@@ -1811,6 +1886,9 @@ class DenseCrdt:
         # (its Crdt.merge_json contract); the merge re-stamps winners,
         # so only the read must happen, for the clocks to tick alike.
         self._wall_clock()
+        if (key_decoder is None or key_decoder is int) \
+                and value_decoder is None and self._merge_json_fast(json_str):
+            return
         keys, lt, nodes, values = crdt_json.decode_columns(
             json_str, key_decoder=key_decoder or int,
             value_decoder=value_decoder)
@@ -1818,6 +1896,45 @@ class DenseCrdt:
             self.merge_many([])
             return
         self._merge_columns(np.asarray(keys, np.int64), lt, nodes, values)
+
+    def _merge_json_fast(self, json_str: str) -> bool:
+        """The C codec's dense wire scan (`parse_wire_dense`): raw
+        columnar buffers, no key strings or value ints, validated and
+        joined as `_merge_columns` does. False (nothing touched) when
+        the codec is absent or defers the payload to the generic
+        decode."""
+        from .. import native
+        codec = native.load()
+        scanned = (codec.parse_wire_dense(json_str)
+                   if codec is not None else None)
+        if scanned is None:
+            return False
+        sbuf, ltbuf, nibuf, uniq, vbuf, tbuf, vmin, vmax = scanned
+        k = len(tbuf)
+        if not k:
+            self.merge_many([])
+            return True
+        slots = np.frombuffer(sbuf, np.int32)
+        lt = np.frombuffer(ltbuf, np.int64)
+        ni = np.frombuffer(nibuf, np.int32)
+        val = np.frombuffer(vbuf, np.int64)
+        tomb = np.frombuffer(tbuf, np.uint8).astype(bool)
+        keep = self._last_wins_keep(slots)
+        if keep is not None:
+            # Repeated wire keys collapse last-wins (decode-dict parity)
+            # before anything counts or validates the dropped rows.
+            slots, lt, ni, val, tomb = (slots[keep], lt[keep], ni[keep],
+                                        val[keep], tomb[keep])
+            k = len(slots)
+        self.stats.merges += 1
+        self.stats.add_seen_lazy(k)
+        self._check_slots(slots)
+        self._check_value_width(np.array([vmin, vmax], np.int64)
+                                if keep is None else val)
+        self._intern_ids(uniq)
+        self._merge_validated(slots, lt, self._table.encode(uniq)[ni], val,
+                              tomb)
+        return True
 
     def _merge_columns(self, slots: np.ndarray, lt: np.ndarray,
                        node_ids: List[Any], values: List[Any]) -> None:
@@ -1836,7 +1953,12 @@ class DenseCrdt:
         self.stats.merges += 1
         self.stats.add_seen_lazy(k)
         self._check_slots(slots)
-        tomb = np.fromiter((v is None for v in values), bool, count=k)
+        from .. import native
+        codec = native.load()
+        if codec is not None:
+            tomb = np.frombuffer(codec.none_mask(values), bool)
+        else:
+            tomb = np.fromiter((v is None for v in values), bool, count=k)
         self._check_int_values(slots, values)
         val = np.fromiter((0 if v is None else v for v in values),
                           np.int64, count=k)
@@ -1873,6 +1995,10 @@ class DenseCrdt:
         mask = self._merge_packed_impl(packed, node_ids, since_lt)
         if mask is None:
             return self.pack_since(since, sem_mode)
+        default_registry().counter(
+            "crdt_tpu_fused_repack_total",
+            "gossip relays served by the fused merge+repack "
+            "dispatch").inc(node=str(self._node_id))
         out = self._pack_rows_at(mask, resolved)
         self._pack_cache_store(self._pack_key(since, resolved), out)
         return out
@@ -1951,13 +2077,28 @@ class DenseCrdt:
         drop = np.zeros(len(slots), bool)
         if not sem_ok and self._sem is not None:
             drop |= self._sem[slots] != 0
-        if self._gc_floor_lt and self._fence_mask() is not None:
+            if drop.any():
+                default_registry().counter(
+                    "crdt_tpu_sync_semantics_downgrade_total",
+                    "typed rows withheld from LWW-only wire forms by "
+                    "direction").inc(int(drop.sum()),
+                                     direction="inbound",
+                                     node=str(self._node_id))
+        if self._gc_floor_lt and self._fence_mask() is not None \
+                and not drop.all():
             # The GC fence: a row at or below the floor onto a slot this
             # replica PURGED replays purged state (the stability
             # watermark proves every peer delivered everything below the
             # floor), and is dropped. Rows for never-purged slots
             # (first-time deliveries) pass.
-            drop |= self._fence_rows(slots, lt)
+            stale = self._fence_rows(slots, lt) & ~drop
+            if stale.any():
+                default_registry().counter(
+                    "crdt_tpu_gc_fenced_rows_total",
+                    "inbound rows dropped by the post-GC resurrection "
+                    "fence").inc(int(stale.sum()),
+                                 node=str(self._node_id))
+                drop |= stale
         if drop.any():
             keep = ~drop
             slots, lt, node, val, tomb = (slots[keep], lt[keep], node[keep],
@@ -1986,7 +2127,8 @@ class DenseCrdt:
             raise ClockDriftException(int(lt[fold.bad_index]) >> SHIFT,
                                       wall)
         new_canonical = fold.new_canonical
-        with merge_annotation("crdt_tpu_torch.dense_merge"):
+        with merge_annotation("crdt_tpu_torch.dense_merge",
+                              hlc=lambda: self._canonical_time):
             win, slot_aligned, repack_mask = self._dispatch_columns(
                 slots, lt, node, val, tomb, new_canonical, my_ord,
                 repack_since_lt)
@@ -2304,8 +2446,8 @@ class ShardedDenseCrdt(DenseCrdt):
         if n != self.n_slots:
             raise ValueError(
                 f"pre-split changeset covers {n} slots but this replica "
-                f"holds {self.n_slots}; use merge() (the wide path pads "
-                "or refuses capacity mismatches)")
+                f"holds {self.n_slots}; use merge() (the wide path pads"
+                "/refuses capacity mismatches)")
         self.merge(split_to_wide(scs), node_ids)
 
     # --- deltas out, through the shard-local delta mask ---

@@ -25,16 +25,42 @@ store missing staged writes.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, TYPE_CHECKING
 
 import numpy as np
 
 from ..hlc import Hlc
+from ..obs.trace import span
 
 if TYPE_CHECKING:                       # pragma: no cover
     from .dense_crdt import DenseCrdt
 
 _INITIAL_ROWS = 1024
+
+# Flush-path instruments, resolved once per process (the default
+# registry is a fixed singleton), as the JAX package resolves them.
+_METRICS = None
+
+
+def _metrics():
+    global _METRICS
+    if _METRICS is None:
+        from ..obs.registry import default_registry
+        reg = default_registry()
+        _METRICS = (
+            reg.counter("crdt_tpu_ingest_flush_total",
+                        "write-combiner flushes by trigger"),
+            reg.counter("crdt_tpu_ingest_flush_rows_total",
+                        "rows committed by write-combiner flushes "
+                        "(post-dedup)"),
+            reg.counter("crdt_tpu_ingest_flush_groups_total",
+                        "staged put/delete calls committed by flushes"),
+            reg.histogram("crdt_tpu_ingest_flush_seconds",
+                          "write-combiner flush wall time (stamp + "
+                          "launch, no fence)"),
+        )
+    return _METRICS
 
 
 class WriteCombiner:
@@ -111,7 +137,7 @@ class WriteCombiner:
         # spends one send per call regardless.
         self._groups += 1
         if self._k >= self._auto:
-            self.flush()
+            self.flush("auto")
 
     def pending_slot_array(self) -> np.ndarray:
         """The distinct staged slots (`DenseCrdt.count_modified_since`
@@ -126,39 +152,53 @@ class WriteCombiner:
             return True, self._pending[slot]
         return False, None
 
-    def flush(self) -> bool:
+    def flush(self, trigger: str = "explicit") -> bool:
         """Stamp and commit every staged row as ONE kernel launch.
         Returns True when a commit ran (False on an empty backlog). On a
         clock exception (drift/overflow from `Hlc.send_batch`) nothing
-        is stamped or committed and the backlog stays staged."""
+        is stamped or committed and the backlog stays staged.
+        ``trigger`` labels the flush in the registry's counters
+        (``"auto"``, ``"exit"``, ``"barrier"`` or ``"explicit"``)."""
         if self._groups == 0:
             return False
         owner = self._owner
         k = self._k
-        new_canonical, group_lts = Hlc.send_batch(
-            owner.canonical_time, self._groups,
-            millis=owner._wall_clock())
-        d = 0
-        if k:
-            slots = self._slots[:k]
-            lt = np.asarray(group_lts, np.int64)[self._group[:k]]
-            vals = self._vals[:k]
-            tombs = self._tombs[:k]
-            # The dedup's one sort also gives the slot order the
-            # kernel's stores want; watch events keep staging order.
-            keep, order = owner._last_wins_order(slots)
-            d = len(order)
-            owner._commit_scatter(slots, lt, vals, tombs, order)
-        owner._canonical_time = new_canonical
-        owner.stats.puts += self._groups
-        owner.stats.records_put += k
-        self._k = 0
-        self._groups = 0
-        self._pending = {}
-        self.flushes += 1
-        self.rows_committed += d
-        if d:
-            self._emit_commit(slots, vals, tombs, keep)
+        node = str(owner.node_id)
+        t0 = time.perf_counter()
+        with span("ingest_flush", kind="ingest",
+                  hlc=lambda: owner.canonical_time,
+                  node=node, rows=k, trigger=trigger):
+            new_canonical, group_lts = Hlc.send_batch(
+                owner.canonical_time, self._groups,
+                millis=owner._wall_clock())
+            d = 0
+            if k:
+                slots = self._slots[:k]
+                lt = np.asarray(group_lts, np.int64)[self._group[:k]]
+                vals = self._vals[:k]
+                tombs = self._tombs[:k]
+                # The dedup's one sort also gives the slot order the
+                # kernel's stores want; watch events keep staging order.
+                keep, order = owner._last_wins_order(slots)
+                d = len(order)
+                owner._commit_scatter(slots, lt, vals, tombs, order)
+            owner._canonical_time = new_canonical
+            owner.stats.puts += self._groups
+            owner.stats.records_put += k
+            groups = self._groups
+            self._k = 0
+            self._groups = 0
+            self._pending = {}
+            self.flushes += 1
+            self.rows_committed += d
+            if d:
+                self._emit_commit(slots, vals, tombs, keep)
+        dt = time.perf_counter() - t0
+        flushes_c, rows_c, groups_c, seconds_h = _metrics()
+        flushes_c.inc(trigger=trigger, node=node)
+        rows_c.inc(d, node=node)
+        groups_c.inc(groups, node=node)
+        seconds_h.observe(dt, node=node)
         return True
 
     def _emit_commit(self, slots: np.ndarray, vals: np.ndarray,

@@ -29,7 +29,8 @@ class MapCrdt(Crdt[K, V], Generic[K, V]):
         self._node_id = node_id
         self._map: Dict[K, Record[V]] = dict(seed or {})
         self._hub = ChangeHub()
-        self.stats = MergeStats()
+        self.stats = MergeStats().register(backend="MapCrdt",
+                                           node=str(node_id))
         super().__init__(wall_clock=wall_clock)
 
     @property

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..obs import device as _obs_device
+from ..utils.devices import resolve_device
 from .merge import recv_guards
 
 _NEG = -(2 ** 62)
@@ -121,17 +122,21 @@ def check_rows(kernel: str, lanes: Dict[str, torch.Tensor],
     return ld
 
 
-def empty_dense_store(n_slots: int, device="cpu") -> DenseStore:
+def empty_dense_store(n_slots: int, device=None) -> DenseStore:
+    """An empty store of ``n_slots`` on ``device`` (``None``: the card,
+    as `resolve_device` resolves it)."""
+    device = resolve_device(device)
     return DenseStore(**{
         f: torch.zeros((n_slots,), dtype=dt, device=device)
         for f, dt in STORE_DTYPES.items()})
 
 
-def store_from_numpy(lanes, device="cpu") -> DenseStore:
+def store_from_numpy(lanes, device=None) -> DenseStore:
     """The seven lanes as numpy arrays (the keys `checkpoint.save_dense`
-    writes, in either package) -> a store on ``device``. Always copies:
-    the store is written in place later and must not alias the
-    caller's arrays."""
+    writes, in either package) -> a store on ``device`` (``None``: the
+    card, as `resolve_device` resolves it). Always copies: the store is
+    written in place later and must not alias the caller's arrays."""
+    device = resolve_device(device)
     return DenseStore(**{
         f: torch.tensor(np.asarray(lanes[f]), dtype=dt, device=device)
         for f, dt in STORE_DTYPES.items()})

@@ -68,7 +68,17 @@ class NodeTable:
         return remap
 
     def encode(self, node_ids: Sequence[Any]) -> np.ndarray:
-        """Ordinals for already-interned ids (KeyError otherwise)."""
+        """Ordinals for already-interned ids (KeyError otherwise): one
+        dict lookup per id, through the C codec's batch lookup where it
+        loaded (`crdt_tpu_torch.native`), else the exact Python
+        fallback."""
+        from .. import native
+        codec = native.load()
+        if codec is not None:
+            if not isinstance(node_ids, list):
+                node_ids = list(node_ids)
+            return np.frombuffer(
+                codec.ordinals(node_ids, self._omap), np.int32)
         omap = self._omap
         return np.fromiter((omap[n] for n in node_ids), np.int32,
                            count=len(node_ids))
@@ -156,12 +166,20 @@ def pack_rows(delta) -> Tuple[dict, List[memoryview]]:
         fields.append("sem")
         dtypes.append(PACKED_SEM_DTYPE)
     arrs = []
+    copied = 0
     for lane, dtype in zip(lanes, dtypes):
         want = np.dtype(dtype)
         if not (isinstance(lane, np.ndarray) and lane.dtype == want
                 and lane.ndim == 1 and lane.flags.c_contiguous):
             lane = np.ascontiguousarray(np.asarray(lane), want)
+            copied += lane.nbytes
         arrs.append(lane)
+    if copied:
+        from ..obs.registry import default_registry
+        default_registry().counter(
+            "crdt_tpu_pack_copy_bytes_total",
+            "bytes copied between pack and frame (zero on the "
+            "arena fast path)").inc(copied, stage="pack_rows")
     meta = {"form": "packed",
             "lanes": [[f, str(a.dtype), [len(a)]]
                       for f, a in zip(fields, arrs)]}

@@ -17,15 +17,18 @@ JSON, `PackedDelta` bytes and digest trees):
   ``pack_since(ranges=...)`` both ways; traffic follows divergence, not
   store size. It returns a :class:`MerkleSyncReport`.
 
-The socket forms wait for the wire (ROADMAP A7), and the collective
-group round for the group join (A9).
+The socket forms are `crdt_tpu_torch.net`'s ``sync_*_over_conn`` and
+``sync_*_over_tcp``; the collective group round waits for the group
+join (ROADMAP A9).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 from .hlc import Hlc
+from .net import _pack_for_peer
+from .obs.trace import round_id, span, tracer
 from .ops.digest import coalesce_leaf_ranges, walk_divergent_leaves
 from .record import KeyDecoder, KeyEncoder, ValueDecoder, ValueEncoder
 
@@ -69,22 +72,6 @@ def sync_json(local, remote, key_encoder: Optional[KeyEncoder] = None,
     return watermark
 
 
-def _pack_for_peer(crdt, since: Optional[Hlc], sem_include: bool,
-                   ranges=None) -> Tuple:
-    """`pack_since` with the semantics tag lane only where both sides
-    have typed slots (``crdt_tpu.net._pack_for_peer``): a replica with a
-    typed surface (``set_semantics``) gets ``sem_mode``, any other the
-    plain call."""
-    if hasattr(crdt, "set_semantics"):
-        sem_mode = "include" if sem_include else "auto"
-        if ranges is not None:
-            return crdt.pack_since(since, sem_mode=sem_mode, ranges=ranges)
-        return crdt.pack_since(since, sem_mode=sem_mode)
-    if ranges is not None:
-        return crdt.pack_since(since, ranges=ranges)
-    return crdt.pack_since(since)
-
-
 def _sem_ok(local, remote) -> bool:
     return hasattr(local, "set_semantics") and hasattr(remote,
                                                        "set_semantics")
@@ -118,12 +105,19 @@ def sync_packed(local, remote, since=_SAME_ROUND) -> Hlc:
     push_bound = None if since is _SAME_ROUND else since
     pull_bound = watermark if since is _SAME_ROUND else since
     sem_ok = _sem_ok(local, remote)
-    packed, ids = _pack_for_peer(local, push_bound, sem_ok)
-    if packed.k:
-        remote.merge_packed(packed, ids)
-    pulled, pulled_ids = _pack_for_peer(remote, pull_bound, sem_ok)
-    if pulled.k:
-        _pull(local, pulled, pulled_ids, watermark, sem_ok)
+    node = str(getattr(local, "node_id", ""))
+    # The round id a socket round carries in its trace context, so
+    # in-process rounds correlate in the one JSONL sink the same way.
+    rid = {"rid": round_id(node)} if tracer().enabled else {}
+    with span("sync_packed", kind="sync", node=node,
+              hlc=lambda: local.canonical_time,
+              peer=str(getattr(remote, "node_id", "")), **rid):
+        packed, ids = _pack_for_peer(local, push_bound, sem_ok)
+        if packed.k:
+            remote.merge_packed(packed, ids)
+        pulled, pulled_ids = _pack_for_peer(remote, pull_bound, sem_ok)
+        if pulled.k:
+            _pull(local, pulled, pulled_ids, watermark, sem_ok)
     return watermark
 
 
@@ -176,27 +170,36 @@ def sync_merkle(local, remote) -> MerkleSyncReport:
     if drain is not None:
         drain()
     watermark = local.canonical_time
-    tree = local.digest_tree()
-    remote_tree = remote.digest_tree()
-    if not tree.same_geometry(remote_tree.n_slots, remote_tree.leaf_width,
-                              remote_tree.depth):
-        raise ValueError(
-            f"merkle geometry mismatch: local ({tree.n_slots}, "
-            f"{tree.leaf_width}) vs remote ({remote_tree.n_slots}, "
-            f"{remote_tree.leaf_width})")
-    leaves, rounds, fetched = walk_divergent_leaves(tree,
-                                                    remote_tree.values)
-    if not leaves:
-        return MerkleSyncReport(watermark, rounds, fetched, (), 0, 0, 0)
-    ranges = coalesce_leaf_ranges(leaves, tree.leaf_width, tree.n_slots)
-    sem_ok = _sem_ok(local, remote)
-    packed, ids = _pack_for_peer(local, None, sem_ok, ranges=ranges)
-    payload = _packed_nbytes(packed) if packed.k else 0
-    if packed.k:
-        remote.merge_packed(packed, ids)
-    pulled, pulled_ids = _pack_for_peer(remote, None, sem_ok, ranges=ranges)
-    payload += _packed_nbytes(pulled) if pulled.k else 0
-    if pulled.k:
-        _pull(local, pulled, pulled_ids, watermark, sem_ok)
+    node = str(getattr(local, "node_id", ""))
+    rid = {"rid": round_id(node)} if tracer().enabled else {}
+    with span("sync_merkle", kind="sync", node=node,
+              hlc=lambda: local.canonical_time,
+              peer=str(getattr(remote, "node_id", "")), **rid):
+        tree = local.digest_tree()
+        remote_tree = remote.digest_tree()
+        if not tree.same_geometry(remote_tree.n_slots,
+                                  remote_tree.leaf_width,
+                                  remote_tree.depth):
+            raise ValueError(
+                f"merkle geometry mismatch: local ({tree.n_slots}, "
+                f"{tree.leaf_width}) vs remote ({remote_tree.n_slots}, "
+                f"{remote_tree.leaf_width})")
+        leaves, rounds, fetched = walk_divergent_leaves(
+            tree, remote_tree.values)
+        if not leaves:
+            return MerkleSyncReport(watermark, rounds, fetched, (),
+                                    0, 0, 0)
+        ranges = coalesce_leaf_ranges(leaves, tree.leaf_width,
+                                      tree.n_slots)
+        sem_ok = _sem_ok(local, remote)
+        packed, ids = _pack_for_peer(local, None, sem_ok, ranges=ranges)
+        payload = _packed_nbytes(packed) if packed.k else 0
+        if packed.k:
+            remote.merge_packed(packed, ids)
+        pulled, pulled_ids = _pack_for_peer(remote, None, sem_ok,
+                                            ranges=ranges)
+        payload += _packed_nbytes(pulled) if pulled.k else 0
+        if pulled.k:
+            _pull(local, pulled, pulled_ids, watermark, sem_ok)
     return MerkleSyncReport(watermark, rounds, fetched, ranges,
                             int(packed.k), int(pulled.k), payload)

@@ -1,10 +1,18 @@
 """Merge observability: per-backend counters and a named profiler span.
 
-`MergeStats` counts merges and record flow on a backend;
-`merge_annotation` wraps the device launch in a
-``torch.profiler.record_function`` span so kernel time shows up named
-in ``torch.profiler`` traces. Port of ``crdt_tpu/utils/stats.py``
-without the process-wide metrics registry.
+Port of ``crdt_tpu/utils/stats.py``. `MergeStats` counts merges and
+record flow on a backend; `PeerSyncStats` counts a gossip peer's
+rounds, retries, fallbacks, bytes and breaker transitions;
+`merge_annotation` wraps the device launch in a trace span
+(`crdt_tpu_torch.obs.trace.span`: a ``torch.profiler.record_function``
+range, and an HLC-stamped ``merge`` ring event when the process tracer
+is on).
+
+``register(**labels)`` attaches an instance to the process-wide metrics
+registry (`crdt_tpu_torch.obs.registry`) as a weakly held collector,
+so every live backend and peer appears in one ``metrics`` snapshot.
+Registration is read-side only: the hot-path accounting stays plain
+host ints and lazy device scalars.
 """
 
 from __future__ import annotations
@@ -12,7 +20,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
-import torch
+from ..obs.trace import span as _span
 
 
 @dataclass
@@ -77,7 +85,69 @@ class MergeStats:
         for k in self.as_dict():
             setattr(self, k, 0)
 
+    def register(self, **labels: Any) -> "MergeStats":
+        """Attach to the process-wide metrics registry as a ``merge``
+        collector (weakly held); returns self for chaining. The scrape
+        drains the lazy device sums (`records_seen` / `records_adopted`
+        force a device-to-host fetch), so snapshot from a monitoring
+        thread, not from inside a pipelined window. Re-registering
+        under a live label set supersedes it (the replica-restart
+        idiom: same node id, new object)."""
+        from ..obs.registry import default_registry
+        default_registry().attach("merge", self, replace=True, **labels)
+        return self
 
-def merge_annotation(name: str = "crdt_tpu_torch.merge"):
-    """Named profiler span around a merge launch."""
-    return torch.profiler.record_function(name)
+
+@dataclass
+class PeerSyncStats:
+    """Per-peer counters for the gossip runtime (`crdt_tpu_torch.gossip`).
+
+    One instance per `Peer`; every field is a plain host int so a
+    monitoring loop can snapshot `as_dict()` without touching the
+    replica. ``retries`` counts re-attempts after transport faults
+    (first attempts are not retries); ``fallbacks`` counts wire-form
+    downgrades; the ``breaker_*`` fields count state TRANSITIONS, so a
+    soak can prove the breaker actually cycled."""
+    rounds_ok: int = 0         # completed anti-entropy rounds
+    rounds_failed: int = 0     # rounds abandoned (retries exhausted
+    #                            or fatal protocol rejection)
+    skipped: int = 0           # rounds refused locally: breaker open
+    retries: int = 0           # transport-fault re-attempts
+    fallbacks: int = 0         # wire form downgraded one step
+    full_pulls: int = 0        # rounds pulled with since=None
+    delta_pulls: int = 0       # rounds pulled from a watermark
+    bytes_sent: int = 0        # wire bytes out, frame headers included
+    bytes_received: int = 0    # wire bytes in, frame headers included
+    breaker_opened: int = 0
+    breaker_half_open: int = 0
+    breaker_closed: int = 0
+
+    def as_dict(self) -> dict:
+        return {f: getattr(self, f) for f in (
+            "rounds_ok", "rounds_failed", "skipped", "retries",
+            "fallbacks", "full_pulls", "delta_pulls", "bytes_sent",
+            "bytes_received", "breaker_opened", "breaker_half_open",
+            "breaker_closed")}
+
+    def reset(self) -> None:
+        for f in self.as_dict():
+            setattr(self, f, 0)
+
+    def register(self, **labels: Any) -> "PeerSyncStats":
+        """Attach to the process-wide metrics registry as a
+        ``peer_sync`` collector (weakly held); returns self. A
+        re-``add_peer`` under the same (node, peer) labels supersedes
+        the prior collector rather than duplicating the series."""
+        from ..obs.registry import default_registry
+        default_registry().attach("peer_sync", self, replace=True,
+                                  **labels)
+        return self
+
+
+def merge_annotation(name: str = "crdt_tpu_torch.merge", hlc: Any = None):
+    """Named span around a merge launch: always a
+    ``torch.profiler.record_function`` range; also an HLC-stamped
+    ``merge`` ring event when the process tracer is enabled. ``hlc``
+    may be a zero-arg callable, evaluated only when an event is
+    actually recorded."""
+    return _span(name, kind="merge", hlc=hlc)

@@ -12,7 +12,8 @@ event per distinct slot carrying the winning post-dedup value. Ordering
 across flushes follows commit order, which is also HLC order.
 
 The port of ``crdt_tpu/watch.py``: the same hub, streams and async
-bridge, with a plain ``threading`` lock and no metrics registry.
+bridge, with a plain ``threading`` lock; delivered events count in the
+registry's ``crdt_tpu_watch_events_total``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,22 @@ import threading
 import weakref
 from collections import deque
 from typing import Any, Callable, List, NamedTuple, Optional
+
+
+# Change events delivered to live subscribers, process-wide. Created
+# lazily, touched only when some stream is listening, so the
+# nobody-watching bulk path stays free.
+_WATCH_COUNTER = None
+
+
+def _watch_counter():
+    global _WATCH_COUNTER
+    if _WATCH_COUNTER is None:
+        from .obs.registry import default_registry
+        _WATCH_COUNTER = default_registry().counter(
+            "crdt_tpu_watch_events_total",
+            "change events fanned out to live watch subscribers")
+    return _WATCH_COUNTER
 
 
 class ChangeEvent(NamedTuple):
@@ -227,6 +244,8 @@ class ChangeHub:
         event = ChangeEvent(key, value)
         for stream in list(self._streams):
             stream._emit(event)
+        if self.active:
+            _watch_counter().inc()
 
     def add_batch(self, pairs,
                   get: Optional[Callable[[Any], tuple]] = None) -> None:
@@ -242,6 +261,7 @@ class ChangeHub:
         recording streams, so callers hand over snapshots they will not
         mutate afterwards."""
         mat = None
+        keyed_hits = 0
         for stream in list(self._streams):
             if not (stream._recording or stream._callbacks):
                 continue   # no sink: never materialize on its behalf
@@ -250,10 +270,15 @@ class ChangeHub:
                 present, v = get(k)
                 if present:
                     stream._emit(ChangeEvent(k, v))
+                    keyed_hits += 1
                 continue
             if mat is None:
                 mat = pairs() if callable(pairs) else pairs
             stream._emit_many(*mat)
+        if mat is not None:
+            _watch_counter().inc(len(mat[0]))
+        elif keyed_hits:
+            _watch_counter().inc(keyed_hits)
 
     def stream(self, key: Any = None) -> ChangeStream:
         if key is None:

@@ -135,7 +135,7 @@ def test_ingest_kernel_matches_plain(cuda):
         td.store_from_numpy(store, cuda),
         *(torch.tensor(a, device=cuda) for a in rows), 3)
     assert obs_device.launches()["ingest_scatter"] == 1
-    p = ingest_kernel.ingest_scatter(td.store_from_numpy(store),
+    p = ingest_kernel.ingest_scatter(td.store_from_numpy(store, "cpu"),
                                      *(torch.tensor(a) for a in rows), 3)
     for a, b in zip(k, p):
         assert torch.equal(a.cpu(), b)
@@ -185,7 +185,7 @@ def test_ingest_kernel_any_row_order_matches_plain(cuda, layout, order):
         *(torch.tensor(a, device=cuda) for a in lanes_np), 3)
     torch.cuda.synchronize()
     assert obs_device.launches()["ingest_scatter"] == 1
-    p = ingest_kernel.ingest_scatter(td.store_from_numpy(store),
+    p = ingest_kernel.ingest_scatter(td.store_from_numpy(store, "cpu"),
                                      *(torch.tensor(a) for a in lanes_np), 3)
     for a, b in zip(k, p):
         assert torch.equal(a.cpu(), b)
@@ -297,7 +297,7 @@ def test_fanin_split_kernel_matches_plain(cuda, n, rows, narrow, value_width,
                                                       for x in scs)),
         node_map.to(cuda), *args, value_width=value_width)
     assert obs_device.launches()["fanin_split"] == (1 if n else 0)
-    p = fanin_kernel.fanin_split(td.store_from_numpy(store), scs, node_map,
+    p = fanin_kernel.fanin_split(td.store_from_numpy(store, "cpu"), scs, node_map,
                                  *args, value_width=value_width)
     for a, b in zip(list(k[0]) + list(k[1]) + list(k[2:]),
                     list(p[0]) + list(p[1]) + list(p[2:])):
@@ -837,3 +837,58 @@ def test_typed_merge_many_launches_no_lww_kernel(cuda, model):
     for x, y in zip(a, b):
         assert torch.equal(x.cpu(), y)
     assert (ta, ja) == (tb, jb)
+
+
+# --- C6: the store helpers default to the card --------------------------------
+
+
+def test_store_helpers_default_to_the_card(cuda):
+    store = td.empty_dense_store(17)
+    assert all(lane.device.type == "cuda" for lane in store)
+    back = td.store_from_numpy(td.store_to_numpy(store))
+    assert all(lane.device.type == "cuda" for lane in back)
+    assert all(torch.equal(a, b) for a, b in zip(store, back))
+
+
+# --- the wire: a card replica behind a SyncServer ------------------------------
+
+
+def wire_run(server_device, mode, n):
+    """Two rounds of ``mode`` from a host client to a server over a
+    replica on ``server_device``; returns both replicas."""
+    import itertools
+
+    from crdt_tpu_torch import net
+
+    ticks = [itertools.count(1_700_000_000_000) for _ in range(2)]
+    a = port.DenseCrdt("a", n, device=server_device,
+                       wall_clock=ticks[0].__next__)
+    b = port.DenseCrdt("b", n, device="cpu", wall_clock=ticks[1].__next__)
+    rng = np.random.default_rng(n)
+    for c in (a, b):
+        slots = rng.choice(n, n // 3, replace=False)
+        c.put_batch(slots, rng.integers(-2 ** 62, 2 ** 62, len(slots)))
+        c.delete_batch(slots[:9])
+    fn = {"dense": net.sync_dense_over_conn,
+          "packed": net.sync_packed_over_conn}[mode]
+    with net.SyncServer(a) as server:
+        with net.PeerConnection(server.host, server.port,
+                                timeout=60.0) as conn:
+            mark = fn(b, conn, lock=None)
+            with server.lock:
+                a.put_batch([1, n - 1], [7, 8])
+            b.put_batch([2], [9])
+            fn(b, conn, since=mark)
+    return a, b
+
+
+@pytest.mark.parametrize("mode", ["dense", "packed"])
+@pytest.mark.parametrize("n", [1000, 4097, 8192])
+def test_sync_server_on_card_matches_a_host_pair(cuda, mode, n):
+    ca, cb = wire_run(cuda, mode, n)
+    ha, hb = wire_run("cpu", mode, n)
+    assert all(lane.device.type == cuda.type for lane in ca.store)
+    for got, want in ((ca, ha), (cb, hb)):
+        for x, y in zip(got.store, want.store):
+            assert torch.equal(x.cpu(), y)
+        assert str(got.canonical_time) == str(want.canonical_time)

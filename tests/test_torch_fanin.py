@@ -120,7 +120,7 @@ def test_fanin_batch_matches_pallas_kernel(seed, case):
         chunk_rows=8, interpret=True)
     jstore = jp.join_store(jstore)
     for fn in (tk.fanin_batch, tk.fanin_batch_reference):
-        tstore, tres = fn(td.store_from_numpy(store), torch_cs(cs),
+        tstore, tres = fn(td.store_from_numpy(store, "cpu"), torch_cs(cs),
                           canonical, LOCAL, WALL)
         assert_dense_stores_equal(jstore, tstore, where=fn.__name__)
         np.testing.assert_array_equal(np.asarray(jres.win),
@@ -138,7 +138,7 @@ def test_fanin_batch_matches_xla_fold(seed, case):
     jstore, jres = jd.fanin_step(
         jax_lanes(store, jd.DenseStore), jax_lanes(cs, jd.DenseChangeset),
         jnp.int64(canonical), jnp.int32(LOCAL), jnp.int64(WALL))
-    tstore, tres = tk.fanin_batch(td.store_from_numpy(store), torch_cs(cs),
+    tstore, tres = tk.fanin_batch(td.store_from_numpy(store, "cpu"), torch_cs(cs),
                                   canonical, LOCAL, WALL)
     assert_lanes_equal(jstore, tstore, "fanin_batch vs fanin_step")
     np.testing.assert_array_equal(np.asarray(jres.win), tres.win.numpy())
@@ -158,7 +158,7 @@ def test_fanin_step_oracle_matches_jax(seed, case):
     jstore, jres = jd.fanin_step(
         jax_lanes(store, jd.DenseStore), jax_lanes(cs, jd.DenseChangeset),
         jnp.int64(canonical), jnp.int32(LOCAL), jnp.int64(WALL))
-    tstore, tres = td.fanin_step(td.store_from_numpy(store), torch_cs(cs),
+    tstore, tres = td.fanin_step(td.store_from_numpy(store, "cpu"), torch_cs(cs),
                                  canonical, LOCAL, WALL)
     assert_lanes_equal(jstore, tstore, "fanin_step")
     for f in td.FaninResult._fields:
@@ -170,9 +170,9 @@ def test_fanin_step_oracle_matches_jax(seed, case):
 def test_fanin_batch_without_valid_rows_keeps_store_and_clock():
     store, cs, canonical = make_inputs(3)
     cs["valid"][:] = False
-    tstore, tres = tk.fanin_batch(td.store_from_numpy(store), torch_cs(cs),
+    tstore, tres = tk.fanin_batch(td.store_from_numpy(store, "cpu"), torch_cs(cs),
                                   canonical, LOCAL, WALL)
-    assert_lanes_equal(td.store_from_numpy(store), tstore, "no rows")
+    assert_lanes_equal(td.store_from_numpy(store, "cpu"), tstore, "no rows")
     assert int(tres.basemax) == td._NEG
     assert int(tres.new_canonical) == canonical
     assert not tres.win.any()
@@ -190,7 +190,7 @@ def test_model_fanin_batch_value_width_32(seed, case):
         jnp.int64(canonical), jnp.int32(LOCAL), jnp.int64(WALL),
         chunk_rows=8, interpret=True, value_width=32)
     tstore, tres, tseen, tovf = tk.model_fanin_batch(
-        td.store_from_numpy(store), torch_cs(cs), canonical, LOCAL, WALL,
+        td.store_from_numpy(store, "cpu"), torch_cs(cs), canonical, LOCAL, WALL,
         value_width=32)
     assert_dense_stores_equal(jstore, tstore, where="model_fanin_batch")
     np.testing.assert_array_equal(np.asarray(jres.win), tres.win.numpy())
@@ -214,7 +214,7 @@ def test_pipelined_model_step_matches_jax():
               torch.tensor(False), torch.tensor(False), torch.tensor(False),
               torch.tensor(-1, dtype=torch.int32))
     jstore = jax_lanes(store, jd.DenseStore)
-    tstore = td.store_from_numpy(store)
+    tstore = td.store_from_numpy(store, "cpu")
     cs2["node"][0, :50] = LOCAL
     cs2["valid"][0, :50] = True
     # Above the clock threaded out of step 0 (its send bump to WALL+1).
@@ -269,7 +269,7 @@ def test_cpu_wrapper_launches_no_kernel():
     launch counter does not move."""
     store, cs, canonical = make_inputs(8, r=4)
     obs_device.reset()
-    tk.fanin_batch(td.store_from_numpy(store), torch_cs(cs), canonical,
+    tk.fanin_batch(td.store_from_numpy(store, "cpu"), torch_cs(cs), canonical,
                    LOCAL, WALL)
     assert obs_device.launches() == {"fanin_batch": 0, "ingest_scatter": 0,
                                      "fanin_split": 0, "fanin_stream": 0,

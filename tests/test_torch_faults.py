@@ -24,6 +24,11 @@ each held against ``crdt_tpu`` on the same numpy inputs:
   default-device ``RuntimeError`` unless asked for ``device="cpu"``,
   and ``DenseCrdt.load`` / ``ShardedDenseCrdt.load`` load onto the
   device (or the mesh) they are given.
+- C6: the store helpers ``ops.dense.empty_dense_store`` and
+  ``store_from_numpy`` place a store on the card by default, as the
+  JAX ``empty_dense_store`` places it on the default accelerator:
+  without a card they raise the same default-device ``RuntimeError``
+  unless asked for ``device="cpu"``.
 """
 
 import importlib
@@ -287,3 +292,31 @@ def test_snapshot_loaders_default_to_the_card(monkeypatch, tmp_path):
     assert sharded.get(5) == 50
     jax_back = JaxDense.load("r", path, executor="xla")
     assert_dense_stores_equal(jax_back.store, back.store, "C5 load")
+
+
+# --- C6: the store helpers default to the card --------------------------------
+
+
+def test_store_helpers_default_to_the_card(monkeypatch):
+    from crdt_tpu.ops.dense import empty_dense_store as jax_empty
+    from crdt_tpu_torch.ops import dense as td
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as refused:
+        port_model.resolve_device(None)
+    lanes = td.store_to_numpy(td.empty_dense_store(16, "cpu"))
+    for call in (lambda: td.empty_dense_store(16),
+                 lambda: td.store_from_numpy(lanes),
+                 lambda: td.empty_dense_store(16, None),
+                 lambda: td.store_from_numpy(lanes, device=None)):
+        with pytest.raises(RuntimeError) as e:
+            call()
+        assert str(e.value) == str(refused.value)
+    host = td.empty_dense_store(16, "cpu")
+    assert all(lane.device.type == "cpu" for lane in host)
+    back = td.store_from_numpy(lanes, "cpu")
+    assert all(lane.device.type == "cpu" for lane in back)
+    # The same lanes as the JAX helper's store.
+    ref = jax_empty(16)
+    for f in td.DenseStore._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(ref, f)),
+                                      getattr(back, f).numpy(), f)

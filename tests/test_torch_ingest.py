@@ -73,7 +73,7 @@ def test_ingest_scatter_matches_pallas_and_xla(seed, k):
     xla = jd.ingest_scatter(jstore, jnp.asarray(padded[0], jnp.int32),
                             *(jnp.asarray(a) for a in padded[1:]),
                             jnp.int32(ME))
-    port = tk.ingest_scatter(td.store_from_numpy(store),
+    port = tk.ingest_scatter(td.store_from_numpy(store, "cpu"),
                              *(torch.tensor(a) for a in padded), ME)
 
     assert_dense_stores_equal(pallas, port, where="vs ingest_scatter_tiles")
@@ -96,14 +96,14 @@ def test_ingest_scatter_one_tile_and_every_tile():
                                   for f, v in store.items()})
         pallas = ingest_scatter_tiles(jstore, s, lt, val, tomb, ME,
                                       interpret=True)
-        port = tk.ingest_scatter(td.store_from_numpy(store),
+        port = tk.ingest_scatter(td.store_from_numpy(store, "cpu"),
                                  *(torch.tensor(a) for a in padded), ME)
         assert_dense_stores_equal(pallas, port, where=f"{len(s)} rows")
 
 
 def test_ingest_scatter_updates_in_place_without_launch_on_cpu():
     rng = np.random.default_rng(5)
-    store = td.store_from_numpy(make_store(rng))
+    store = td.store_from_numpy(make_store(rng), "cpu")
     _, padded = make_rows(rng, 10)
     obs_device.reset()
     out = tk.ingest_scatter(store, *(torch.tensor(a) for a in padded), ME)
@@ -119,7 +119,7 @@ def test_sentinel_rows_write_nothing():
                 torch.ones(4, dtype=torch.int64),
                 torch.ones(4, dtype=torch.int64),
                 torch.ones(4, dtype=torch.bool)]
-    out = tk.ingest_scatter(td.store_from_numpy(store), *sentinel, ME)
+    out = tk.ingest_scatter(td.store_from_numpy(store, "cpu"), *sentinel, ME)
     for f in td.DenseStore._fields:
         np.testing.assert_array_equal(store[f], getattr(out, f).numpy())
 

@@ -137,15 +137,15 @@ def test_store_numpy_round_trip_copies(tmp_path):
     lanes = {f: rng.integers(0, 2 if dt == torch.bool else 100, 32)
              .astype(np.dtype(str(dt).split(".")[1]))
              for f, dt in td.STORE_DTYPES.items()}
-    store = td.store_from_numpy(lanes)
+    store = td.store_from_numpy(lanes, "cpu")
     store.lt[0] = -1                     # must not write through
     assert lanes["lt"][0] != -1
-    back = td.store_to_numpy(td.store_from_numpy(lanes))
+    back = td.store_to_numpy(td.store_from_numpy(lanes, "cpu"))
     for f in lanes:
         np.testing.assert_array_equal(back[f], lanes[f])
         assert back[f].dtype == lanes[f].dtype
     path = str(tmp_path / "s.npz")
-    port_ckpt.save_dense(td.store_from_numpy(lanes), path)
+    port_ckpt.save_dense(td.store_from_numpy(lanes, "cpu"), path)
     loaded, ids = port_ckpt.load_dense_with_node_ids(path, device="cpu")
     assert ids is None
     for f in lanes:
@@ -159,7 +159,7 @@ def test_store_numpy_round_trip_copies(tmp_path):
 
 def test_load_refuses_lane_only_snapshot(tmp_path):
     path = str(tmp_path / "lanes.npz")
-    port_ckpt.save_dense(td.empty_dense_store(8), path)
+    port_ckpt.save_dense(td.empty_dense_store(8, "cpu"), path)
     with pytest.raises(ValueError, match="no node-id table"):
         port.DenseCrdt.load("n0", path, device="cpu")
 

@@ -604,7 +604,7 @@ def test_sparse_and_repack_steps_match_jax(k):
     stamp = (START << 16) + 500
     jnew, jwin, jmask = jd.merge_repack_step(
         jstore, *jrows, jnp.int64(stamp), jnp.int32(2), jnp.int64(stamp))
-    pstore = td.store_from_numpy(store)
+    pstore = td.store_from_numpy(store, "cpu")
     prows = [torch.tensor(rows[f]) for f in ("slot", "lt", "node", "val",
                                              "tomb", "valid")]
     out, pwin, pmask = td.merge_repack_step(pstore, *prows, stamp, 2, stamp)
@@ -615,7 +615,7 @@ def test_sparse_and_repack_steps_match_jax(k):
     np.testing.assert_array_equal(np.asarray(jwin), pwin.numpy())
     np.testing.assert_array_equal(np.asarray(jmask), pmask.numpy())
     # The plain sparse step: the same lanes and win mask.
-    sstore = td.store_from_numpy(store)
+    sstore = td.store_from_numpy(store, "cpu")
     _, swin = td.sparse_fanin_step(sstore, *prows, stamp, 2)
     np.testing.assert_array_equal(swin.numpy(), pwin.numpy())
     for a, b in zip(sstore, out):
@@ -636,7 +636,7 @@ def test_wire_join_step_matches_jax(seed):
         *(jnp.asarray(lanes[f]) for f in ("lt", "node", "val", "tomb",
                                           "valid")),
         jnp.int64(stamp), jnp.int32(1))
-    pstore = td.store_from_numpy(store)
+    pstore = td.store_from_numpy(store, "cpu")
     out, pwin = td.wire_join_step(
         pstore, *(torch.tensor(lanes[f]) for f in ("lt", "node", "val",
                                                    "tomb", "valid")),

@@ -326,7 +326,7 @@ def test_split_store_round_trip_matches_jax(seed):
                  occupied=occ, tomb=rng.random(n) < 0.3)
     jstore = jd.DenseStore(**{k: jnp.asarray(v) for k, v in lanes.items()})
     js = jp.split_store(jstore)
-    tst = ts.split_store(td.store_from_numpy(lanes))
+    tst = ts.split_store(td.store_from_numpy(lanes, "cpu"))
     for f in ts.SplitStore._fields:
         np.testing.assert_array_equal(getattr(tst, f).numpy(),
                                       np.asarray(getattr(js, f)), err_msg=f)

@@ -209,7 +209,7 @@ def _stores(seed, n):
         occupied=occ, tomb=occ & (rng.random(n) < 0.3))
     from crdt_tpu.ops.dense import DenseStore as JaxStore
     return (JaxStore(**{k: jnp.asarray(v) for k, v in lanes.items()}),
-            td.store_from_numpy(lanes))
+            td.store_from_numpy(lanes, "cpu"))
 
 
 def test_wire_and_sparse_steps_match_jax():
@@ -312,7 +312,7 @@ def _apply(store, sem, batch):
 def test_typed_join_laws(name):
     spec = tsem.get_semantics(name)
     sem = torch.full((64,), spec.tag, dtype=torch.int8)
-    fresh = td.empty_dense_store(64)
+    fresh = td.empty_dense_store(64, "cpu")
     rng = np.random.default_rng(spec.tag + 100)
 
     def same(x, y):

@@ -148,7 +148,7 @@ def test_sharded_step_matches_jax(shape):
         scalars = (jnp.int64(canonical), jnp.int32(local), jnp.int64(wall))
         j_store, j_res = j_pallas(*j_args, *scalars)
         x_store, _ = j_xla(*j_args, *scalars)
-        t_in = tp.shard_store(td.store_from_numpy(store), tmesh)
+        t_in = tp.shard_store(td.store_from_numpy(store, "cpu"), tmesh)
         t_cs = td.DenseChangeset(**{f: torch.tensor(v) for f, v in cs.items()})
         t_store, t_res = t_step(t_in, tp.shard_changeset(t_cs, tmesh),
                                 canonical, local, wall)
@@ -169,7 +169,7 @@ def test_sharded_step_matches_jax(shape):
                 bool(getattr(j_res, flag)) == flagged, (where, flag)
         # The unsharded merge of the same inputs lands the same lanes.
         u_store, u_res = fanin_kernel.fanin_batch(
-            td.store_from_numpy(store), t_cs, canonical, local, wall)
+            td.store_from_numpy(store, "cpu"), t_cs, canonical, local, wall)
         for f in td.DenseStore._fields:
             assert torch.equal(getattr(got, f), getattr(u_store, f)), f
         assert torch.equal(t_res.win, u_res.win)
@@ -190,8 +190,8 @@ def test_shard_layout_and_ingest():
     assert [b[0].lt.shape[0] for b in blocks] == [3, 3, 1]
     assert blocks[1][1].lt.data_ptr() == t_cs.lt[3:, 32:].data_ptr()
     assert blocks[1][1].lt.stride() == (64, 1)
-    sharded = tp.shard_store(td.store_from_numpy(store), mesh)
-    plain = td.store_from_numpy(store)
+    sharded = tp.shard_store(td.store_from_numpy(store, "cpu"), mesh)
+    plain = td.store_from_numpy(store, "cpu")
     slots = torch.tensor([0, 31, 32, 63, 7, 64, 64, 64])   # 64: sentinel
     rows = (slots, torch.arange(8) + (START << 16), torch.arange(8) * 11,
             torch.arange(8) % 2 == 0)
@@ -207,7 +207,7 @@ def test_shard_layout_and_ingest():
     assert int(tp.sharded_max_logical_time(mesh)(sharded)) == \
         int(td.dense_max_logical_time(plain))
     with pytest.raises(ValueError, match="key shards"):
-        tp.shard_store(td.empty_dense_store(63), mesh)
+        tp.shard_store(td.empty_dense_store(63, "cpu"), mesh)
 
 
 # --- the model ------------------------------------------------------

@@ -152,7 +152,7 @@ def test_model_fanin_split_matches_pallas(seed, case, narrow, value_width,
         chunk_rows=8, interpret=True, value_width=value_width)
     for fn in (tk.model_fanin_split, tk.fanin_split_reference):
         tstore, tres, tseen, tovf = fn(
-            td.store_from_numpy(store), to_port_split(jscs),
+            td.store_from_numpy(store, "cpu"), to_port_split(jscs),
             torch.as_tensor(NODE_MAP.astype(np.int32)), canonical, LOCAL,
             WALL, value_width=value_width)
         # Every lane of every slot, the malformed sentinel's included.
@@ -189,7 +189,7 @@ def test_pipelined_model_step_split_matches_jax():
               torch.tensor(False), torch.tensor(False), torch.tensor(False),
               torch.tensor(-1, dtype=torch.int32))
     jstore = jax_lanes(store, jd.DenseStore)
-    tstore = td.store_from_numpy(store)
+    tstore = td.store_from_numpy(store, "cpu")
     for i, jscs in enumerate((j0, j1)):
         jout = jp.pipelined_model_step_split(
             jstore, jscs, jnp.asarray(NODE_MAP), *jstate, jnp.int32(LOCAL),

@@ -71,7 +71,7 @@ STREAM_CASES = [(0, "plain", 1, "exact"), (1, "dup", 3, "exact"),
 @pytest.mark.parametrize("seed,case,n_chunks,guards", STREAM_CASES)
 def test_fanin_stream_matches_pallas(seed, case, n_chunks, guards):
     store, cs, canonical = make_inputs(seed, case, r=8)
-    tout = sk.fanin_stream(td.store_from_numpy(store), torch_cs(cs),
+    tout = sk.fanin_stream(td.store_from_numpy(store, "cpu"), torch_cs(cs),
                            canonical, LOCAL, WALL, n_chunks=n_chunks,
                            guards=guards)
     assert_stream_equal(jax_stream(store, cs, canonical, n_chunks, guards),
@@ -100,7 +100,7 @@ def shielded_inputs():
 @pytest.mark.parametrize("n_chunks", [1, 4])
 def test_exact_guards_shield_what_fast_guards_flag(guards, n_chunks):
     store, cs, canonical = shielded_inputs()
-    tout = sk.fanin_stream(td.store_from_numpy(store), torch_cs(cs),
+    tout = sk.fanin_stream(td.store_from_numpy(store, "cpu"), torch_cs(cs),
                            canonical, LOCAL, WALL, n_chunks=n_chunks,
                            guards=guards)
     assert_stream_equal(jax_stream(store, cs, canonical, n_chunks, guards),
@@ -116,10 +116,10 @@ def test_fanin_step_matches_pallas_step():
         jp.split_changeset(jax_lanes(cs, jd.DenseChangeset)),
         jnp.int64(canonical), jnp.int32(LOCAL), jnp.int64(WALL),
         interpret=True)
-    tout = sk.fanin_step(td.store_from_numpy(store), torch_cs(cs), canonical,
+    tout = sk.fanin_step(td.store_from_numpy(store, "cpu"), torch_cs(cs), canonical,
                          LOCAL, WALL)
     assert_stream_equal((jp.join_store(jst), jres), tout, "step")
-    one = sk.fanin_stream(td.store_from_numpy(store), torch_cs(cs),
+    one = sk.fanin_stream(td.store_from_numpy(store, "cpu"), torch_cs(cs),
                           canonical, LOCAL, WALL, n_chunks=1)
     for a, b in zip(list(tout[0]) + list(tout[1]),
                     list(one[0]) + list(one[1])):
@@ -135,7 +135,7 @@ def test_stream_matches_sequential_folds(seed):
     store, cs, canonical = make_inputs(10 + seed, r=4)
     cs["valid"][3, 7] = False                # keep the drift edge out
     jst, jcanon = jax_lanes(store, jd.DenseStore), jnp.int64(canonical)
-    tst, tcanon = td.store_from_numpy(store), canonical
+    tst, tcanon = td.store_from_numpy(store, "cpu"), canonical
     win = torch.zeros(N, dtype=torch.bool)
     for c in range(n_chunks):
         cs_c = dict(cs, lt=cs["lt"] + (c << SHIFT))
@@ -145,7 +145,7 @@ def test_stream_matches_sequential_folds(seed):
         jcanon, tcanon = jres.new_canonical, tres.new_canonical
         win |= tres.win
     for guards in ("exact", "fast"):
-        sst, sres = sk.fanin_stream(td.store_from_numpy(store), torch_cs(cs),
+        sst, sres = sk.fanin_stream(td.store_from_numpy(store, "cpu"), torch_cs(cs),
                                     canonical, LOCAL, WALL,
                                     n_chunks=n_chunks, guards=guards)
         assert_lanes_equal(jst, sst, f"stream vs JAX folds ({guards})")
@@ -161,7 +161,7 @@ def test_stream_offsets_do_not_resurrect_invalid():
     cs["valid"][:] = False
     cs["valid"][0, 0] = True
     cs["val"][0, 0] = 42
-    tst, tres = sk.fanin_stream(td.store_from_numpy(store), torch_cs(cs), 0,
+    tst, tres = sk.fanin_stream(td.store_from_numpy(store, "cpu"), torch_cs(cs), 0,
                                 LOCAL, WALL, n_chunks=4)
     assert int(tst.occupied.sum()) == 1 == int(tres.win.sum())
     assert int(tst.val[0]) == 42
@@ -181,13 +181,13 @@ def test_stream_drift_boundary_and_argument_checks():
                                             (MAX_DRIFT - 1, 9, 2, False),
                                             (MAX_DRIFT, 9, 2, True)):
             cs["lt"][0, 5] = ((wall + ms) << SHIFT) + counter
-            tout = sk.fanin_stream(td.store_from_numpy(store), torch_cs(cs),
+            tout = sk.fanin_stream(td.store_from_numpy(store, "cpu"), torch_cs(cs),
                                    0, LOCAL, wall, n_chunks=n_chunks,
                                    guards=guards)
             assert bool(tout[1].any_drift) == want
             assert_stream_equal(jax_stream(store, cs, 0, n_chunks, guards,
                                            wall=wall), tout, guards)
-    args = (td.store_from_numpy(store), torch_cs(cs), 0, LOCAL, wall)
+    args = (td.store_from_numpy(store, "cpu"), torch_cs(cs), 0, LOCAL, wall)
     for kw in (dict(n_chunks=0), dict(n_chunks=1 << 15),
                dict(n_chunks=2, guards="bogus")):
         with pytest.raises(ValueError):
@@ -208,7 +208,7 @@ def test_closed_form_matches_chunk_walk_and_pallas(case, r, n_chunks,
     Pallas kernel in interpret mode: every store lane, win, the
     canonical and both flags, tolerance 0."""
     store, cs, canonical = closed_inputs(case, r, n_chunks)
-    args = (td.store_from_numpy(store), torch_cs(cs), canonical, LOCAL,
+    args = (td.store_from_numpy(store, "cpu"), torch_cs(cs), canonical, LOCAL,
             WALL)
     closed = sk.fanin_stream_closed_reference(*args, n_chunks=n_chunks,
                                               guards=guards)
