@@ -138,6 +138,30 @@ Phases, in order; any failure raises and exits non-zero:
      card's frames equal the twin's, byte for byte; each round's host
      time, wire bytes, device time and idle share (``torch.profiler``)
      and K1s / K2 launches are recorded;
+   - path I, the general-key backends and the group join at 2^20: a
+     ``TpuMapCrdt`` on the card and its host twin take ``put_all`` of
+     2^20 integer keys, push the mirror, ``merge`` 65,536 remote
+     ``Record`` s (half win), whose shadow must equal ``merge_step`` of
+     the same changeset on the mirror taken before it; the mirror's
+     ``max_logical_time`` and ``delta_mask``; a card ``DenseCrdt``'s
+     65,536-row ``to_json`` into ``merge_json``. A ``SqliteCrdt`` file
+     of 65,536 records (cut from 2^20 for time) and a card
+     ``TpuMapCrdt`` holding step one's records of the same keys
+     converge through a full ``sync_json`` round (equal record maps and
+     JSON bytes), and the reopened file's clock is ``MAX(lt)``. Four
+     card ``DenseCrdt`` s seeded by 4 main-path flushes each (K2), in a
+     ``CollectiveGroup`` on a member mesh that repeats the card,
+     against a host twin group: 32 rounds of ``bench.py --mode
+     collective``'s shape (256 rows a member, one join), a 65,536-row
+     round also held against card clones converged pairwise by
+     ``sync_packed``, a no-change join, and a typed round on path G's
+     tags; each round one ``parallel.collective_join`` call with 0
+     bytes to the wire, every member's lanes, clock, digest root and
+     seeded pack equal to its twin's. Three ``GossipNode`` s over card
+     replicas: the co-located pair through one join, the remote peer
+     over the socket, a forced join failure counted in
+     ``crdt_tpu_collective_fallback_total``, then loopback packed rounds
+     beside the join's time;
    - path D, the probe entry point (``crdt_tpu_torch.bench``) at the JAX
      CLI's defaults: its seven variants (``full``, ``stream``,
      ``stream-noguard``, ``nojoin``, ``copy``, ``copy-batch``,
@@ -2442,10 +2466,10 @@ def g_profiled(fn) -> tuple:
                                      for e in events[:6]])
 
 
-def g_report(name: str, row: dict) -> None:
+def g_report(name: str, row: dict, path: str = "G") -> None:
     busy, idle = row.get("device_ms"), row.get("idle_share")
     twin = row.get("twin_s")
-    print(f"  path G {name}: host {row['host_s']:.4f} s, device "
+    print(f"  path {path} {name}: host {row['host_s']:.4f} s, device "
           f"{'not measured' if busy is None else f'{busy:.4f} ms'} in "
           f"{row.get('device_ops')} device ops, idle "
           f"{'not measured' if idle is None else f'{idle:.4f}'}"
@@ -3331,6 +3355,432 @@ def path_h(card: str) -> dict:
                 launches=launches, held_s=held_s)
 
 
+I_KEYS = N_SLOTS                 # TpuMapCrdt keys, put_all'd at once
+I_MERGE = FLUSH_ROWS             # remote Records merged, half of them win
+I_JSON_ROWS = FLUSH_ROWS         # a card DenseCrdt's to_json rows
+I_SQLITE = FLUSH_ROWS            # SqliteCrdt records: cut from 2^20 for time
+I_MEMBERS = 4                    # bench.py --mode collective's members
+I_ROUNDS = 32                    # ... its rounds
+I_ROUND_ROWS = 256               # ... and rows a member a round
+I_LOOPBACK = 8                   # loopback-packed rounds beside the joins
+
+
+def i_step(name: str, steps: dict, fn):
+    """``fn()`` on the card under the profiler; its row goes to
+    ``steps`` and is printed as path G prints its steps."""
+    out, row = g_profiled(fn)
+    steps[name] = row
+    g_report(name, row, "I")
+    return out
+
+
+def i_lanes_equal(card, host) -> bool:
+    """Every lane of a card store equals its host twin's."""
+    return max_abs_err(card, [x.to("cuda") for x in host]) == 0
+
+
+def i_shadow_equal(a, b) -> bool:
+    """Two TpuMapCrdts' host shadows, keys, payloads and clocks."""
+    return (all(np.array_equal(getattr(a._lanes, f), getattr(b._lanes, f))
+                for f in a._lanes.__slots__)
+            and a._slot_keys == b._slot_keys and a._payload == b._payload
+            and a.canonical_time == b.canonical_time)
+
+
+def i_tpu_map(steps: dict) -> tuple:
+    """TpuMapCrdt at 2^20 integer keys on the card and its host twin:
+    put_all, the mirror, a 65,536-record merge held against
+    `ops.merge.merge_step` on the mirror taken before it, the mirror's
+    reductions, and a card DenseCrdt's 65,536-row to_json into
+    merge_json."""
+    from crdt_tpu_torch import Hlc, Record, TpuMapCrdt
+    from crdt_tpu_torch.ops import merge as tm
+    pair = [TpuMapCrdt("i0", wall_clock=StepClock(MILLIS)),
+            TpuMapCrdt("i0", wall_clock=StepClock(MILLIS), device="cpu")]
+    check(pair[0].device.type == "cuda", "path I: TpuMapCrdt() is not on "
+                                         "the card")
+    values = {k: 3 * k for k in range(I_KEYS)}
+    i_step("tpu_map_put_all", steps, lambda: pair[0].put_all(values))
+    pair[1].put_all(values)
+    mirror = i_step("tpu_map_store", steps, lambda: pair[0].store)
+    check(all(lane.device.type == "cuda" for lane in mirror)
+          and i_lanes_equal(mirror, pair[1].store)
+          and i_shadow_equal(*pair),
+          "path I: the put_all mirror differs from its host twin")
+    # Every 16th key gets a remote record 5 ms after or before the
+    # put_all stamp: half of them win.
+    stamp = pair[0].canonical_time.millis
+    keys = list(range(0, I_KEYS, I_KEYS // I_MERGE))
+    records = {}
+    for j, k in enumerate(keys):
+        h = Hlc(stamp + (5 if j % 2 else -5), j % 3, "peer")
+        records[k] = Record(h, None if j % 10 == 0 else -k, h)
+    for c in pair:
+        c._intern_nodes(["peer"])       # ordinals as the merge sees them
+    before = pair[0].store
+    canonical = pair[0].canonical_time.logical_time
+    wall = pair[0]._wall_clock.t + 1    # the merge's own first wall read
+    my_ord = pair[0]._table.ordinal("i0")
+    dev = "cuda"
+    cs = tm.Changeset(
+        slot=torch.tensor([pair[0]._key_to_slot[k] for k in keys],
+                          dtype=torch.int32, device=dev),
+        lt=torch.tensor([r.hlc.logical_time for r in records.values()],
+                        device=dev),
+        node=torch.full((len(keys),), pair[0]._table.ordinal("peer"),
+                        dtype=torch.int32, device=dev),
+        tomb=torch.tensor([r.value is None for r in records.values()],
+                          device=dev),
+        valid=torch.ones(len(keys), dtype=torch.bool, device=dev))
+    i_step("tpu_map_merge", steps, lambda: pair[0].merge(records))
+    pair[1].merge(records)
+    out, res = i_step("merge_step", steps, lambda: tm.merge_step(
+        before, cs, canonical, my_ord, wall))
+    shadow = pair[0]._lanes
+    check(not bool(res.any_bad) and int(res.win.sum()) == I_MERGE // 2,
+          f"path I: merge_step won {int(res.win.sum())} of {I_MERGE}")
+    check(all(np.array_equal(getattr(out, f).cpu().numpy(),
+                             getattr(shadow, f)) for f in tm.Store._fields),
+          "path I: the shadow after the record merge differs from "
+          "merge_step on the mirror taken before it")
+    check(i_shadow_equal(*pair), "path I: the record merge differs from "
+                                 "its host twin")
+    since = canonical
+    lt_max, mask = i_step("mirror_reductions", steps, lambda: (
+        tm.max_logical_time(pair[0].store),
+        tm.delta_mask(pair[0].store, since)))
+    twin = pair[1].store
+    check(int(lt_max) == int(np.max(np.where(shadow.occupied, shadow.lt, 0)))
+          == int(tm.max_logical_time(twin))
+          and np.array_equal(mask.cpu().numpy(),
+                             shadow.occupied & (shadow.mod_lt >= since))
+          and torch.equal(mask.cpu(), tm.delta_mask(twin, since)),
+          "path I: the mirror's reductions differ from the shadow's")
+    # A card DenseCrdt's to_json into merge_json (string keys).
+    dense = [DenseCrdt("j0", N_SLOTS, device=d, wall_clock=StepClock(MILLIS))
+             for d in TWINS.values()]
+    slots, vals, tombs = flush_inputs(0, rows=I_JSON_ROWS)
+    for d in dense:
+        d.put_batch(slots, vals, tombs)
+    wire = i_step("dense_to_json", steps, dense[0].to_json)
+    check(wire == dense[1].to_json(), "path I: the card DenseCrdt's JSON "
+                                      "differs from its host twin's")
+    mark = pair[0].canonical_time
+    i_step("tpu_map_merge_json", steps, lambda: pair[0].merge_json(wire))
+    pair[1].merge_json(wire)
+    delta = [c.to_json(modified_since=mark) for c in pair]
+    check(i_shadow_equal(*pair) and delta[0] == delta[1]
+          and len(pair[0]._slot_keys) == I_KEYS + I_JSON_ROWS
+          and pair[0]._device is None,
+          "path I: merge_json differs from its host twin")
+    return pair[0], dict(keys=len(pair[0]._slot_keys),
+                         merge_wins=int(res.win.sum()),
+                         json_bytes=len(wire), delta_json_bytes=len(delta[0]))
+
+
+def i_sqlite(tpu, steps: dict) -> dict:
+    """A SqliteCrdt file seeded with I_SQLITE records and a card
+    TpuMapCrdt holding step 1's records of the same keys (put_records,
+    the state converter): one full sync_json round, then the file
+    reopened with its clock restored from MAX(lt)."""
+    import tempfile
+
+    from crdt_tpu_torch import SqliteCrdt, TpuMapCrdt, sync_json
+    keys = range(I_SQLITE)
+    part = TpuMapCrdt("i1", wall_clock=StepClock(MILLIS + 9))
+    part.put_records({k: tpu.get_record(k) for k in keys})
+    os.makedirs("chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="chiprun_out") as tmp:
+        path = os.path.join(tmp, "path_i.db")
+        db = SqliteCrdt("s0", path, wall_clock=StepClock(MILLIS),
+                        key_decoder=int)
+        i_step("sqlite_seed", steps,
+               lambda: db.put_all({k: -k for k in keys}))
+        i_step("sqlite_sync_json", steps, lambda: sync_json(
+            db, part, key_decoder=int, since=None))
+        got = [db.record_map(), part.record_map()]
+        same = [{k: (str(r.hlc), r.value) for k, r in m.items()}
+                for m in got]
+        wire = db.to_json()
+        check(same[0] == same[1] and len(same[0]) == I_SQLITE
+              and wire == part.to_json() and part._device is None,
+              "path I: the SqliteCrdt and the TpuMapCrdt differ after "
+              "sync_json")
+        max_lt = int(part._lanes.lt[:len(part._slot_keys)].max())
+        db.close()
+        again = SqliteCrdt("s0", path, wall_clock=StepClock(MILLIS),
+                           key_decoder=int)
+        check(again.canonical_time.logical_time == max_lt
+              and again.count_modified_since() == I_SQLITE,
+              "path I: the reopened file's clock is not MAX(lt)")
+        again.close()
+    return dict(records=I_SQLITE, json_bytes=len(wire),
+                wins_kept=sum(r.hlc.node_id == "s0" for r in got[0].values()))
+
+
+def i_member(node_id: str, device, flushes) -> DenseCrdt:
+    """A 2^20-slot replica seeded by the given main-path flushes (K2)."""
+    crdt = DenseCrdt(node_id, N_SLOTS, device=device,
+                     wall_clock=StepClock(MILLIS))
+    with crdt.ingest(auto_flush_rows=FLUSH_ROWS):
+        for f in flushes:
+            crdt.put_batch(*flush_inputs(f))
+    return crdt
+
+
+def i_groups_equal(card, host, rc, rh, what: str) -> None:
+    """A card group against its host twin group: the report, and each
+    member's lanes, clock and seeded pack."""
+    check((rc.new_canonical, rc.win_counts, rc.digest_root, rc.members)
+          == (rh.new_canonical, rh.win_counts, rh.digest_root, rh.members)
+          and rc.bytes_to_wire == 0,
+          f"path I: {what}: the report differs from the host group's")
+    for c, h in zip(card.members, host.members):
+        check(i_lanes_equal(c._store, h._store)
+              and c.canonical_time == h.canonical_time,
+              f"path I: {what}: member {c.node_id} differs from its twin")
+        packs = [[None if a is None else a.tobytes() for a in m._pack_cache[
+            next(iter(m._pack_cache))][0]] for m in (c, h)]
+        check(len(c._pack_cache) == len(h._pack_cache) == 1
+              and packs[0] == packs[1],
+              f"path I: {what}: member {c.node_id}'s seeded pack differs")
+
+
+def i_join(group) -> tuple:
+    """One group join: its report, host seconds and join calls."""
+    before = obs_device.op_launches()["parallel.collective_join"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = group.join()
+    torch.cuda.synchronize()
+    return (report, time.perf_counter() - t0,
+            obs_device.op_launches()["parallel.collective_join"] - before)
+
+
+def i_write(sets, rng, rows: int) -> None:
+    """Member i of each replica set writes the same ``rows`` slots."""
+    for i in range(I_MEMBERS):
+        slots = rng.choice(N_SLOTS, rows, replace=False)
+        for members in sets:
+            members[i].put_batch(slots, slots % 1000)
+
+
+def i_collective(steps: dict) -> dict:
+    """Four card members on a member mesh that repeats the card, each
+    seeded by 4 of the main path's flushes, against a host twin group:
+    32 rounds of bench.py --mode collective's shape, one 65,536-row
+    round (also held against four card clones converged pairwise by
+    sync_packed), a no-change join, and a typed round on path G's
+    tags."""
+    from crdt_tpu_torch import CollectiveGroup
+    from crdt_tpu_torch.parallel import make_collective_mesh
+    from crdt_tpu_torch.sync import sync_packed
+    flushes = [range(4 * i, 4 * i + 4) for i in range(I_MEMBERS)]
+    card = CollectiveGroup(
+        [i_member(f"m{i}", "cuda", flushes[i]) for i in range(I_MEMBERS)],
+        mesh=make_collective_mesh(I_MEMBERS))
+    host = CollectiveGroup(
+        [i_member(f"m{i}", "cpu", flushes[i]) for i in range(I_MEMBERS)])
+    check(list(card.mesh.devices) == [torch.device("cuda:0")] * I_MEMBERS,
+          f"path I: the member mesh {card.mesh.devices}")
+    rc, first_s, calls = i_join(card)
+    i_groups_equal(card, host, rc, host.join(), "the first join")
+    rng = np.random.default_rng(1000)
+    times = []
+    for r in range(I_ROUNDS):
+        i_write((card.members, host.members), rng, I_ROUND_ROWS)
+        if r == I_ROUNDS - 1:
+            (rc, s, calls) = i_step("collective_join_256", steps,
+                                    lambda: i_join(card))
+        else:
+            rc, s, calls = i_join(card)
+        check(calls == 1, f"path I: round {r} made {calls} join calls")
+        times.append(s)
+        i_groups_equal(card, host, rc, host.join(), f"round {r}")
+    # The 65,536-row round, also on card clones converged pairwise.
+    clones = [g_clone(m, m.node_id) for m in card.members]
+    for c, m in zip(clones, card.members):
+        c._canonical_time = Hlc.from_logical_time(
+            m.canonical_time.logical_time, m.node_id)
+    mark = card.members[0].canonical_time
+    i_write((card.members, host.members, clones), rng, FLUSH_ROWS)
+    rc, big_s, calls = i_step("collective_join_65536", steps,
+                              lambda: i_join(card))
+    check(calls == 1, "path I: the 65,536-row round's join calls")
+    i_groups_equal(card, host, rc, host.join(), "the 65,536-row round")
+
+    def converge():
+        for _ in range(2):
+            for i in range(I_MEMBERS):
+                for k in range(i + 1, I_MEMBERS):
+                    sync_packed(clones[i], clones[k], since=mark)
+    i_step("pairwise_sync_packed", steps, converge)
+    for c, m in zip(clones, card.members):
+        check(all(torch.equal(getattr(c._store, f), getattr(m._store, f))
+                  for f in ("lt", "node", "val", "tomb", "occupied"))
+              and c.digest_tree().root == rc.digest_root,
+              f"path I: member {m.node_id} differs from the pairwise "
+              "sync_packed replicas")
+    rc, nochange_s, calls = i_step("collective_join_nochange", steps,
+                                   lambda: i_join(card))
+    rh = host.join()
+    check(calls == 1 and rc.adopted == 0,
+          "path I: the no-change join adopted rows")
+    i_groups_equal(card, host, rc, rh, "the no-change join")
+    typed = i_typed_round(steps)
+    times.sort()
+    return dict(members=I_MEMBERS, rounds=I_ROUNDS, rows=I_ROUND_ROWS,
+                first_join_s=first_s, join_s_median=times[len(times) // 2],
+                join_s_min=times[0], join_s_max=times[-1],
+                join_65536_s=big_s, nochange_s=nochange_s,
+                digest_root=rc.digest_root, typed=typed)
+
+
+def i_typed_round(steps: dict) -> dict:
+    """Four typed members on path G's tags, each seeded by one encoded
+    flush, with typed ops on shared and own slots (the mvreg slot at an
+    equal lt everywhere), joined once: `_typed_group_val` runs."""
+    from crdt_tpu_torch import CollectiveGroup
+    from crdt_tpu_torch.parallel import make_collective_mesh
+    seeded = set()
+    for i in range(I_MEMBERS):
+        seeded.update(flush_inputs(i)[0].tolist())
+    # Op slots no seed flush wrote, so an OR-set lane starts empty.
+    free = [[s for s in range(*g_span(t)) if s not in seeded][:I_MEMBERS]
+            for t in range(4)]
+    g, p, o, v = free
+
+    def member(i, device):
+        crdt = g_replica(f"t{i}", device)
+        with crdt.ingest(auto_flush_rows=FLUSH_ROWS):
+            crdt.put_batch(*g_flush_rows(900 + i, flush_inputs(i)[0]))
+        crdt.counter_add(g[i], 5 + i)
+        crdt.counter_add(p[i], 3 - 2 * i)
+        crdt.orset_add(o[0], i)
+        crdt.orset_add(o[1], 2 * i)
+        crdt.mvreg_put(v[0], 100 + i)
+        return crdt
+
+    groups = [CollectiveGroup([member(i, "cuda") for i in range(I_MEMBERS)],
+                              mesh=make_collective_mesh(I_MEMBERS)),
+              CollectiveGroup([member(i, "cpu") for i in range(I_MEMBERS)])]
+    rc, s, calls = i_step("collective_join_typed", steps,
+                          lambda: i_join(groups[0]))
+    check(calls == 1, "path I: the typed round's join calls")
+    i_groups_equal(groups[0], groups[1], rc, groups[1].join(),
+                   "the typed round")
+    m = groups[0].members
+    check(m[0].mvreg_get(v[0]) == tuple(sorted(
+        (100 + i for i in range(I_MEMBERS)), reverse=True))
+          and m[1].orset_members(o[0]) == frozenset(range(I_MEMBERS))
+          and all(c.counter_value(g[i]) == 5 + i
+                  for c in m for i in range(I_MEMBERS)),
+          f"path I: typed reads after the join: {m[0].mvreg_get(v[0])}")
+    return dict(join_s=s, adopted=rc.adopted)
+
+
+def i_gossip(steps: dict, join_s: float) -> dict:
+    """Three GossipNodes on 127.0.0.1 over card replicas at 2^20: g0 and
+    g1 in a group with declared addresses, r0 remote (packed). One sweep
+    (the pair through one join, r0 over the socket), a second to
+    converge, a forced join failure counted as a socket fallback, then
+    loopback-packed rounds beside the joins."""
+    import random
+
+    from crdt_tpu_torch import CollectiveGroup, GossipNode, default_registry
+    from crdt_tpu_torch.parallel import make_collective_mesh
+    reps = [i_member(n, "cuda", [f]) for n, f in (("g0", 4), ("g1", 5),
+                                                  ("r0", 6))]
+    nodes = [GossipNode(c, rng=random.Random(7)).start() for c in reps]
+    try:
+        n0, n1, nr = nodes
+        group = CollectiveGroup(reps[:2], mesh=make_collective_mesh(2),
+                                addresses={"g0": f"{n0.host}:{n0.port}",
+                                           "g1": f"{n1.host}:{n1.port}"})
+        n0.attach_group(group)
+        p1 = n0.add_peer("g1", n1.host, n1.port)
+        far = n0.add_peer("r0", nr.host, nr.port, mode="packed")
+        check(p1.collective and not far.collective,
+              "path I: co-location detection")
+        calls = obs_device.op_launches()["parallel.collective_join"]
+        first = i_step("gossip_sweep", steps, n0.run_round)
+        calls = obs_device.op_launches()["parallel.collective_join"] - calls
+        check(first == {"g1": "ok", "r0": "ok"} and calls == 1
+              and p1.last_attempt == "collective"
+              and far.last_attempt == "packed"
+              and p1.stats.bytes_sent == p1.stats.bytes_received == 0
+              and far.stats.bytes_sent > 0,
+              f"path I: the sweep {first}, {calls} joins, "
+              f"{p1.last_attempt} / {far.last_attempt}")
+        n0.run_round()
+        roots = {c.digest_tree().root for c in reps}
+        check(len(roots) == 1 and all(
+            torch.equal(reps[0]._store.lt, c._store.lt) for c in reps),
+              "path I: the three nodes did not converge")
+        fb = default_registry().counter("crdt_tpu_collective_fallback_total")
+        before = fb.value(reason="RuntimeError", node="g0", peer="g1")
+
+        def boom(*args, **kwargs):
+            raise RuntimeError("the member mesh is gone")
+
+        group.join = boom
+        with n0.lock:
+            reps[0].put_batch([3, 5], [33, 55])
+        failed = n0.run_round()
+        fallbacks = fb.value(reason="RuntimeError", node="g0",
+                             peer="g1") - before
+        check(failed == {"g1": "ok", "r0": "ok"} and fallbacks >= 1
+              and p1.last_attempt != "collective" and reps[1].get(5) == 55,
+              f"path I: the forced failure: {failed}, {fallbacks} counted, "
+              f"{p1.last_attempt}")
+        rng = np.random.default_rng(77)
+        loop = []
+        wire0 = far.stats.bytes_sent + far.stats.bytes_received
+        for _ in range(I_LOOPBACK):
+            slots = rng.choice(N_SLOTS, I_ROUND_ROWS, replace=False)
+            with n0.lock:
+                reps[0].put_batch(slots, slots % 1000)
+            t0 = time.perf_counter()
+            check(n0.sync_peer("r0") == "ok", "path I: a loopback round")
+            loop.append(time.perf_counter() - t0)
+        loop.sort()
+        loop_s = loop[len(loop) // 2]
+    finally:
+        for n in nodes:
+            n.stop()
+    print(f"  path I loopback packed round {loop_s:.6f} s vs the "
+          f"collective join {join_s:.6f} s (median, 4 members)")
+    return dict(fallbacks=fallbacks, loopback_round_s=loop_s,
+                loopback_bytes_a_round=(far.stats.bytes_sent
+                                        + far.stats.bytes_received
+                                        - wire0) / I_LOOPBACK,
+                collective_speedup_vs_loopback=loop_s / join_s)
+
+
+def path_i(card: str) -> dict:
+    """The general-key backend, SQLite and the group join (module doc)."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    obs_device.reset()
+    steps: dict = {}
+    tpu, tpu_row = i_tpu_map(steps)
+    lite = i_sqlite(tpu, steps)
+    del tpu
+    group = i_collective(steps)
+    gossip = i_gossip(steps, group["join_s_median"])
+    torch.cuda.synchronize()
+    launches = obs_device.launches()
+    check(launches["ingest_scatter"] > 0 and all(
+        v == 0 for k, v in launches.items() if k != "ingest_scatter"),
+          f"path I: launches {launches}")
+    held_s = time.perf_counter() - t0
+    print(f"  path I held {held_s:.2f} s (card and host twins)")
+    return dict(card=card, n_slots=N_SLOTS, tpu_map=tpu_row, sqlite=lite,
+                collective=group, gossip=gossip, steps=steps,
+                launches=launches, ops=obs_device.op_launches(),
+                held_s=held_s)
+
+
 LOOPS = 48                       # the probe CLI's --loops
 STREAM_REPEATS = 64              # bench.py's --repeats
 
@@ -3491,6 +3941,13 @@ def main() -> int:
           "through the C codec, a three-node gossip sweep through a fault "
           "proxy, the metrics and debug-dump ops) equals the host twins, "
           "frame for frame")
+    general = path_i(card)
+    print("phase 3: path I (TpuMapCrdt at 2^20 keys against merge_step on "
+          "its mirror, SqliteCrdt through sync_json and a reopen, the "
+          "four-member group join over 32 rounds, a 65,536-row round "
+          "against pairwise sync_packed and a typed round, the gossip "
+          "collective lane and its counted fallback) equals the host "
+          "twins, one join call a round")
     probes = path_d(card, results)
     print(f"phase 3: path D (the probe entry point's seven variants, the "
           f"distinct and stream rows) ran; P2 "
@@ -3509,6 +3966,9 @@ def main() -> int:
     # rounds' merge_split on both ends).
     for name in ("fanin_split", "ingest_scatter"):
         results[name]["launches"] += wire["launches"][name]
+    # Path I's members and replicas are seeded by K2 flushes.
+    results["ingest_scatter"]["launches"] += \
+        general["launches"]["ingest_scatter"]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3518,7 +3978,7 @@ def main() -> int:
     record = dict(card=card, build_s=build_s, main_path=path,
                   path_a=interchange, path_b=stream, path_c=sharded,
                   path_d=probes, path_e=gossip, path_f=storage,
-                  path_g=typed, path_h=wire,
+                  path_g=typed, path_h=wire, path_i=general,
                   kernel_detail=results, torch=torch.__version__,
                   held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -3533,6 +3993,7 @@ def main() -> int:
     print(json.dumps({"path_f": storage}))
     print(json.dumps({"path_g": typed}, default=str))
     print(json.dumps({"path_h": wire}, default=str))
+    print(json.dumps({"path_i": general}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

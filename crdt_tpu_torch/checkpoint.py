@@ -204,6 +204,16 @@ def load_dense(path: str, device=None) -> DenseStore:
     return load_dense_with_node_ids(path, device)[0]
 
 
+def load_dense_node_ids(path: str) -> Optional[list]:
+    """The node-id table a snapshot's ordinal lanes index into, or None
+    for a lane-only snapshot; reads no lanes onto any device."""
+    with np.load(path) as z:
+        _validated_npz(z, path)
+        if "node_ids" not in z:
+            return None
+        return json.loads(str(z["node_ids"]))
+
+
 def load_dense_digest(path: str) -> Optional[tuple]:
     """The persisted digest tree and its key, ``(DigestTree,
     logical_time, sem_version)``, or None for a snapshot saved without

@@ -183,7 +183,8 @@ def _check_lane_millis(millis: int) -> None:
 def decode_columns(json_str: str,
                    key_decoder: Optional[KeyDecoder] = None,
                    value_decoder: Optional[ValueDecoder] = None,
-                   node_id_decoder: Optional[NodeIdDecoder] = None):
+                   node_id_decoder: Optional[NodeIdDecoder] = None,
+                   with_hlc_strs: bool = False):
     """Wire JSON -> columnar ``(keys, lt, node_ids, values)``: ``lt`` an
     int64 array of packed logical times, the rest lists aligned with
     it. Semantics match :func:`decode` minus the ``modified`` stamp,
@@ -192,12 +193,20 @@ def decode_columns(json_str: str,
     keeps its first position and its last record, as the JSON object's
     dict does; ``value_decoder`` sees the raw wire key. The C codec's
     one-pass scan serves the canonical wire shape; anything it does
-    not model exactly takes ``json.loads``."""
+    not model exactly takes ``json.loads``.
+
+    ``with_hlc_strs`` appends a fifth column: each record's canonical
+    wire hlc string (byte-equal to what ``str(hlc)`` re-derives), or
+    None where only a normalizing parse was possible; a backend that
+    stores hlc strings (`SqliteCrdt`) re-formats only the None ones."""
     codec = native.load()
     if codec is not None:
-        scanned = codec.parse_wire(json_str, False)
+        scanned = codec.parse_wire(json_str, with_hlc_strs)
         if scanned is not None:
-            keys, lt_buf, nodes, values, bad = scanned
+            if with_hlc_strs:
+                keys, lt_buf, nodes, values, bad, hlc_strs = scanned
+            else:
+                keys, lt_buf, nodes, values, bad = scanned
             # bytearray buffer -> writable int64 view, zero copies
             lt = np.frombuffer(lt_buf, np.int64)
             for i in bad:
@@ -213,6 +222,8 @@ def decode_columns(json_str: str,
                           for k, v in zip(keys, values)]
             if key_decoder is not None:
                 keys = [key_decoder(k) for k in keys]
+            if with_hlc_strs:
+                return keys, lt, nodes, values, hlc_strs
             return keys, lt, nodes, values
     items = list(json.loads(json_str).items())
     m = len(items)
@@ -249,6 +260,14 @@ def decode_columns(json_str: str,
     else:
         values = [None if (raw_v := v.get("value")) is None
                   else value_decoder(k, raw_v) for k, v in items]
+    if with_hlc_strs:
+        # Raw strings only where the batch parser certified the
+        # canonical shape and the counter hex is uppercase (raw == what
+        # str(hlc)'s %04X re-derives); None asks the caller to format.
+        out_strs = [s if millis_l is not None and millis_l[i] is not None
+                    and s[25:29] == s[25:29].upper() else None
+                    for i, s in enumerate(hlc_strs)]
+        return keys, lt, nodes, values, out_strs
     return keys, lt, nodes, values
 
 

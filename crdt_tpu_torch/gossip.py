@@ -2,10 +2,9 @@
 
 Port of ``crdt_tpu/gossip.py``, over this package's `net` (the same
 frames as the JAX package's, so a torch node and a JAX node gossip
-with each other). Not ported yet: the pod-local collective lane
-(``group=``, `GossipNode.attach_group`), which needs the collective
-group join (ROADMAP A9); a node given a group raises
-``NotImplementedError``.
+with each other), with its pod-local collective lane: a node given a
+`collective.CollectiveGroup` (``group=`` or `GossipNode.attach_group`)
+converges the peers the group declares through one group join.
 
 The reference's replication story assumes a cooperative, always-up
 peer — its example mocks the remote with a function returning a JSON
@@ -74,10 +73,6 @@ from .obs.registry import default_registry
 from .obs.trace import tracer
 from .utils.concurrency import make_lock
 from .utils.stats import PeerSyncStats
-
-_GROUP_NOT_PORTED = (
-    "the collective lane (a pod-local CollectiveGroup) needs the "
-    "collective group join, which is not ported yet (ROADMAP A9)")
 
 
 @dataclass(frozen=True)
@@ -187,7 +182,8 @@ class Peer:
                  breaker: CircuitBreaker,
                  stats: PeerSyncStats,
                  watermark: Optional[Hlc] = None,
-                 timeout: float = 30.0):
+                 timeout: float = 30.0,
+                 collective: bool = False):
         if mode not in _MODES:
             raise ValueError(f"unknown wire mode {mode!r}")
         self.name = name
@@ -200,6 +196,11 @@ class Peer:
         self.watermark = watermark
         self.last_error: Optional[Exception] = None
         self.last_attempt = mode      # wire form of the newest round
+        # Mesh-co-located (this node's CollectiveGroup declares the
+        # peer's address): rounds ride the group join, not a socket
+        # (docs/COLLECTIVE.md). ``mode`` stays the negotiated socket
+        # ladder, the fallback when a join fails.
+        self.collective = collective
 
     @property
     def dense(self) -> bool:
@@ -295,9 +296,16 @@ class GossipNode:
                  sleep: Callable[[float], None] = time.sleep,
                  group=None,
                  **server_kwargs):
-        if group is not None:
-            raise NotImplementedError(_GROUP_NOT_PORTED)
+        if group is not None and not group.contains(crdt):
+            raise ValueError(
+                "collective group does not contain this node's "
+                "replica — declare membership with the live replica "
+                "object, not a copy")
         self.crdt = crdt
+        # Pod-local replica group (collective.CollectiveGroup): peers
+        # whose address the group declares skip sockets entirely and
+        # converge through the group join.
+        self._group = group
         self.retry = retry or RetryPolicy()
         self.breaker_policy = breaker or BreakerPolicy()
         # Dense binary wire form only when the local replica speaks it.
@@ -398,6 +406,12 @@ class GossipNode:
                 self.prefer_dense if dense is None else dense)
         stats = PeerSyncStats().register(
             node=str(self.crdt.node_id), peer=name)
+        # Topology detection: an address the local CollectiveGroup
+        # declares is a mesh-co-located member; its rounds take the
+        # collective lane, and `mode` stays negotiated as the fallback.
+        collective = (self._group is not None
+                      and f"{host}:{port}"
+                      in self._group.member_addresses())
         peer = Peer(
             name, host, port,
             mode=mode,
@@ -406,7 +420,8 @@ class GossipNode:
                                    name=name),
             stats=stats,
             watermark=self._saved_marks.get(name),
-            timeout=self.round_timeout)
+            timeout=self.round_timeout,
+            collective=collective)
         with self._peers_lock:
             old = self.peers.get(name)
             self.peers[name] = peer
@@ -482,6 +497,17 @@ class GossipNode:
                      if n in self.peers}
         fast: List[str] = []
         results: Dict[str, str] = {}
+        # Topology-aware fast lane first: every mesh-co-located peer in
+        # this sweep converges through ONE group join (zero wire
+        # bytes); only on a failed join do those peers rerun below on
+        # the socket ladder, counted, never silently.
+        co = [n for n in names
+              if peers[n].collective and self._group is not None]
+        if co:
+            done = self._collective_sweep(co, peers)
+            if done is not None:
+                results.update(done)
+                names = [n for n in names if n not in done]
         for name in names:
             p = peers[name]
             # A merkle peer WITH a watermark runs the same packed
@@ -567,6 +593,14 @@ class GossipNode:
                    _prepacked: Optional[Tuple] = None) -> str:
         with self._peers_lock:
             peer = self.peers[name]
+        # Co-located peer: the collective lane, checked BEFORE the
+        # breaker, which guards the peer's socket; the group join never
+        # touches it. A failed join is counted as a fallback and the
+        # round reruns on the ladder below.
+        if peer.collective and self._group is not None:
+            done = self._collective_sweep([name], {name: peer})
+            if done is not None:
+                return done[name]
         if not peer.breaker.allow():
             peer.stats.skipped += 1
             return "skipped"
@@ -627,6 +661,66 @@ class GossipNode:
             peer.watermark = mark
             self._persist()
             return "ok"
+
+    def _collective_sweep(self, names: List[str],
+                          peers: Dict[str, Peer]
+                          ) -> Optional[Dict[str, str]]:
+        """One group join converges EVERY co-located member, so a sweep
+        charges all its collective peers to a single join
+        (docs/COLLECTIVE.md). Returns per-peer outcomes, or ``None``
+        when the join failed: the downgrade is counted per peer in
+        ``crdt_tpu_collective_fallback_total`` (a co-located round
+        landing on sockets is a topology regression someone must see)
+        and the caller reruns those peers on the socket ladder."""
+        group = self._group
+        with self.server.lock:
+            drain = getattr(self.crdt, "drain_ingest", None)
+            if drain is not None:
+                drain()
+            # The pre-join canonical: exactly the `since` the join seeds
+            # each member's pack cache under, so a later socket round (a
+            # member left the mesh) delta-packs from a warm hit instead
+            # of a full re-pull.
+            watermark = self.crdt.canonical_time
+        start = time.perf_counter()
+        try:
+            with self.server.lock:
+                group.join()
+        except Exception as e:
+            fb = default_registry().counter(
+                "crdt_tpu_collective_fallback_total",
+                "co-located rounds downgraded from the collective "
+                "lane to the socket path, by reason")
+            for name in names:
+                p = peers[name]
+                p.stats.fallbacks += 1
+                p.last_error = e
+                fb.inc(reason=type(e).__name__,
+                       node=str(self.crdt.node_id), peer=name)
+            return None
+        dur = time.perf_counter() - start
+        with self.server.lock:
+            stamp = str(self.crdt.canonical_time)
+        ring = tracer()
+        hist = default_registry().histogram(
+            "crdt_tpu_gossip_round_seconds",
+            "anti-entropy round wall time, retries included")
+        results: Dict[str, str] = {}
+        for name in names:
+            p = peers[name]
+            p.last_attempt = "collective"
+            p.stats.rounds_ok += 1
+            p.stats.delta_pulls += 1
+            p.last_error = None
+            p.breaker.record_success()
+            p.watermark = watermark
+            results[name] = "ok"
+            if ring.enabled:
+                ring.emit("gossip_round", hlc=stamp, peer=name,
+                          outcome="ok", dur_s=dur, lane="collective")
+            hist.observe(dur, peer=name, outcome="ok")
+        self._persist()
+        return results
 
     def _one_round(self, peer: Peer,
                    prepacked: Optional[Tuple] = None) -> Hlc:
@@ -835,12 +929,22 @@ class GossipNode:
                                       drift_slack_ms=drift_slack_ms)
 
     def attach_group(self, group) -> None:
-        """Declare this node's pod-local replica group. Not ported yet:
-        the collective lane needs the collective group join (ROADMAP
-        A9), so any group raises ``NotImplementedError``; ``None``
-        (detach) is accepted and changes nothing."""
-        if group is not None:
-            raise NotImplementedError(_GROUP_NOT_PORTED)
+        """Declare (or replace, or with ``None`` detach) this node's
+        pod-local replica group after construction, the usual order,
+        since member server ports are only known once every node has
+        started. Registered peers are re-scanned for co-location, so
+        `add_peer` order relative to this call does not matter."""
+        if group is not None and not group.contains(self.crdt):
+            raise ValueError(
+                "collective group does not contain this node's "
+                "replica — declare membership with the live replica "
+                "object, not a copy")
+        self._group = group
+        addrs = (frozenset() if group is None
+                 else group.member_addresses())
+        with self._peers_lock:
+            for p in self.peers.values():
+                p.collective = f"{p.host}:{p.port}" in addrs
 
     def attach_router(self, router) -> None:
         """Bind a `routing.PartitionRouter` so this node's metrics op

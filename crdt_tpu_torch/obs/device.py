@@ -13,10 +13,13 @@ blocks, once per device per merge. The four kernel probes (`ops.probe`)
 count under their source names.
 
 `OPS` counts, beside them, the plain-torch ops of the anti-entropy and
-storage plane and of the typed joins (the JAX package runs them through
+storage plane, of the typed joins, of the general-key `ops.merge.Store`
+and of the collective group join (the JAX package runs them through
 XLA, not Pallas, and no hand kernel replaces them): each digest-tree
-build, range delta mask, GC purge and compaction remap, and each typed
-wire, sparse and fan-in join step, on any device. A cached
+build, range delta mask, GC purge and compaction remap, each typed
+wire, sparse and fan-in join step, each `merge_step`, `scatter_put`,
+`max_logical_time` and `delta_mask`, and each group join
+(``parallel.collective_join``), on any device. A cached
 ``digest_tree()`` counts nothing, which is how a run shows that a tree
 came from the cache.
 """
@@ -31,7 +34,8 @@ KERNELS = ("fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream",
 
 OPS = ("digest_tree", "range_delta_mask", "gc_purge", "compact_remap",
        "typed_wire_join_step", "typed_sparse_join_step",
-       "typed_fanin_step")
+       "typed_fanin_step", "merge_step", "scatter_put",
+       "max_logical_time", "delta_mask", "parallel.collective_join")
 
 _LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _OPS: Dict[str, int] = dict.fromkeys(OPS, 0)

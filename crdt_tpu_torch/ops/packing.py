@@ -21,7 +21,16 @@ from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..hlc import Hlc
+from ..hlc import MAX_COUNTER, SHIFT, Hlc
+
+
+def pack_logical_time(millis: int, counter: int) -> int:
+    """(millis, counter) -> int64 logicalTime (hlc.dart:16)."""
+    return (millis << SHIFT) + counter
+
+
+def unpack_logical_time(lt: int) -> Tuple[int, int]:
+    return lt >> SHIFT, lt & MAX_COUNTER
 
 
 class NodeTable:
@@ -115,6 +124,17 @@ class PackedDelta(NamedTuple):
     @property
     def nbytes(self) -> int:
         return sum(lane.nbytes for lane in self if lane is not None)
+
+
+def arena_of(lane: np.ndarray):
+    """Walk a lane view's base chain to its owning allocation: the one
+    uint8 arena for the lanes `pack_into_arena` produced, so a test can
+    prove that every lane of a delta, and `pack_rows`' memoryviews,
+    share that storage (no copy between pack and frame)."""
+    a = lane
+    while getattr(a, "base", None) is not None:
+        a = a.base
+    return a
 
 
 def pack_into_arena(slots: np.ndarray, lt: np.ndarray, node: np.ndarray,

@@ -1,10 +1,12 @@
 """Multi-device parallelism: replica fan-in and key-space sharding over a
 mesh of torch devices. See `crdt_tpu_torch.parallel.fanin` for the
 design; it also holds the sharded digest tree and compaction, and the
-typed fan-in of a sharded store with typed slots. The
-collective group join of the JAX package
-(``crdt_tpu/parallel/collective.py``) is not ported yet."""
+typed fan-in of a sharded store with typed slots.
+`crdt_tpu_torch.parallel.collective` holds the pod-local group join
+over a 1-D member mesh."""
 
+from .collective import (MEMBER_AXIS, CollectiveJoinResult,
+                         make_collective_join, make_collective_mesh)
 from .fanin import (KEY_AXIS, REPLICA_AXIS, SLICE_AXIS, FaninMesh,
                     ShardedChangeset, ShardedFaninResult, ShardedStore,
                     gather_lane, gather_store, make_fanin_mesh,
@@ -16,7 +18,8 @@ from .fanin import (KEY_AXIS, REPLICA_AXIS, SLICE_AXIS, FaninMesh,
                     sharded_max_logical_time)
 
 __all__ = [
-    "KEY_AXIS", "REPLICA_AXIS", "SLICE_AXIS", "FaninMesh",
+    "KEY_AXIS", "MEMBER_AXIS", "REPLICA_AXIS", "SLICE_AXIS", "FaninMesh",
+    "CollectiveJoinResult", "make_collective_join", "make_collective_mesh",
     "ShardedChangeset", "ShardedFaninResult", "ShardedStore",
     "gather_lane", "gather_store", "make_fanin_mesh",
     "make_multislice_fanin_mesh", "make_sharded_fanin",

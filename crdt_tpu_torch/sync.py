@@ -17,9 +17,11 @@ JSON, `PackedDelta` bytes and digest trees):
   ``pack_since(ranges=...)`` both ways; traffic follows divergence, not
   store size. It returns a :class:`MerkleSyncReport`.
 
+- :func:`sync_collective`: one round over a whole co-located replica
+  group (`collective.CollectiveGroup`) as a single group join.
+
 The socket forms are `crdt_tpu_torch.net`'s ``sync_*_over_conn`` and
-``sync_*_over_tcp``; the collective group round waits for the group
-join (ROADMAP A9).
+``sync_*_over_tcp``.
 """
 
 from __future__ import annotations
@@ -119,6 +121,22 @@ def sync_packed(local, remote, since=_SAME_ROUND) -> Hlc:
         if pulled.k:
             _pull(local, pulled, pulled_ids, watermark, sem_ok)
     return watermark
+
+
+def sync_collective(group):
+    """One anti-entropy round over a whole co-located replica group as a
+    SINGLE group join: the in-process twin of the gossip fast lane's
+    collective round, for benches and tests that want the group shape
+    without a `GossipNode`.
+
+    Where :func:`sync_packed` converges one replica pair per call (N
+    replicas need O(N^2) rounds through a connected topology), one
+    ``sync_collective(group)`` call lands every member of the
+    `crdt_tpu_torch.collective.CollectiveGroup` on the joined state at
+    once: zero bytes to any wire, pack and digest caches seeded
+    (docs/COLLECTIVE.md). Returns the group's `CollectiveJoinReport`;
+    the join carries its own ``collective_join`` span."""
+    return group.join()
 
 
 class MerkleSyncReport:

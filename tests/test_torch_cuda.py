@@ -674,9 +674,8 @@ def test_storage_plane_on_card_matches_host(cuda):
         if device is cuda:
             assert obs_device.launches()["fanin_batch"] == 1
         assert obs_device.op_launches() == dict(
-            digest_tree=2, range_delta_mask=2, gc_purge=1, compact_remap=1,
-            typed_wire_join_step=0, typed_sparse_join_step=0,
-            typed_fanin_step=0)
+            dict.fromkeys(obs_device.OPS, 0), digest_tree=2,
+            range_delta_mask=2, gc_purge=1, compact_remap=1)
     a, b = runs
     assert a["purged"] >= 8 and (a["translation"][8:16] == -1).all()
     # The seeded tree equals the fresh one.
@@ -892,3 +891,87 @@ def test_sync_server_on_card_matches_a_host_pair(cuda, mode, n):
         for x, y in zip(got.store, want.store):
             assert torch.equal(x.cpu(), y)
         assert str(got.canonical_time) == str(want.canonical_time)
+
+
+# --- the general-key store and the group join on the card ----------------------
+
+
+@pytest.mark.parametrize("cap,m", [(1000, 300), (37, 20), (4097, 64)])
+def test_merge_step_on_card_matches_host(cuda, cap, m):
+    from crdt_tpu_torch.ops import merge as tm
+    rng = np.random.default_rng(cap)
+    occ = rng.random(cap) < 0.5
+    lanes = {"lt": np.where(occ, BASE + rng.integers(0, 50, cap), 0),
+             "node": np.where(occ, rng.integers(0, 4, cap), 0)
+             .astype(np.int32),
+             "mod_lt": np.where(occ, BASE, 0),
+             "mod_node": np.zeros(cap, np.int32), "occupied": occ,
+             "tomb": occ & (rng.random(cap) < 0.2)}
+    slots = rng.choice(cap, m, replace=False) - cap * (rng.random(m) < 0.5)
+    slots = np.concatenate([slots, [cap, cap + 7, -cap - 1]]).astype(np.int32)
+    n = len(slots)
+    cs = {"slot": slots, "lt": BASE + rng.integers(0, 50, n),
+          "node": rng.integers(1, 4, n).astype(np.int32),
+          "tomb": rng.random(n) < 0.3, "valid": rng.random(n) < 0.9}
+    outs = []
+    for dev in ("cpu", cuda):
+        st = tm.Store(**{f: torch.tensor(v, device=dev)
+                         for f, v in lanes.items()})
+        c = tm.Changeset(**{f: torch.tensor(v, device=dev)
+                            for f, v in cs.items()})
+        new, res = tm.merge_step(st, c, BASE + 20, 0, (BASE >> 16) + 30)
+        put = tm.scatter_put(st, c, BASE + 99, 2)
+        outs.append([x.cpu() for x in (*new, *res, *put,
+                                      tm.max_logical_time(new),
+                                      tm.delta_mask(new, BASE + 20))])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_tpu_map_crdt_mirror_lands_on_the_card(cuda):
+    from crdt_tpu_torch.ops import merge as tm
+    c = port.TpuMapCrdt("n")
+    assert c.device.type == "cuda"
+    c.put_all({f"k{i}": i for i in range(100)})
+    s = c.store
+    assert all(lane.device.type == "cuda" for lane in s)
+    assert int(tm.max_logical_time(s)) == int(c._lanes.lt.max())
+    s.lt.zero_()                              # a copy, not the shadow
+    assert c._lanes.lt.max() > 0
+
+
+def test_two_member_group_on_a_repeated_card_matches_host(cuda):
+    from crdt_tpu_torch.collective import CollectiveGroup
+    from crdt_tpu_torch.parallel import make_collective_mesh
+    out = []
+    for dev, mesh in (("cpu", None), (cuda, make_collective_mesh(2))):
+        ticks = [iter(range(1_700_000_000_000, 1_700_000_001_000))
+                 for _ in range(2)]
+        reps = [port.DenseCrdt(name, 4097, device=dev,
+                               wall_clock=t.__next__)
+                for name, t in zip("ab", ticks)]
+        rng = np.random.default_rng(3)
+        for c in reps:
+            c.set_semantics([0, 1], "gcounter")
+            c.set_semantics([2], "mvreg")
+            slots = rng.choice(np.arange(3, 4097), 500, replace=False)
+            c.put_batch(slots, rng.integers(0, 2 ** 40, 500))
+            c.delete_batch(slots[:20])
+            c.counter_add(0, 5)
+            c.mvreg_put(2, int(rng.integers(1, 99)))
+        group = CollectiveGroup(reps, mesh=mesh)
+        obs_device.reset()
+        rep = group.join()
+        assert obs_device.op_launches()["parallel.collective_join"] == 1
+        out.append((rep, reps))
+    (hr, hreps), (cr, creps) = out
+    assert (hr.new_canonical, hr.win_counts, hr.digest_root) == \
+        (cr.new_canonical, cr.win_counts, cr.digest_root)
+    for h, c in zip(hreps, creps):
+        assert all(lane.device.type == "cuda" for lane in c.store)
+        for x, y in zip(h.store, c.store):
+            assert torch.equal(x, y.cpu())
+        (hk, hv), = h._pack_cache.items()
+        (ck, cv), = c._pack_cache.items()
+        assert [a.tobytes() for a in hv[0] if a is not None] == \
+            [a.tobytes() for a in cv[0] if a is not None]

@@ -18,7 +18,7 @@ package's (`crdt_tpu.gossip`), on the CPU over loopback sockets:
 - convergence with a JAX peer through the port's seeded `FaultProxy`,
   whose fault draws equal the JAX proxy's;
 - the pipelined sweep, the lag / health / stability snapshots, GC and
-  the canary, and the collective lane's refusal (ROADMAP A9).
+  the canary (`test_torch_collective.py` holds the collective lane).
 
 Every socket binds port 0; nothing asserts an upper bound on elapsed
 time; every node is closed by a context manager.
@@ -136,16 +136,6 @@ def breaker_trace(g):
 
 def test_breaker_transitions_match_jax():
     assert breaker_trace(pgossip) == breaker_trace(jgossip)
-
-
-def test_collective_group_is_refused():
-    c = dense("port", "a", 64)
-    with pytest.raises(NotImplementedError, match="A9"):
-        pgossip.GossipNode(c, group=object())
-    with node("port", c) as n:
-        with pytest.raises(NotImplementedError, match="A9"):
-            n.attach_group(object())
-        n.attach_group(None)
 
 
 # --- the wire ladder against JAX peers ------------------------------------------

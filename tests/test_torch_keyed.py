@@ -2,11 +2,10 @@
 `MapCrdt`, `KeyedDenseCrdt`, the ``sync`` / ``sync_json`` rounds and the
 JSON and gossip-state checkpoints) against ``crdt_tpu`` on the CPU:
 
-- ``CrdtConformance`` (``crdt_tpu/testing.py``) on the port's `MapCrdt`
-  and on `KeyedDenseCrdt` over the port's `DenseCrdt` and
-  `ShardedDenseCrdt`; the kit builds its records from ``crdt_tpu``'s
-  ``Hlc`` and ``Record``, which this file swaps for the port's while
-  each of its tests runs;
+- the port's ``CrdtConformance`` (``crdt_tpu_torch/testing.py``, over
+  the port's own ``Hlc`` and ``Record``) on the port's `MapCrdt` and on
+  `KeyedDenseCrdt` over the port's `DenseCrdt` and `ShardedDenseCrdt`,
+  and a check that it defines the JAX kit's tests;
 - the same op script on each package's replica: ``to_json`` bytes,
   record maps, watch events and clocks equal, typed keys included;
 - ``sync`` and ``sync_json`` between a port replica and a JAX replica in
@@ -24,7 +23,9 @@ import pytest
 import crdt_tpu
 import crdt_tpu_torch as port
 from crdt_tpu import checkpoint as jax_ckpt
-from crdt_tpu.testing import CrdtConformance, FakeClock
+from crdt_tpu import testing as jax_testing
+from crdt_tpu.testing import FakeClock
+from crdt_tpu_torch import testing as port_testing
 from crdt_tpu_torch import checkpoint as port_ckpt
 from crdt_tpu_torch.obs import device as obs_device
 
@@ -40,13 +41,14 @@ BASE = 1_700_000_000_000
 PKGS = {"jax": crdt_tpu, "port": port}
 
 
-class PortKit(CrdtConformance):
-    """The conformance kit with the port's record types."""
+PortKit = port_testing.CrdtConformance
 
-    @pytest.fixture(autouse=True)
-    def _port_records(self, monkeypatch):
-        monkeypatch.setattr(crdt_tpu, "Hlc", port.Hlc)
-        monkeypatch.setattr(crdt_tpu, "Record", port.Record)
+
+def test_port_kit_defines_the_jax_kits_tests():
+    for kit in ("CrdtConformance", "SemanticsConformance"):
+        names = [{n for n in dir(getattr(m, kit)) if n.startswith("test_")}
+                 for m in (jax_testing, port_testing)]
+        assert names[0] == names[1], kit
 
 
 class TestPortMapConformance(PortKit):

@@ -182,26 +182,40 @@ def test_trace_ring_matches_jax(tmp_path):
         trace_script(jtrace, tmp_path, "j")
 
 
+def span_count(reg):
+    hist = reg.default_registry().histogram("crdt_tpu_span_seconds")
+    return sum(s["count"] for s in hist.samples()
+               if s["labels"] == {"span": "torch_obs_test_span"})
+
+
 def test_span_and_round_id_match_jax():
+    """Each ring's ``seq`` and the span histogram's count are process
+    counters that other test files in the same worker may have moved
+    (`TraceRing.clear` keeps ``seq`` in both packages), so each is read
+    relative to its own value just before the span: ``seq`` against a
+    marker event emitted first, the count as a delta."""
     out = []
     for mod, reg in ((jtrace, jregistry), (ptrace, pregistry)):
         ring = mod.tracer()
         ring.clear()
         ring.enable()
+        count0 = span_count(reg)
         try:
+            ring.emit("torch_obs_test_marker")
+            (marker,) = ring.events("torch_obs_test_marker")
             with mod.span("torch_obs_test_span", kind="merge", hlc="h",
                           node="n"):
                 pass
             rid = mod.round_id("node")
         finally:
             ring.disable()
-        hist = reg.default_registry().histogram("crdt_tpu_span_seconds")
-        count = [s["count"] for s in hist.samples()
-                 if s["labels"] == {"span": "torch_obs_test_span"}]
-        out.append((strip_times(ring.events("merge")), rid.split(".")[0],
-                    rid.split(".")[1][0], mod.round_id(None)[0], count))
+        events = [dict(e, seq=e["seq"] - marker["seq"])
+                  for e in strip_times(ring.events("merge"))]
+        out.append((events, rid.split(".")[0], rid.split(".")[1][0],
+                    mod.round_id(None)[0], span_count(reg) - count0))
     assert out[0] == out[1]
     assert out[1][0][0]["span"] == "torch_obs_test_span"
+    assert out[1][0][0]["seq"] == 1 and out[1][4] == 1
 
 
 # --- lag, health, recorder -----------------------------------------------------

@@ -251,8 +251,12 @@ def test_launch_counters_and_build_paths():
         "fanin_batch_sharded"}
     # The AST import check above covers every module of the port.
     assert {"split.py", "stream_kernel.py", "fanin_kernel.py",
-            "fanin.py", "probe.py", "probe_kernel.py", "data.py"} <= {
-        p.name for p in PORT_FILES}
+            "fanin.py", "probe.py", "probe_kernel.py", "data.py",
+            "merge.py", "tpu_map_crdt.py", "sqlite_crdt.py", "testing.py",
+            "collective.py"} <= {p.name for p in PORT_FILES}
+    assert {"crdt_tpu_torch/collective.py",
+            "crdt_tpu_torch/parallel/collective.py"} <= {
+        str(p.relative_to(ROOT)) for p in PORT_FILES}
 
 
 def test_cpu_wrappers_of_every_kernel_launch_nothing():
@@ -286,3 +290,66 @@ def test_cpu_wrappers_of_every_kernel_launch_nothing():
     assert (s.get(1), s.get(2), s.get(40)) == (10, 20, 400)
     # From chunk 1 on the replayed records beat their own store slots.
     assert d.get(5) == 50 and int(res.win.sum()) == 3
+
+
+# The JAX package's exports the port does not carry yet (ROADMAP A10 and
+# A11: the serving tier, routing, federation, autoscaling and
+# replication), the Pallas entries of its ops (the port's kernels are in
+# csrc/, behind the same ops), and the port's own module exports.
+JAX_ONLY = {
+    "crdt_tpu": {"ServeTier", "RoutingTable", "PartitionRouter",
+                 "FederatedTier", "FederatedClient", "Autoscaler",
+                 "ReplicaGroup", "Replicator"},
+    "crdt_tpu.ops": {"SplitStore", "SplitChangeset", "PallasFaninResult",
+                     "pallas_fanin_batch", "pallas_fanin_step",
+                     "pallas_fanin_stream", "split_store",
+                     "split_changeset", "join_store", "tile_changeset",
+                     "model_fanin_split", "pad_split_rows", "split_to_wide",
+                     "TILE"},
+    "crdt_tpu.utils": set(),
+}
+PORT_ONLY = {"crdt_tpu": {"parallel", "semantics"}}
+
+
+@pytest.mark.parametrize("name", sorted(JAX_ONLY))
+def test_exports_match_jax_but_the_named_entries(name):
+    import importlib
+    jax_mod = importlib.import_module(name)
+    port_mod = importlib.import_module(name.replace("crdt_tpu",
+                                                    "crdt_tpu_torch", 1))
+    jax_all = [n for n in jax_mod.__all__ if n not in JAX_ONLY[name]]
+    port_all = [n for n in port_mod.__all__
+                if n not in PORT_ONLY.get(name, ())]
+    assert sorted(jax_all) == sorted(port_all)
+    assert len(set(port_all)) == len(port_all)
+    for n in port_mod.__all__:
+        assert hasattr(port_mod, n), n
+    assert JAX_ONLY[name] <= set(jax_mod.__all__)
+
+
+def test_host_layer_leftovers_match_jax(tmp_path):
+    """`pack_logical_time` / `unpack_logical_time`, `arena_of`,
+    `checkpoint.load_dense_node_ids` and the `utils` exports."""
+    from crdt_tpu import checkpoint as jax_ckpt
+    from crdt_tpu import utils as jax_utils
+    from crdt_tpu_torch import utils as port_utils
+    for ms, c in ((0, 0), (1_700_000_000_123, 0xFFFF), (5, 7)):
+        lt = port_packing.pack_logical_time(ms, c)
+        assert lt == jax_packing.pack_logical_time(ms, c)
+        assert port_packing.unpack_logical_time(lt) == \
+            jax_packing.unpack_logical_time(lt) == (ms, c)
+    c = port.DenseCrdt("n0", 64, device="cpu", wall_clock=FakeClock())
+    c.put_batch([1, 5, 9], [10, 50, 90])
+    packed, _ = c.pack_since()
+    arena = port_packing.arena_of(packed.lt)
+    assert all(port_packing.arena_of(lane) is arena for lane in packed
+               if lane is not None)
+    path = str(tmp_path / "s.npz")
+    c.save(path)
+    assert port_ckpt.load_dense_node_ids(path) == \
+        jax_ckpt.load_dense_node_ids(path) == ["n0"]
+    lanes = str(tmp_path / "lanes.npz")
+    port_ckpt.save_dense(td.empty_dense_store(8, "cpu"), lanes)
+    assert port_ckpt.load_dense_node_ids(lanes) is None
+    assert port_utils.__all__ == jax_utils.__all__
+    assert port.KeyDecoder is port.record.KeyDecoder
