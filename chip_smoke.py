@@ -162,6 +162,27 @@ Phases, in order; any failure raises and exits non-zero:
      over the socket, a forced join failure counted in
      ``crdt_tpu_collective_fallback_total``, then loopback packed rounds
      beside the join's time;
+   - path J, the serving plane over card ``DenseCrdt`` s at 2^20 slots,
+     each step held against the host: one ``ServeTier`` under
+     ``bench.py``'s ``bench_serve`` load (10,000 sessions at 1 op/s
+     each, seated to the descriptor limit, framed JSON ``put`` s from a
+     client fleet in its own process, ``tests/torch_serve_fleet.py``;
+     then the binop lane on 1,000 sessions; warmup 2 s and window 5 s,
+     cut from 3 and 10), every slot against the host fold of the acked
+     writes and a sample read back with ``get``, one K2 launch and one
+     ``pallas.ingest_scatter_tiles`` ledger record per flush; the
+     scripted conversation of ``tests/torch_serve_script.py`` (JSON
+     and binop ops, a refused write, packed, dense (K1s) and merkle
+     rounds, ``gc_pass``, the metrics op) against a card tier and a
+     host twin through a recording relay, frame for frame; a
+     four-partition ``FederatedTier`` under ``bench_federate``'s
+     federation-aware sessions (0.25 op/s each) through a live
+     ``split_hot`` and then a ``merge_cold`` at 40% of 5-s windows, with
+     two watch sessions kept open; a three-member ``ReplicaGroup``
+     under ``bench_failover``'s storm (8 writers x 8 slots at 100 Hz)
+     through three kills of the primary and rejoins, no acked write
+     lost and one digest root on all members; one ``Autoscaler``
+     swing, a split and a merge each fenced by its epoch;
    - path D, the probe entry point (``crdt_tpu_torch.bench``) at the JAX
      CLI's defaults: its seven variants (``full``, ``stream``,
      ``stream-noguard``, ``nojoin``, ``copy``, ``copy-batch``,
@@ -3781,6 +3802,694 @@ def path_i(card: str) -> dict:
                 held_s=held_s)
 
 
+# --- path J: the serving plane on card replicas ---
+
+J_SESSIONS = 10_000              # bench_serve's sessions, 1 op/s each
+J_RATE = 1.0
+J_WARMUP = 2.0                   # cut from bench_serve's 3 s for time
+J_DURATION = 5.0                 # cut from its 10 s for time
+J_LANE_SESSIONS = 1000           # min(sessions, 1000), as bench_serve
+J_LANE_BATCH = 16                # its lane_batch ops a binop frame
+J_LANE_RATE = 2.0                # its lane_rate frames a second
+J_LANE_WARMUP = 1.0
+J_LANE_BASE = N_SLOTS // 2       # the lane's slots, clear of the JSON ones
+J_READBACK = 256                 # acked slots read back over the wire
+J_FED_SESSIONS = 4000            # bench_federate's 100,000, capped at its
+J_FED_RATE = 0.25                # offered 1,000 ops/s (0.25 op/s each)
+J_FED_WARMUP = 1.0
+J_FED_DURATION = 5.0
+J_FED_FLIP_AT = 0.4              # the flip at 40% of the window
+J_FAILOVER = dict(replicas=3, ack_replicas=1, flush_interval=0.002,
+                  heartbeat_interval=0.03, heartbeat_timeout=0.15,
+                  lease_misses=3)            # bench_failover's defaults
+J_WRITERS, J_WRITER_SLOTS, J_WRITE_HZ, J_KILLS = 8, 8, 100.0, 3
+
+
+def j_modules():
+    """The jax-free test helpers path J drives: the open-loop client
+    fleet (its own process) and the scripted conversation."""
+    h_wire()          # puts tests/ on the path
+    import torch_serve_fleet
+    import torch_serve_script
+    return torch_serve_fleet, torch_serve_script
+
+
+def j_flushes(node: str) -> float:
+    """Write-combiner flushes of replica ``node`` so far, any trigger
+    (each is one commit of staged rows)."""
+    from crdt_tpu_torch import default_registry
+    snap = default_registry().snapshot()
+    return sum(s["value"] for s in snap["counters"].get(
+        "crdt_tpu_ingest_flush_total", [])
+        if s["labels"].get("node") == node)
+
+
+def j_phases(node: str) -> dict:
+    """p50 / p99 ms of each ack phase of ``node`` from the registry's
+    ``crdt_tpu_serve_ack_phase_seconds_sketch``."""
+    from crdt_tpu_torch import default_registry
+    from crdt_tpu_torch.obs.sketch import sketch_from_sample
+    snap = default_registry().snapshot()
+    out = {}
+    for s in snap["sketches"].get(
+            "crdt_tpu_serve_ack_phase_seconds_sketch", []):
+        if s["labels"].get("node") != node:
+            continue
+        sk = sketch_from_sample(s)
+        if sk is not None and sk.count:
+            out[s["labels"]["phase"]] = dict(
+                count=sk.count, p50_ms=sk.quantile(0.5) * 1e3,
+                p99_ms=sk.quantile(0.99) * 1e3)
+    return out
+
+
+def j_fold_equal(crdt, last: dict, what: str) -> None:
+    """Every slot of a card replica against the host fold of the acked
+    writes ``last`` (slot -> value): exactly those slots occupied, live,
+    holding their last acked value."""
+    n = crdt.n_slots
+    occ = np.zeros(n, bool)
+    val = np.zeros(n, np.int64)
+    if last:
+        slots = np.fromiter(last.keys(), np.int64, len(last))
+        occ[slots] = True
+        val[slots] = np.fromiter(last.values(), np.int64, len(last))
+    st = crdt.store
+    got_occ = st.occupied.cpu().numpy()
+    check(np.array_equal(got_occ, occ), f"{what}: occupied slots differ "
+          f"({int(got_occ.sum())} against {int(occ.sum())} acked)")
+    check(not st.tomb.cpu().numpy()[occ].any(), f"{what}: tombstones")
+    check(np.array_equal(st.val.cpu().numpy()[occ], val[occ]),
+          f"{what}: values differ from the acked writes")
+
+
+def j_get(host: str, port: int, slots) -> list:
+    """``get`` of each slot over one framed JSON session."""
+    import socket
+
+    from crdt_tpu_torch import net
+    out = []
+    with socket.create_connection((host, port), timeout=60.0) as sock:
+        for s in slots:
+            net.send_frame(sock, {"op": "get", "slot": int(s)})
+            out.append(net.recv_frame(sock, deadline=time.monotonic()
+                                      + 60.0)["value"])
+        net.send_frame(sock, {"op": "bye"})
+    return out
+
+
+def j_serve(steps: dict) -> dict:
+    """Step 1: one tier under bench_serve's open-loop load."""
+    from crdt_tpu_torch import ServeTier
+    from crdt_tpu_torch.obs.device import default_ledger
+    fleet, _ = j_modules()
+    soft = fleet.raise_fd_limit(J_SESSIONS + 1024)
+    seated = max(1, min(J_SESSIONS, soft - 1024))
+    lane_seated = min(seated, J_LANE_SESSIONS)
+    print(f"  path J serve: {J_SESSIONS} sessions requested, {seated} "
+          f"seated (fd soft limit {soft})")
+    node = "j-serve"
+    crdt = DenseCrdt(node, N_SLOTS, device="cuda")
+    led = default_ledger()
+    with ServeTier(crdt, max_sessions=seated + 64,
+                   flush_interval=0.002) as tier:
+        args = dict(host=tier.host, port=tier.port)
+        check(j_get(tier.host, tier.port, [0]) == [None], "path J warm")
+        torch.cuda.synchronize()
+        k0 = obs_device.launches()
+        led0, f0 = led.as_dict(), j_flushes(node)
+        shed0, drop0 = tier.shed_count, tier.dropped_sessions
+        out, prof = g_profiled(lambda: fleet.run(dict(
+            args, mode="serve", sessions=seated, rate=J_RATE,
+            warmup=J_WARMUP, duration=J_DURATION, base=0)))
+        f1 = j_flushes(node)
+        phases = j_phases(node)
+        lane, lane_prof = g_profiled(lambda: fleet.run(dict(
+            args, mode="lane", sessions=lane_seated, rate=J_LANE_RATE,
+            batch=J_LANE_BATCH, warmup=J_LANE_WARMUP,
+            duration=J_DURATION, base=J_LANE_BASE)))
+        last = dict(map(tuple, out["last"]))
+        last.update(map(tuple, lane["last"]))
+        rng = np.random.default_rng(5)
+        sample = rng.choice(np.fromiter(last, np.int64, len(last)),
+                            min(J_READBACK, len(last)), replace=False)
+        got = j_get(tier.host, tier.port, sample)
+        check(got == [last[int(s)] for s in sample],
+              "path J serve: a sampled acked write reads back wrong")
+        shed = tier.shed_count - shed0
+        dropped = tier.dropped_sessions - drop0
+    torch.cuda.synchronize()
+    launches = j_launches_since(k0)
+    flushes = j_flushes(node) - f0
+    ledger = {k: v - led0.get(k, 0) for k, v in led.as_dict().items()
+              if v != led0.get(k, 0)}
+    for o, what in ((out, "JSON"), (lane, "binop")):
+        c = o["counters"]
+        check(c["errors"] == 0 and c["connect_failures"] == 0,
+              f"path J serve {what}: {c}")
+    check(launches["ingest_scatter"] == flushes > 0 and all(
+        v == 0 for k, v in launches.items() if k != "ingest_scatter"),
+          f"path J serve: launches {launches} for {flushes} flushes")
+    check(ledger.get("pallas.ingest_scatter_tiles") == flushes
+          and "dense.ingest_scatter" not in ledger,
+          f"path J serve: ledger {ledger} for {flushes} flushes")
+    j_fold_equal(crdt, last, "path J serve")
+    check(shed == 0 and dropped == 0,
+          f"path J serve: shed {shed}, dropped {dropped}")
+    serve_ops = out["counters"]["acked"]
+    row = dict(requested=J_SESSIONS, seated=seated,
+               connected=out["connected"], rate_hz=J_RATE,
+               warmup_s=J_WARMUP, duration_s=J_DURATION,
+               p50_ms=out["p50_ms"], p99_ms=out["p99_ms"],
+               **j_rates(out, out["connected"] * J_RATE),
+               acked=serve_ops, ticks=f1 - f0,
+               writes_per_tick=serve_ops / max(1.0, f1 - f0),
+               phases=phases, shed=shed, dropped=dropped,
+               lane=dict(sessions=lane_seated, batch=J_LANE_BATCH,
+                         rate_hz=J_LANE_RATE, p50_ms=lane["p50_ms"],
+                         p99_ms=lane["p99_ms"],
+                         **j_rates(lane, lane["connected"] * J_LANE_RATE
+                                   * J_LANE_BATCH),
+                         acked=lane["counters"]["acked"]),
+               launches=launches["ingest_scatter"], flushes=flushes,
+               ledger=ledger, readback=len(sample), acked_slots=len(last),
+               reduced=["warmup 3 -> 2 s, duration 10 -> 5 s (time)",
+                        f"sessions {J_SESSIONS} -> {seated} (fd limit)"
+                        if seated < J_SESSIONS else "sessions not cut"])
+    steps["serve"] = prof
+    steps["serve_lane"] = lane_prof
+    g_report("serve (open-loop JSON)", prof, "J")
+    g_report("serve (binop lane)", lane_prof, "J")
+    print(f"  path J serve: p50 {row['p50_ms']:.3f} ms, p99 "
+          f"{row['p99_ms']:.3f} ms, {j_rates_text(row)}, "
+          f"{row['writes_per_tick']:.2f} writes a tick, phases "
+          + ", ".join(f"{k} p99 {v['p99_ms']:.4f} ms"
+                      for k, v in sorted(phases.items()))
+          + f"; lane {j_rates_text(row['lane'])}, p99 "
+          f"{row['lane']['p99_ms']:.3f} ms")
+    return row
+
+
+def j_rates(out: dict, offered: float) -> dict:
+    """A fleet run's throughput: the offered puts a second; the puts
+    whose acks landed inside the window, over the window; and the
+    window's scheduled puts over the time until the last of their acks
+    (a tier that keeps up drains its window just after it closes)."""
+    drain = out["last_window_ack_s"]
+    return dict(offered_ops_s=offered,
+                acked_ops_s=out["acked_in_window"] / out["window_s"],
+                drained_ops_s=(out["window_ops"] / drain
+                               if drain else None),
+                window_drain_s=drain)
+
+
+def j_rates_text(row: dict) -> str:
+    drained = row["drained_ops_s"]
+    return (f"offered {row['offered_ops_s']:.1f} ops/s, acked in the "
+            f"window {row['acked_ops_s']:.1f} ops/s, window drained in "
+            f"{row['window_drain_s']:.3f} s "
+            f"({'n/a' if drained is None else f'{drained:.1f}'} ops/s)")
+
+
+def j_launches_since(before: dict) -> dict:
+    """Kernel launches since the counts ``before``."""
+    return {k: v - before[k] for k, v in obs_device.launches().items()}
+
+
+def j_normalize(body: bytes, card: str, host: str) -> bytes:
+    """A card-side frame with the card tier's node id written as its
+    twin's (the two tiers need distinct ids: the registry keys series by
+    node id)."""
+    import re
+    return re.sub(rb'(["-])' + card.encode() + rb'"',
+                  rb"\1" + host.encode() + rb'"', body)
+
+
+def j_conversation(steps: dict) -> dict:
+    """Step 2: the scripted conversation on a card tier and its host
+    twin, frame for frame."""
+    from crdt_tpu_torch import ServeTier, net
+    from crdt_tpu_torch.testing import FakeClock
+    _, script = j_modules()
+    wire = h_wire()
+    sides = {}
+    # Distinct ids (the registry keys series by node id) that sort alike
+    # against the client's, so both tables give the same ordinals.
+    nodes = {"card": "ja", "host": "jb"}
+    for role in ("card", "host"):
+        crdt = DenseCrdt(nodes[role], N_SLOTS, device=TWINS[role],
+                         wall_clock=FakeClock())
+        rng = np.random.default_rng(31)
+        with crdt.ingest(auto_flush_rows=FLUSH_ROWS + 1):
+            crdt.put_batch(rng.choice(N_SLOTS, FLUSH_ROWS, replace=False),
+                           rng.integers(-2 ** 62, 2 ** 62, FLUSH_ROWS))
+        client = DenseCrdt("jz", N_SLOTS, device="cpu",
+                           wall_clock=FakeClock())
+        script.seed_client(client, N_SLOTS)
+        if role == "card":
+            torch.cuda.synchronize()
+            k0 = obs_device.launches()
+
+        def run(crdt=crdt, client=client):
+            with ServeTier(crdt) as tier, \
+                    wire.RecordingProxy(tier.host, tier.port) as proxy:
+                out = script.converse(net, proxy.host, proxy.port,
+                                      client, tier, N_SLOTS)
+                return out, proxy.streams()
+        if role == "card":
+            (out, streams), prof = g_profiled(run)
+            launches = j_launches_since(k0)
+        else:
+            t0 = time.perf_counter()
+            out, streams = run()
+            prof["twin_s"] = time.perf_counter() - t0
+        sides[role] = (out, streams, crdt, client)
+    c_out, c_streams, c_crdt, c_cli = sides["card"]
+    h_out, h_streams, h_crdt, h_cli = sides["host"]
+    norm = lambda b: j_normalize(b, nodes["card"], nodes["host"])
+    check(json.loads(norm(json.dumps(c_out).encode()))
+          == json.loads(json.dumps(h_out)),
+          "path J conversation: replies differ from the host twin's")
+    check(len(c_streams) == len(h_streams) == 3,
+          "path J conversation: sessions")
+    frames = 0
+    for i, ((cc, cs), (hc, hs)) in enumerate(zip(c_streams, h_streams)):
+        cf = [norm(f) for f in wire.untraced(cc)]
+        sf = [norm(f) for f in wire.untraced(cs)]
+        hcf, hsf = wire.untraced(hc), wire.untraced(hs)
+        if i == 2:
+            sf, hsf = (sf[:-script.METRICS_FRAMES],
+                       hsf[:-script.METRICS_FRAMES])
+        check(cf == hcf and sf == hsf,
+              f"path J conversation: session {i}'s frames differ")
+        frames += len(cf) + len(sf)
+    check(max_abs_err(c_crdt.store, [x.to("cuda") for x in h_crdt.store])
+          == 0, "path J conversation: card tier's lanes differ")
+    check(str(c_crdt.canonical_time).replace(nodes["card"], nodes["host"])
+          == str(h_crdt.canonical_time), "path J conversation: clock")
+    check(max_abs_err([x.to("cuda") for x in c_cli.store],
+                      [x.to("cuda") for x in h_cli.store]) == 0,
+          "path J conversation: clients differ")
+    check(launches["fanin_split"] >= 1 and launches["ingest_scatter"] >= 1,
+          f"path J conversation: launches {launches}")
+    steps["conversation"] = prof
+    g_report("conversation", prof, "J")
+    return dict(frames=frames, gc_purged=c_out["gc_purged"],
+                launches={k: v for k, v in launches.items() if v})
+
+
+def j_wait_event(watch, slot: int, value: int, what: str) -> None:
+    deadline = time.monotonic() + 60.0
+    while True:
+        check(time.monotonic() < deadline, f"{what}: no event")
+        if (slot, value) in watch.next_event(timeout=60.0):
+            return
+
+
+def j_fed_run(fed, fleet, seated: int, flip) -> tuple:
+    """One federation-aware open-loop run with ``flip`` called at
+    `J_FED_FLIP_AT` of its measured window; (fleet result, flip stats)."""
+    import threading
+    done: dict = {}
+
+    def act(start):
+        at = start + J_FED_WARMUP + J_FED_FLIP_AT * J_FED_DURATION
+        time.sleep(max(0.0, at - time.monotonic()))
+        try:
+            done["stats"] = flip()
+        except BaseException as e:     # surfaced below
+            done["error"] = e
+
+    seed = fed.tiers[0]
+    holder = {}
+
+    def on_start(start):
+        holder["t"] = threading.Thread(target=act, args=(start,))
+        holder["t"].start()
+
+    routing_py = os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "crdt_tpu_torch", "routing.py")
+    out = fleet.run(dict(mode="fed", sessions=seated, rate=J_FED_RATE,
+                         warmup=J_FED_WARMUP, duration=J_FED_DURATION,
+                         host=seed.host, port=seed.port, n_slots=N_SLOTS,
+                         routing_py=routing_py), on_start=on_start)
+    holder["t"].join()
+    if "error" in done:
+        raise done["error"]
+    c = out["counters"]
+    check(c["attempts"] == c["acked"] > 0 and c["errors"] == 0
+          and c["connect_failures"] == 0,
+          f"path J federation: fleet counters {c}")
+    return out, done["stats"]
+
+
+def j_federation(steps: dict) -> dict:
+    """Step 3: a four-partition federation under bench_federate's
+    federation-aware sessions, a live split and a live merge."""
+    from crdt_tpu_torch import FederatedClient, FederatedTier
+    fleet, _ = j_modules()
+    soft = fleet.raise_fd_limit(J_FED_SESSIONS + 2048)
+    seated = max(1, min(J_FED_SESSIONS, soft - 2048))
+    fed = FederatedTier(N_SLOTS, partitions=4, flush_interval=0.002,
+                        max_sessions=seated + 256, device="cuda")
+    rows = {}
+    watches = []
+    with fed:
+        cli = FederatedClient(fed.addrs(), timeout=60.0)
+        fleet_slots = {(k * N_SLOTS) // seated for k in range(seated)}
+        t0 = fed.tiers[0]
+        slot_a = next(s for s in range(t0.router.table.ranges_of(
+            t0.router.addr)[0][0], N_SLOTS) if s not in fleet_slots)
+        watch_a = cli.watch(t0.router.addr, slots=[slot_a])
+        watches.append(watch_a)
+        try:
+            cli.put(slot_a, 1000)
+            j_wait_event(watch_a, slot_a, 1000, "path J watch (before)")
+            e0 = fed.table.epoch
+            cli.close()
+            (run1, split), prof1 = g_profiled(
+                lambda: j_fed_run(fed, fleet, seated, fed.split_hot))
+            check(fed.table.epoch == e0 + 1 and split["epoch"] == e0 + 1,
+                  "path J federation: the split did not advance the epoch")
+            check(run1["counters"]["moved"] > 0,
+                  "path J federation: no session saw the split")
+            # The migrated range: every donor row of [mid, hi) is on the
+            # recipient, the same row or a later write.
+            donor = fed.tier_at(split["src_addr"])
+            recip = fed.tier_at(split["dst_addr"])
+            mid, hi = split["split_at"], split["range"][1]
+            with donor.lock, recip.lock:
+                d, r = donor.crdt.store, recip.crdt.store
+                span = slice(mid, hi)
+                moved = d.occupied[span]
+                check(bool(r.occupied[span][moved].all())
+                      and bool((r.lt[span][moved]
+                                >= d.lt[span][moved]).all())
+                      and not bool(r.occupied[:mid].any())
+                      and not bool(r.occupied[hi:].any()),
+                      "path J federation: the migrated range is not the "
+                      "donor's rows")
+                migrated = int(moved.sum())
+            cli = FederatedClient(fed.addrs(), timeout=60.0)
+            cli.put(slot_a, 1001)
+            j_wait_event(watch_a, slot_a, 1001, "path J watch (split)")
+            slot_b = next(s for s in range(mid, hi)
+                          if s not in fleet_slots)
+            watch_b = cli.watch(recip.router.addr, slots=[slot_b])
+            watches.append(watch_b)
+            cli.put(slot_b, 2001)
+            j_wait_event(watch_b, slot_b, 2001, "path J watch B (split)")
+            cli.close()
+            src = [t.router.addr for t in fed.tiers].index(
+                split["dst_addr"])
+            (run2, merge), prof2 = g_profiled(
+                lambda: j_fed_run(fed, fleet, seated,
+                                  lambda: fed.merge_cold(src=src)))
+            check(fed.table.epoch == e0 + 2 and len(fed.tiers) == 4,
+                  "path J federation: the merge did not advance the epoch")
+            check(merge["rehomed_watchers"] >= 1,
+                  "path J federation: no watcher re-homed")
+            cli = FederatedClient(fed.addrs(), timeout=60.0)
+            cli.put(slot_a, 1002)
+            j_wait_event(watch_a, slot_a, 1002, "path J watch (merge)")
+            cli.put(slot_b, 2002)
+            j_wait_event(watch_b, slot_b, 2002, "path J watch B (merge)")
+            check(watch_b.moved_rehomes == 1
+                  and watch_b.addr == merge["dst_addr"],
+                  "path J federation: watch B did not re-home")
+            # Every acked write of the second run, on its owner's card
+            # store.
+            last = dict(map(tuple, run2["last"]))
+            table = fed.table
+            for t in fed.tiers:
+                mine = {s: v for s, v in last.items()
+                        if table.owner_of(s) == t.router.addr}
+                if not mine:
+                    continue
+                idx = torch.tensor(list(mine), device="cuda")
+                with t.lock:
+                    st = t.crdt.store
+                    ok = (bool(st.occupied[idx].all())
+                          and not bool(st.tomb[idx].any())
+                          and st.val[idx].cpu().tolist()
+                          == list(mine.values()))
+                check(ok, f"path J federation: acked writes lost on "
+                      f"{t.crdt.node_id}")
+                rows[str(t.crdt.node_id)] = len(mine)
+        finally:
+            for w in watches:
+                w.close()
+            cli.close()
+    steps["federation_split"] = prof1
+    steps["federation_merge"] = prof2
+    g_report("federation split run", prof1, "J")
+    g_report("federation merge run", prof2, "J")
+
+    def run_row(run, stats):
+        return dict(p50_ms=run["p50_ms"], p99_ms=run["p99_ms"],
+                    **j_rates(run, run["connected"] * J_FED_RATE),
+                    acked=run["counters"]["acked"],
+                    moved=run["counters"]["moved"],
+                    reconnects=run["counters"]["reconnects"],
+                    busy=run["counters"]["busy"],
+                    migrated_rows=stats["migrated_rows"],
+                    rounds=stats["rounds"], epoch=stats["epoch"],
+                    seconds=stats["seconds"],
+                    flip_to_drain_seconds=stats["flip_to_drain_seconds"])
+    out = dict(requested=100_000, seated=seated, rate_hz=J_FED_RATE,
+               split=run_row(run1, split), merge=run_row(run2, merge),
+               split_migrated_checked=migrated, readback=rows,
+               reduced=["sessions 100,000 -> "
+                        f"{seated} (bench_federate's 1,000 ops/s offered "
+                        "cap; fd limit)", "warmup 3 -> 1 s, duration "
+                        "10 -> 5 s a run (time)"])
+    print(f"  path J federation: {seated} sessions; split run p99 "
+          f"{out['split']['p99_ms']:.3f} ms, {out['split']['moved']} "
+          f"moved, {out['split']['migrated_rows']} rows migrated in "
+          f"{out['split']['seconds']:.3f} s; merge run p99 "
+          f"{out['merge']['p99_ms']:.3f} ms, "
+          f"{out['merge']['migrated_rows']} rows in "
+          f"{out['merge']['seconds']:.3f} s")
+    return out
+
+
+def j_failover(steps: dict) -> dict:
+    """Step 4: bench_failover's storm against a three-member group on
+    the card, three kills of the primary, each followed by a rejoin."""
+    import threading
+
+    from crdt_tpu_torch import FederatedClient
+    from crdt_tpu_torch.replication import ReplicaGroup
+    t_start = time.perf_counter()
+    acked: dict = {}
+    lock = threading.Lock()
+    stop = threading.Event()
+    errors: list = []
+    retried = [0] * J_WRITERS
+
+    def writer(w, seeds):
+        cli = FederatedClient(seeds, timeout=60.0)
+        my = [w * J_WRITER_SLOTS + j for j in range(J_WRITER_SLOTS)]
+        i = 0
+        try:
+            while not stop.is_set():
+                slot, val = my[i % len(my)], i + 1
+                try:
+                    cli.put(slot, val)
+                except ConnectionError:
+                    # The client's retry budget ran out inside a
+                    # failover window: the write was never acked, so it
+                    # is re-offered, and counted. A rejection (the
+                    # client's ValueError, e.g. a failed flush tick)
+                    # ends the writer and fails the step.
+                    retried[w] += 1
+                    time.sleep(0.02)
+                    continue
+                with lock:
+                    acked[slot] = val
+                i += 1
+                time.sleep(1.0 / J_WRITE_HZ)
+        except Exception as e:
+            errors.append(f"writer {w}: {e!r}")
+        finally:
+            cli.close()
+
+    def lost_on(tier) -> dict:
+        with lock:
+            want = dict(acked)
+        with tier.lock:
+            got = {s: tier.crdt.get(s) for s in want}
+        return {s: (v, got[s]) for s, v in want.items()
+                if got[s] is None or got[s] < v}
+
+    mttrs, epochs = [], []
+    with ReplicaGroup(N_SLOTS, device="cuda", **J_FAILOVER) as group:
+        seeds = group.member_addrs()
+        threads = [threading.Thread(target=writer, args=(w, seeds))
+                   for w in range(J_WRITERS)]
+        for t in threads:
+            t.start()
+        probe = FederatedClient(seeds, timeout=60.0)
+        try:
+            deadline = time.monotonic() + 60.0
+            while len(acked) < J_WRITERS:
+                check(not errors and time.monotonic() < deadline,
+                      f"path J failover: {len(acked)} of {J_WRITERS} "
+                      f"writers acked before the storm; errors {errors}")
+                time.sleep(0.01)
+            for cycle in range(J_KILLS):
+                epoch = group.table.epoch
+                with lock:
+                    checkpoint = dict(acked)
+                dead = group.kill_primary()
+                t_kill = time.monotonic()
+                probe.put(N_SLOTS - 1 - cycle, 9000 + cycle)
+                mttrs.append(time.monotonic() - t_kill)
+                probe.refresh()
+                check(probe.table.epoch > epoch,
+                      f"path J failover {cycle}: epoch did not advance")
+                epochs.append(probe.table.epoch)
+                primary = group.primary
+                with primary.tier.lock:
+                    got = {s: primary.tier.crdt.get(s) for s in checkpoint}
+                check(all(got[s] is not None and got[s] >= v
+                          for s, v in checkpoint.items()),
+                      f"path J failover {cycle}: acked writes lost")
+                group.rejoin(dead.index)
+                deadline = time.monotonic() + 60.0
+                while any(m.role == "down" for m in group.members):
+                    check(time.monotonic() < deadline, "path J rejoin")
+                    time.sleep(0.01)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=60.0)
+        check(not errors, f"path J failover: writer errors {errors}")
+        # Converge: nudge writes re-arm the tick until every member
+        # holds one digest root, then every acked write on every member.
+        deadline = time.monotonic() + 60.0
+        bump = 0
+        try:
+            while True:
+                bump += 1
+                probe.put(N_SLOTS - 8, bump)
+                roots = []
+                for m in group.members:
+                    with m.tier.lock:
+                        roots.append(int(m.tier.crdt.digest_tree().root))
+                if len(set(roots)) == 1:
+                    break
+                check(time.monotonic() < deadline,
+                      "path J failover: replicas never converged")
+                time.sleep(0.05)
+        finally:
+            probe.close()
+        for m in group.members:
+            lost = lost_on(m.tier)
+            check(not lost, f"path J failover: {m.name} lost {lost}")
+        failovers = group.failovers
+    check(failovers == J_KILLS and epochs == sorted(set(epochs)),
+          f"path J failover: {failovers} failovers, epochs {epochs}")
+    held = time.perf_counter() - t_start
+    print(f"  path J failover: MTTR " + ", ".join(f"{m:.4f}"
+                                                  for m in mttrs)
+          + f" s; {len(acked)} slots acked, none lost; "
+          f"{sum(retried)} writes re-offered after a failover window; "
+          f"root {roots[0]:#x} on all 3")
+    steps["failover"] = dict(host_s=held)
+    return dict(mttr_s=mttrs, epochs=epochs, failovers=failovers,
+                acked_slots=len(acked), retried=sum(retried),
+                root=roots[0], held_s=held)
+
+
+def j_autoscale(steps: dict) -> dict:
+    """Step 5: the autoscaler over a card federation through one load
+    swing: a burst, then quiet."""
+    from crdt_tpu_torch import (Autoscaler, FederatedClient, FederatedTier,
+                                default_registry)
+
+    def decisions_total() -> float:
+        snap = default_registry().snapshot()
+        return sum(s["value"] for s in snap["counters"].get(
+            "crdt_tpu_autoscale_decisions_total", []))
+
+    def slo():
+        return {"checks": {"ack_p99_s": {"ok": True}}}
+
+    before = decisions_total()
+    t0 = time.perf_counter()
+    with FederatedTier(N_SLOTS, partitions=1, flush_interval=0.002,
+                       device="cuda") as fed:
+        a = Autoscaler(fed, min_partitions=1, max_partitions=2,
+                       split_rows_per_s=50.0, merge_rows_per_s=1.0,
+                       hysteresis_ticks=1, cooldown_s=0.0,
+                       slo_probe=slo)
+        decs = [a.tick()]
+        cli = FederatedClient(fed.addrs(), timeout=60.0)
+        try:
+            for s in range(0, 4096, 8):
+                cli.put(s * 256, s)
+        finally:
+            cli.close()
+        epochs = [fed.table.epoch]
+        decs.append(a.tick())
+        epochs.append(fed.table.epoch)
+        decs.append(a.tick())
+        time.sleep(0.1)
+        decs.append(a.tick())
+        epochs.append(fed.table.epoch)
+        parts = len(fed.tiers)
+        cli = FederatedClient(fed.addrs(), timeout=60.0)
+        try:
+            reads = [cli.get(s * 256) for s in range(0, 4096, 8)]
+        finally:
+            cli.close()
+        taken = len(a.decisions)
+    counted = decisions_total() - before
+    acts = [(d["action"], d["reason"], d.get("applied"), d["epoch"])
+            for d in decs]
+    check(acts == [("hold", "degraded:unmeasured-rate", None, 0),
+                   ("split", "hot-rate", True, 0),
+                   ("hold", "degraded:unmeasured-rate", None, 1),
+                   ("merge", "all-cold", True, 1)],
+          f"path J autoscale: decisions {acts}")
+    check(epochs == [0, 1, 2] and parts == 1,
+          f"path J autoscale: epochs {epochs}, {parts} partitions")
+    check(reads == list(range(0, 4096, 8)), "path J autoscale: reads")
+    check(counted == taken == 4,
+          f"path J autoscale: {counted} counted, {taken} taken")
+    held = time.perf_counter() - t0
+    steps["autoscale"] = dict(host_s=held)
+    print(f"  path J autoscale: {acts}")
+    return dict(decisions=acts, epochs=epochs, counted=counted,
+                held_s=held)
+
+
+def path_j(card: str) -> dict:
+    """The serving plane on card replicas (module doc)."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    obs_device.reset()
+    steps: dict = {}
+    serve = j_serve(steps)
+    conversation = j_conversation(steps)
+    federation = j_federation(steps)
+    failover = j_failover(steps)
+    autoscale = j_autoscale(steps)
+    torch.cuda.synchronize()
+    launches = obs_device.launches()
+    check(launches["ingest_scatter"] > 0 and launches["fanin_split"] > 0
+          and all(v == 0 for k, v in launches.items()
+                  if k not in ("ingest_scatter", "fanin_split")),
+          f"path J: launches {launches}")
+    held_s = time.perf_counter() - t0
+    print(f"  path J held {held_s:.2f} s")
+    return dict(card=card, n_slots=N_SLOTS, serve=serve,
+                conversation=conversation, federation=federation,
+                failover=failover, autoscale=autoscale, steps=steps,
+                launches=launches, held_s=held_s)
+
+
 LOOPS = 48                       # the probe CLI's --loops
 STREAM_REPEATS = 64              # bench.py's --repeats
 
@@ -3948,6 +4657,12 @@ def main() -> int:
           "against pairwise sync_packed and a typed round, the gossip "
           "collective lane and its counted fallback) equals the host "
           "twins, one join call a round")
+    serving = path_j(card)
+    print("phase 3: path J (a ServeTier under open-loop load, the "
+          "scripted conversation frame for frame against its host twin, "
+          "a four-partition federation through a live split and merge, "
+          "three failovers of a replica group, one autoscaler swing) "
+          "read back every acknowledged write; K2 one launch a flush")
     probes = path_d(card, results)
     print(f"phase 3: path D (the probe entry point's seven variants, the "
           f"distinct and stream rows) ran; P2 "
@@ -3969,6 +4684,10 @@ def main() -> int:
     # Path I's members and replicas are seeded by K2 flushes.
     results["ingest_scatter"]["launches"] += \
         general["launches"]["ingest_scatter"]
+    # Path J's tiers commit every flush tick through K2; its dense push
+    # merges through K1s.
+    for name in ("fanin_split", "ingest_scatter"):
+        results[name]["launches"] += serving["launches"][name]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3979,7 +4698,7 @@ def main() -> int:
                   path_a=interchange, path_b=stream, path_c=sharded,
                   path_d=probes, path_e=gossip, path_f=storage,
                   path_g=typed, path_h=wire, path_i=general,
-                  kernel_detail=results, torch=torch.__version__,
+                  path_j=serving, kernel_detail=results, torch=torch.__version__,
                   held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3994,6 +4713,7 @@ def main() -> int:
     print(json.dumps({"path_g": typed}, default=str))
     print(json.dumps({"path_h": wire}, default=str))
     print(json.dumps({"path_i": general}, default=str))
+    print(json.dumps({"path_j": serving}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

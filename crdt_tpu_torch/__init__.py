@@ -15,7 +15,11 @@ typed slots (`semantics`), the in-process sync rounds and the
 checkpoints, the pod-local replica group joined in one call
 (`collective`), the TCP wire (`net`: the JAX package's frames, byte for
 byte), the resilient `gossip` runtime and the host observability the
-wire serves (`obs`: the metrics registry and the trace ring).
+wire serves (`obs`: the metrics registry, the trace ring, the dispatch
+ledger and the fleet's SLO verdict), and the serving plane: the async
+`ServeTier` front door over one replica, keyspace `routing`, the
+`FederatedTier` that splits and merges partitions live, `ReplicaGroup`
+failover with write-concern acks, and the `Autoscaler`.
 
 The JAX package ``crdt_tpu`` is the reference; this package imports
 nothing of it (not even its jax-free modules) and never imports jax.
@@ -52,6 +56,11 @@ from .checkpoint import (load_dense, load_gossip_state, load_json,
                          save_dense, save_gossip_state, save_json)
 from .gossip import (BreakerPolicy, CircuitBreaker, GossipNode, Peer,
                      RetryPolicy)
+from .serve import ServeTier
+from .routing import PartitionRouter, RoutingTable
+from .federation import FederatedClient, FederatedTier
+from .autoscale import Autoscaler
+from .replication import ReplicaGroup, Replicator
 
 __all__ = [
     "Hlc", "ClockDriftException", "DuplicateNodeException",
@@ -73,5 +82,7 @@ __all__ = [
     "SyncRedirectError", "WireTally", "fetch_metrics",
     "GossipNode", "Peer", "RetryPolicy", "BreakerPolicy", "CircuitBreaker",
     "MetricsRegistry", "TraceRing", "default_registry",
-    "metrics_snapshot", "tracer",
+    "metrics_snapshot", "tracer", "ServeTier",
+    "RoutingTable", "PartitionRouter", "FederatedTier",
+    "FederatedClient", "Autoscaler", "ReplicaGroup", "Replicator",
 ]

@@ -31,6 +31,7 @@ from typing import Optional, TYPE_CHECKING
 import numpy as np
 
 from ..hlc import Hlc
+from ..obs import device as _obs_device
 from ..obs.trace import span
 
 if TYPE_CHECKING:                       # pragma: no cover
@@ -69,7 +70,7 @@ class WriteCombiner:
 
     __slots__ = ("_owner", "_auto", "_slots", "_vals", "_tombs",
                  "_group", "_k", "_groups", "_pending", "flushes",
-                 "rows_committed")
+                 "rows_committed", "on_flush", "last_phase_seconds")
 
     def __init__(self, owner: "DenseCrdt", auto_flush_rows: int = 1 << 16):
         if auto_flush_rows < 1:
@@ -88,6 +89,11 @@ class WriteCombiner:
         # the read-your-writes overlay answers point reads in O(1).
         self._pending: dict = {}
         self.flushes = 0
+        # Flush listener ``cb(trigger, rows, seconds)``, called after
+        # every commit (a serving tier counts its ticks here). Listener
+        # errors are swallowed: observability must never fail a commit.
+        self.on_flush = None
+        self.last_phase_seconds: dict = {}
         self.rows_committed = 0
 
     @property
@@ -171,6 +177,7 @@ class WriteCombiner:
             new_canonical, group_lts = Hlc.send_batch(
                 owner.canonical_time, self._groups,
                 millis=owner._wall_clock())
+            t_stamp = time.perf_counter()
             d = 0
             if k:
                 slots = self._slots[:k]
@@ -182,6 +189,7 @@ class WriteCombiner:
                 keep, order = owner._last_wins_order(slots)
                 d = len(order)
                 owner._commit_scatter(slots, lt, vals, tombs, order)
+            t_scatter = time.perf_counter()
             owner._canonical_time = new_canonical
             owner.stats.puts += self._groups
             owner.stats.records_put += k
@@ -194,11 +202,25 @@ class WriteCombiner:
             if d:
                 self._emit_commit(slots, vals, tombs, keep)
         dt = time.perf_counter() - t0
+        # The stamp and the commit's host time, which a serving tier's
+        # ack-phase sketches read: the commit launches and returns, so
+        # its time is the launch's, not the device's.
+        self.last_phase_seconds = {"stamp": t_stamp - t0,
+                                   "scatter": t_scatter - t_stamp}
+        # Store-bytes census: lane nbytes is tensor metadata, no device
+        # work; the commit is where the store's footprint last moved.
+        _obs_device.census(owner._store)
         flushes_c, rows_c, groups_c, seconds_h = _metrics()
         flushes_c.inc(trigger=trigger, node=node)
         rows_c.inc(d, node=node)
         groups_c.inc(groups, node=node)
         seconds_h.observe(dt, node=node)
+        cb = self.on_flush
+        if cb is not None:
+            try:
+                cb(trigger, d, dt)
+            except Exception:
+                pass
         return True
 
     def _emit_commit(self, slots: np.ndarray, vals: np.ndarray,

@@ -20,6 +20,8 @@ from .recorder import FlightRecorder, default_recorder
 from .trace import TraceRing, round_id, span, tracer
 from .lag import health_status, lag_entry, lag_millis
 from .probe import CanaryProbe, canary_observed
+from .fleet import evaluate_slo, lag_matrix, poll_fleet
+from .device import DispatchLedger, default_ledger, pow2_bucket
 
 
 def metrics_snapshot() -> dict:
@@ -36,4 +38,6 @@ __all__ = [
     "TraceRing", "tracer", "span", "round_id",
     "lag_millis", "lag_entry", "health_status",
     "CanaryProbe", "canary_observed",
+    "poll_fleet", "lag_matrix", "evaluate_slo",
+    "DispatchLedger", "default_ledger", "pow2_bucket",
 ]

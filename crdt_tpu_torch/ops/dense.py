@@ -38,6 +38,19 @@ from .merge import recv_guards
 _NEG = -(2 ** 62)
 _I32_NEG = -(2 ** 31)
 
+# The dispatch ledger's names for the wrappers below, as the JAX
+# package's XLA route records them (its `dense.fanin_stream` is the
+# XLA model route for wide changesets, which the port's model does not
+# take). Each wrapper records one dispatch; callers inside another
+# recorded step use the unrecorded bodies (`_delta_mask`,
+# `_max_logical_time`, `_ingest_scatter`).
+_obs_device.register(
+    "dense.fanin_step", "dense.sparse_fanin_step", "dense.wire_join_step",
+    "dense.merge_repack_step", "dense.delta_mask",
+    "dense.range_delta_mask", "dense.max_logical_time",
+    "dense.put_scatter", "dense.record_scatter", "dense.delete_scatter",
+    "dense.ingest_scatter", "dense.gc_purge", "dense.compact_remap")
+
 Scalar = Union[int, torch.Tensor]
 
 
@@ -194,39 +207,45 @@ def fanin_step(store: DenseStore, cs: DenseChangeset,
     """One fused R-replica fan-in lattice join with EXACT recv guards
     (see module docstring) — the plain oracle of the batch kernel.
     Winners' ``modified`` lanes get the post-absorption canonical."""
-    dev = store.lt.device
-    any_bad, first_bad, first_is_dup, canonical_at_fail = recv_guards(
-        cs.lt, cs.node, cs.valid, canonical_lt, local_node, wall_millis)
-    canon = torch.as_tensor(canonical_lt, dtype=torch.int64, device=dev)
-    new_canonical = torch.maximum(
-        canon, torch.where(cs.valid, cs.lt, _NEG).amax())
+    with _obs_device.record("dense.fanin_step", dim=cs.lt.shape[0]):
+        dev = store.lt.device
+        any_bad, first_bad, first_is_dup, canonical_at_fail = recv_guards(
+            cs.lt, cs.node, cs.valid, canonical_lt, local_node, wall_millis)
+        canon = torch.as_tensor(canonical_lt, dtype=torch.int64, device=dev)
+        new_canonical = torch.maximum(
+            canon, torch.where(cs.valid, cs.lt, _NEG).amax())
 
-    # Replica reduce + LWW join in ONE fold: seed the running best with
-    # the local lanes (empty slots as _NEG so any valid remote beats
-    # them; occupied slots win exact ties — the compare is strict).
-    lt, node, val, tomb, win = lex_fold(
-        cs, torch.where(store.occupied, store.lt, _NEG),
-        store.node, store.val, store.tomb)
-    new_store = DenseStore(
-        lt=torch.where(win, lt, store.lt),
-        node=torch.where(win, node, store.node),
-        val=val,
-        mod_lt=store.mod_lt.masked_fill(win, new_canonical),
-        mod_node=store.mod_node.masked_fill(win, local_node),
-        occupied=store.occupied | win,
-        tomb=tomb,
-    )
-    return new_store, FaninResult(
-        new_canonical=new_canonical,
-        win_count=win.sum().to(torch.int32),
-        win=win, any_bad=any_bad, first_bad=first_bad,
-        first_is_dup=first_is_dup, canonical_at_fail=canonical_at_fail)
+        # Replica reduce + LWW join in ONE fold: seed the running best with
+        # the local lanes (empty slots as _NEG so any valid remote beats
+        # them; occupied slots win exact ties — the compare is strict).
+        lt, node, val, tomb, win = lex_fold(
+            cs, torch.where(store.occupied, store.lt, _NEG),
+            store.node, store.val, store.tomb)
+        new_store = DenseStore(
+            lt=torch.where(win, lt, store.lt),
+            node=torch.where(win, node, store.node),
+            val=val,
+            mod_lt=store.mod_lt.masked_fill(win, new_canonical),
+            mod_node=store.mod_node.masked_fill(win, local_node),
+            occupied=store.occupied | win,
+            tomb=tomb,
+        )
+        return new_store, FaninResult(
+            new_canonical=new_canonical,
+            win_count=win.sum().to(torch.int32),
+            win=win, any_bad=any_bad, first_bad=first_bad,
+            first_is_dup=first_is_dup, canonical_at_fail=canonical_at_fail)
+
+
+def _delta_mask(store: DenseStore, since_lt: Scalar) -> torch.Tensor:
+    return store.occupied & (store.mod_lt >= since_lt)
 
 
 def dense_delta_mask(store: DenseStore, since_lt: Scalar) -> torch.Tensor:
     """modifiedSince filter — INCLUSIVE bound on the modified lane
     (map_crdt.dart:44-45)."""
-    return store.occupied & (store.mod_lt >= since_lt)
+    with _obs_device.record("dense.delta_mask", dim=store.lt.shape[0]):
+        return _delta_mask(store, since_lt)
 
 
 def span_mask(n: int, los: torch.Tensor, his: torch.Tensor) -> torch.Tensor:
@@ -260,7 +279,8 @@ def dense_range_delta_mask(store: DenseStore, since_lt: Scalar,
     """`dense_delta_mask` restricted to the union of the half-open slot
     spans ``[los[i], his[i])``. ``since_lt = 0`` is a clock-unbounded
     range scan (every occupied slot has ``mod_lt > 0``)."""
-    return range_delta_mask(dense_delta_mask(store, since_lt), los, his)
+    with _obs_device.record("dense.range_delta_mask", dim=los.shape[0]):
+        return range_delta_mask(_delta_mask(store, since_lt), los, his)
 
 
 # --- columnar wire joins (merge_packed / merge_json / merge_records) ---
@@ -311,8 +331,9 @@ def sparse_fanin_step(store: DenseStore, slot: torch.Tensor,
     wire-delta shape, where a 10-record sync into a 1M-slot replica
     must not touch 1M-wide lanes. Returns ``(store, win)``, ``win``
     over the k rows."""
-    return store, _sparse_fanin_body(store, slot, lt, node, val, tomb,
-                                     valid, stamp_lt, local_node)
+    with _obs_device.record("dense.sparse_fanin_step", dim=slot.shape[0]):
+        return store, _sparse_fanin_body(store, slot, lt, node, val, tomb,
+                                         valid, stamp_lt, local_node)
 
 
 def wire_join_step(store: DenseStore, lt: torch.Tensor, node: torch.Tensor,
@@ -325,19 +346,21 @@ def wire_join_step(store: DenseStore, lt: torch.Tensor, node: torch.Tensor,
     and ``val`` may arrive narrower (the JAX package's int16 / int32
     wire transfers) and widen here. Returns ``(store, win)``, ``win``
     over the N slots."""
-    lt = torch.where(valid, lt, _NEG)
-    node = node.to(torch.int32)
-    # Strict (lt, node) compare: local wins exact ties (crdt.dart:84).
-    remote_newer = (lt > store.lt) | ((lt == store.lt) & (node > store.node))
-    win = valid & (~store.occupied | remote_newer)
-    torch.where(win, lt, store.lt, out=store.lt)
-    torch.where(win, node, store.node, out=store.node)
-    torch.where(win, val.to(torch.int64), store.val, out=store.val)
-    store.mod_lt.masked_fill_(win, stamp_lt)
-    store.mod_node.masked_fill_(win, local_node)
-    store.occupied.logical_or_(win)
-    torch.where(win, tomb, store.tomb, out=store.tomb)
-    return store, win
+    with _obs_device.record("dense.wire_join_step", dim=lt.shape[0]):
+        lt = torch.where(valid, lt, _NEG)
+        node = node.to(torch.int32)
+        # Strict (lt, node) compare: local wins exact ties (crdt.dart:84).
+        remote_newer = ((lt > store.lt)
+                        | ((lt == store.lt) & (node > store.node)))
+        win = valid & (~store.occupied | remote_newer)
+        torch.where(win, lt, store.lt, out=store.lt)
+        torch.where(win, node, store.node, out=store.node)
+        torch.where(win, val.to(torch.int64), store.val, out=store.val)
+        store.mod_lt.masked_fill_(win, stamp_lt)
+        store.mod_node.masked_fill_(win, local_node)
+        store.occupied.logical_or_(win)
+        torch.where(win, tomb, store.tomb, out=store.tomb)
+        return store, win
 
 
 def merge_repack_step(store: DenseStore, slot: torch.Tensor,
@@ -350,9 +373,10 @@ def merge_repack_step(store: DenseStore, slot: torch.Tensor,
     mod_lt >= since_lt`` over the merged store, the inclusive bound of
     map_crdt.dart:44-45): the gossip relay's merge and repack in one
     call. Returns ``(store, win, mask)``, ``mask`` over the N slots."""
-    win = _sparse_fanin_body(store, slot, lt, node, val, tomb, valid,
-                             stamp_lt, local_node)
-    return store, win, dense_delta_mask(store, since_lt)
+    with _obs_device.record("dense.merge_repack_step", dim=slot.shape[0]):
+        win = _sparse_fanin_body(store, slot, lt, node, val, tomb, valid,
+                                 stamp_lt, local_node)
+        return store, win, _delta_mask(store, since_lt)
 
 
 def store_to_changeset(store: DenseStore,
@@ -369,12 +393,17 @@ def store_to_changeset(store: DenseStore,
                           valid=valid[None])
 
 
-def dense_max_logical_time(store: DenseStore) -> torch.Tensor:
-    """refreshCanonicalTime's reduction (crdt.dart:114-121): max stored
-    logicalTime, 0 for an empty store."""
+def _max_logical_time(store: DenseStore) -> torch.Tensor:
     if store.n_slots == 0:
         return torch.zeros((), dtype=torch.int64, device=store.lt.device)
     return torch.where(store.occupied, store.lt, 0).amax()
+
+
+def dense_max_logical_time(store: DenseStore) -> torch.Tensor:
+    """refreshCanonicalTime's reduction (crdt.dart:114-121): max stored
+    logicalTime, 0 for an empty store."""
+    with _obs_device.record("dense.max_logical_time", dim=store.lt.shape[0]):
+        return _max_logical_time(store)
 
 
 # --- local-write scatters (putAll/delete, crdt.dart:46-58), in place ---
@@ -386,27 +415,29 @@ def put_scatter(store: DenseStore, slots: torch.Tensor,
     """Batch put: one shared HLC ``t`` + values at ``slots``. ``tombs``
     marks entries written as tombstones under the SAME batch stamp (a
     mixed putAll, crdt.dart:46-54 + delete-as-put-None)."""
-    store.lt[slots] = t
-    store.node[slots] = me
-    store.val[slots] = values
-    store.mod_lt[slots] = t
-    store.mod_node[slots] = me
-    store.occupied[slots] = True
-    store.tomb[slots] = False if tombs is None else tombs
-    return store
+    with _obs_device.record("dense.put_scatter", dim=slots.shape[0]):
+        store.lt[slots] = t
+        store.node[slots] = me
+        store.val[slots] = values
+        store.mod_lt[slots] = t
+        store.mod_node[slots] = me
+        store.occupied[slots] = True
+        store.tomb[slots] = False if tombs is None else tombs
+        return store
 
 
 def delete_scatter(store: DenseStore, slots: torch.Tensor, t: int,
                    me: int) -> DenseStore:
     """Batch tombstone: one shared HLC at ``slots``; ``val`` keeps its
     old contents."""
-    store.lt[slots] = t
-    store.node[slots] = me
-    store.mod_lt[slots] = t
-    store.mod_node[slots] = me
-    store.occupied[slots] = True
-    store.tomb[slots] = True
-    return store
+    with _obs_device.record("dense.delete_scatter", dim=slots.shape[0]):
+        store.lt[slots] = t
+        store.node[slots] = me
+        store.mod_lt[slots] = t
+        store.mod_node[slots] = me
+        store.occupied[slots] = True
+        store.tomb[slots] = True
+        return store
 
 
 def ingest_scatter(store: DenseStore, slots: torch.Tensor,
@@ -418,6 +449,13 @@ def ingest_scatter(store: DenseStore, slots: torch.Tensor,
     ``mod_node = me`` and occupied. Rows with ``slot == n_slots`` are
     the power-of-two padding and write nothing. Slots must be unique
     (the combiner dedups last-wins)."""
+    with _obs_device.record("dense.ingest_scatter", dim=slots.shape[0]):
+        return _ingest_scatter(store, slots, lt, val, tomb, me)
+
+
+def _ingest_scatter(store: DenseStore, slots: torch.Tensor,
+                    lt: torch.Tensor, val: torch.Tensor, tomb: torch.Tensor,
+                    me: int) -> DenseStore:
     live = slots < store.n_slots
     s = slots[live]
     lt = lt[live]
@@ -441,14 +479,15 @@ def record_scatter(store: DenseStore, slots: torch.Tensor,
     package pads the rows to a power of two with ``n_slots`` sentinels
     that its scatter drops, and the port pads nothing, so no row can
     reach an index that on the card is a device-side assert."""
-    store.lt[slots] = lt
-    store.node[slots] = node
-    store.val[slots] = val
-    store.mod_lt[slots] = mod_lt
-    store.mod_node[slots] = mod_node
-    store.occupied[slots] = True
-    store.tomb[slots] = tomb
-    return store
+    with _obs_device.record("dense.record_scatter", dim=slots.shape[0]):
+        store.lt[slots] = lt
+        store.node[slots] = node
+        store.val[slots] = val
+        store.mod_lt[slots] = mod_lt
+        store.mod_node[slots] = mod_node
+        store.occupied[slots] = True
+        store.tomb[slots] = tomb
+        return store
 
 
 # --- tombstone epoch GC and online compaction ---
@@ -473,11 +512,12 @@ def gc_purge(store: DenseStore, floor_lt: int
     pre-purge delta from re-occupying the slot. Returns ``(store,
     purged_count int32, purged_mask)``; counted as one ``gc_purge``
     op."""
-    _obs_device.note_op("gc_purge")
-    purged = store.occupied & store.tomb & (store.lt <= floor_lt)
-    for lane in store:
-        lane.masked_fill_(purged, 0)
-    return store, purged.sum(dtype=torch.int32), purged
+    with _obs_device.record("dense.gc_purge", dim=store.lt.shape[0]):
+        _obs_device.note_op("gc_purge")
+        purged = store.occupied & store.tomb & (store.lt <= floor_lt)
+        for lane in store:
+            lane.masked_fill_(purged, 0)
+        return store, purged.sum(dtype=torch.int32), purged
 
 
 def compact_targets(keep: torch.Tensor, los: torch.Tensor,
@@ -530,17 +570,18 @@ def compact_remap(store: DenseStore, los: torch.Tensor, his: torch.Tensor,
     ``translation[old] = new`` (int32, ``-1`` for unoccupied slots) is
     what every external slot reference must be rewritten through.
     Counted as one ``compact_remap`` op."""
-    from .digest import digest_levels_from_lanes
-    _obs_device.note_op("compact_remap")
-    keep = store.occupied
-    new_slot = compact_targets(keep, los, his)
-    out = remap_rows(store, keep, new_slot)
-    new_sem = None if sem is None else remap_lane(sem, keep, new_slot)
-    translation = torch.where(keep, new_slot, -1).to(torch.int32)
-    levels = digest_levels_from_lanes(out.lt, out.val, out.tomb,
-                                      out.occupied, sem=new_sem,
-                                      leaf_width=leaf_width)
-    live = keep.sum(dtype=torch.int32)
-    if sem is None:
-        return out, translation, live, levels
-    return out, new_sem, translation, live, levels
+    with _obs_device.record("dense.compact_remap", dim=store.lt.shape[0]):
+        from .digest import digest_levels_from_lanes
+        _obs_device.note_op("compact_remap")
+        keep = store.occupied
+        new_slot = compact_targets(keep, los, his)
+        out = remap_rows(store, keep, new_slot)
+        new_sem = None if sem is None else remap_lane(sem, keep, new_slot)
+        translation = torch.where(keep, new_slot, -1).to(torch.int32)
+        levels = digest_levels_from_lanes(out.lt, out.val, out.tomb,
+                                          out.occupied, sem=new_sem,
+                                          leaf_width=leaf_width)
+        live = keep.sum(dtype=torch.int32)
+        if sem is None:
+            return out, translation, live, levels
+        return out, new_sem, translation, live, levels

@@ -42,6 +42,8 @@ import torch
 from ..obs import device as obs_device
 from .dense import DenseStore
 
+obs_device.register("digest.digest_tree_device")
+
 #: Slots folded into one leaf digest. Under uniformly scattered
 #: divergence at rate p the share of leaves hit is ``1 - (1 - p)^W``, so
 #: narrow leaves keep the re-shipped rows close to the divergent ones
@@ -158,10 +160,11 @@ def digest_tree_device(store: DenseStore, sem=None,
                        ) -> Tuple[torch.Tensor, ...]:
     """Digest-tree levels (root-first) of a store, on its device.
     ``sem`` is an optional per-slot semantics tag column."""
-    obs_device.note_op("digest_tree")
-    return digest_levels_from_lanes(store.lt, store.val, store.tomb,
-                                    store.occupied, sem=sem,
-                                    leaf_width=leaf_width)
+    with obs_device.record("digest.digest_tree_device", dim=store.lt.shape[0]):
+        obs_device.note_op("digest_tree")
+        return digest_levels_from_lanes(store.lt, store.val, store.tomb,
+                                        store.occupied, sem=sem,
+                                        leaf_width=leaf_width)
 
 
 class DigestTree(NamedTuple):

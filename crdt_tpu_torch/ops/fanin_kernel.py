@@ -50,6 +50,10 @@ from .merge import send_step
 from .split import (I16_NEG, NEG_HI, SPLIT_DTYPES, NarrowSplitChangeset,
                     flat_lanes, join64)
 
+_obs_device.register(
+    "pallas.model_fanin_batch", "pallas.model_fanin_split",
+    "pallas.pipelined_model_step", "pallas.pipelined_model_step_split")
+
 Scalar = Union[int, torch.Tensor]
 Join = Tuple[torch.Tensor, ...]
 
@@ -198,6 +202,13 @@ def fanin_batch_reference(store: DenseStore, cs: DenseChangeset,
                   plain=True)
 
 
+def _ledger_name(store: DenseStore, pallas_name: str) -> str:
+    """The ledger name of one model-level merge: the Pallas entry the
+    hand kernel replaces for CUDA lanes, the XLA fold's
+    (``dense.fanin_step``) for the plain route."""
+    return pallas_name if store.lt.is_cuda else "dense.fanin_step"
+
+
 def mask_value_width(cs: DenseChangeset, value_width: int):
     """The model layer's checks ahead of a merge: with ``value_width=32``
     records whose value does not fit int32 are masked INVALID, never
@@ -219,6 +230,14 @@ def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
     """The model layer's merge step: `mask_value_width` and
     `fanin_batch`. Returns ``(new_store, BatchResult, seen,
     val_overflow)``."""
+    with _obs_device.record(_ledger_name(store, "pallas.model_fanin_batch"),
+                            dim=cs.valid.shape[0]):
+        return _model_fanin_batch(store, cs, canonical_lt, local_node,
+                                  wall_millis, value_width)
+
+
+def _model_fanin_batch(store, cs, canonical_lt, local_node, wall_millis,
+                       value_width):
     cs, seen, val_overflow = mask_value_width(cs, value_width)
     new_store, res = fanin_batch(store, cs, canonical_lt, local_node,
                                  wall_millis)
@@ -238,12 +257,14 @@ def pipelined_model_step(store: DenseStore, cs: DenseChangeset,
     send bump's. Returns ``(new_store, new_canonical, any_bad,
     overflow, drift, val_overflow, first_flag_idx, win_count, win,
     seen)``."""
-    new_store, res, seen, voverflow = model_fanin_batch(
-        store, cs, canonical, local_node, wall_merge,
-        value_width=value_width)
-    return _pipelined_tail(new_store, res, seen, voverflow, value_width,
-                           any_bad, overflow, drift, val_ovf, first_idx,
-                           merge_idx, wall_send)
+    with _obs_device.record(
+            _ledger_name(store, "pallas.pipelined_model_step"),
+            dim=cs.valid.shape[0]):
+        new_store, res, seen, voverflow = _model_fanin_batch(
+            store, cs, canonical, local_node, wall_merge, value_width)
+        return _pipelined_tail(new_store, res, seen, voverflow,
+                               value_width, any_bad, overflow, drift,
+                               val_ovf, first_idx, merge_idx, wall_send)
 
 
 def _pipelined_tail(new_store, res, seen, voverflow, value_width,
@@ -420,6 +441,14 @@ def model_fanin_split(store: DenseStore, scs, node_map,
     does not fit int32 (invalid, never truncated) and flags
     ``val_overflow``; narrow lanes fit by construction. Returns
     ``(new_store, BatchResult, seen, val_overflow)``."""
+    with _obs_device.record(_ledger_name(store, "pallas.model_fanin_split"),
+                            dim=scs.hi.shape[0]):
+        return _model_fanin_split(store, scs, node_map, canonical_lt,
+                                  local_node, wall_millis, value_width)
+
+
+def _model_fanin_split(store, scs, node_map, canonical_lt, local_node,
+                       wall_millis, value_width):
     node_map = torch.as_tensor(node_map).to(
         store.lt.device, torch.int32)[:MAX_MAP_LEN].contiguous()
     return fanin_split(store, scs, node_map, canonical_lt, local_node,
@@ -436,9 +465,12 @@ def pipelined_model_step_split(store: DenseStore, scs, node_map,
                                merge_idx: int, *, value_width: int = 64):
     """`pipelined_model_step` for a PRE-SPLIT changeset (`merge_split`
     in a coarse window); same return tuple."""
-    new_store, res, seen, voverflow = model_fanin_split(
-        store, scs, node_map, canonical, local_node, wall_merge,
-        value_width=value_width)
-    return _pipelined_tail(new_store, res, seen, voverflow, value_width,
-                           any_bad, overflow, drift, val_ovf, first_idx,
-                           merge_idx, wall_send)
+    with _obs_device.record(
+            _ledger_name(store, "pallas.pipelined_model_step_split"),
+            dim=scs.hi.shape[0]):
+        new_store, res, seen, voverflow = _model_fanin_split(
+            store, scs, node_map, canonical, local_node, wall_merge,
+            value_width)
+        return _pipelined_tail(new_store, res, seen, voverflow,
+                               value_width, any_bad, overflow, drift,
+                               val_ovf, first_idx, merge_idx, wall_send)

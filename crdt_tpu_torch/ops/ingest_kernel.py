@@ -27,7 +27,7 @@ import torch
 
 from .. import _build
 from ..obs import device as _obs_device
-from .dense import STORE_DTYPES, DenseStore, check_lanes
+from .dense import STORE_DTYPES, DenseStore, _ingest_scatter, check_lanes
 from .dense import ingest_scatter as ingest_scatter_reference
 
 _VP = ctypes.c_void_p
@@ -66,12 +66,30 @@ def _ingest_cuda(store: DenseStore, slots: torch.Tensor, lt: torch.Tensor,
     return store
 
 
+_obs_device.register("pallas.ingest_scatter_tiles")
+
+
 def ingest_scatter(store: DenseStore, slots: torch.Tensor,
                    lt: torch.Tensor, val: torch.Tensor, tomb: torch.Tensor,
                    me: int) -> DenseStore:
     """Commit a deduped, sentinel-padded flush into ``store`` in place
     and return it: the hand kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    for CPU tensors. The ledger records the Pallas entry the kernel
+    replaces (``pallas.ingest_scatter_tiles``) or, on the plain route,
+    the XLA scatter's name (``dense.ingest_scatter``, which the plain
+    version records)."""
+    if store.lt.is_cuda:
+        with _obs_device.record("pallas.ingest_scatter_tiles",
+                                dim=slots.shape[0]):
+            return _ingest_cuda(store, slots, lt, val, tomb, me)
+    return ingest_scatter_reference(store, slots, lt, val, tomb, me)
+
+
+def ingest_rows(store: DenseStore, slots: torch.Tensor, lt: torch.Tensor,
+                val: torch.Tensor, tomb: torch.Tensor, me: int
+                ) -> DenseStore:
+    """`ingest_scatter` without its ledger record: one block's commit
+    inside a step that records itself (the sharded ingest)."""
     if store.lt.is_cuda:
         return _ingest_cuda(store, slots, lt, val, tomb, me)
-    return ingest_scatter_reference(store, slots, lt, val, tomb, me)
+    return _ingest_scatter(store, slots, lt, val, tomb, me)

@@ -63,6 +63,9 @@ class CollectiveJoinResult(NamedTuple):
     levels: Tuple[torch.Tensor, ...]  # post-join digest levels, root-first
 
 
+_obs_device.register("parallel.collective_join")
+
+
 def make_collective_mesh(n_members: int, devices=None) -> FaninMesh:
     """A 1-D ``(member,)`` mesh over ``devices`` (names or
     ``torch.device`` s). ``None`` takes the visible CUDA cards round
@@ -182,12 +185,16 @@ def make_collective_join(mesh: FaninMesh, has_sem: bool, leaf_width: int):
             since, me, canonical_in = args
             sem = None
         _obs_device.note_op("parallel.collective_join")
-        stacked = DenseStore(*(torch.stack([lane.to(home) for lane in lanes])
-                               for lanes in zip(*stores)))
-        return _join_stacked(
-            leaf_width, stacked, sem,
-            torch.as_tensor(since, dtype=torch.int64, device=home),
-            torch.as_tensor(me, dtype=torch.int32, device=home),
-            torch.as_tensor(canonical_in, dtype=torch.int64, device=home))
+        with _obs_device.record("parallel.collective_join",
+                                dim=stores[0].lt.shape[0]):
+            stacked = DenseStore(*(torch.stack([lane.to(home)
+                                                for lane in lanes])
+                                   for lanes in zip(*stores)))
+            return _join_stacked(
+                leaf_width, stacked, sem,
+                torch.as_tensor(since, dtype=torch.int64, device=home),
+                torch.as_tensor(me, dtype=torch.int32, device=home),
+                torch.as_tensor(canonical_in, dtype=torch.int64,
+                                device=home))
 
     return step

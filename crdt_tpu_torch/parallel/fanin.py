@@ -46,11 +46,11 @@ import torch
 from ..hlc import MAX_COUNTER, MAX_DRIFT, SHIFT
 from ..obs import device as obs_device
 from ..ops.dense import (_I32_NEG, _NEG, DenseChangeset, DenseStore,
-                         compact_targets, dense_delta_mask,
-                         dense_max_logical_time, remap_lane, remap_rows)
+                         _delta_mask, _max_logical_time, compact_targets,
+                         remap_lane, remap_rows)
 from ..ops.digest import fold_leaves, slot_digests, tree_levels_from_leaves
 from ..ops.fanin_kernel import fanin_cuda_many, fanin_join_reference
-from ..ops.ingest_kernel import ingest_scatter
+from ..ops.ingest_kernel import ingest_rows
 from ..semantics.kernels import typed_fold, typed_guards, typed_result
 
 REPLICA_AXIS = "replica"
@@ -273,6 +273,30 @@ def block_joins(store: ShardedStore, cs: ShardedChangeset,
     return out
 
 
+_LEDGER_NAMES = (
+    "parallel.sharded_fanin", "parallel.sharded_pallas_fanin",
+    "parallel.sharded_ingest", "parallel.sharded_digest",
+    "parallel.sharded_delta_mask", "parallel.sharded_max_logical_time",
+    "parallel.sharded_compact")
+obs_device.register(*_LEDGER_NAMES)
+
+
+def _record_step(kernel: str, fn):
+    """``fn`` recording each call as one dispatch of ``kernel`` under
+    the global slot count: the JAX package's sharded steps are one
+    program each, and their per-block ops here record nothing of their
+    own (they call the unrecorded bodies)."""
+
+    @functools.wraps(fn)
+    def step(store, *args, **kw):
+        with obs_device.record(kernel,
+                               dim=store.width * len(store.blocks[0])):
+            return fn(store, *args, **kw)
+
+    return step
+
+
+
 def combine_blocks(store: ShardedStore, parts: List[List[tuple]],
                    canonical: torch.Tensor, local_node: int,
                    wall_millis: int
@@ -347,7 +371,11 @@ def make_sharded_fanin(mesh: FaninMesh, *, reference: bool = False):
         return combine_blocks(store, parts, canonical, local_node,
                               wall_millis)
 
-    return step
+    # The kernel's route records the Pallas step's name, as JAX's
+    # `make_sharded_pallas_fanin` does; the plain route the XLA one's.
+    pallas = not reference and mesh.home.type == "cuda"
+    return _record_step("parallel.sharded_pallas_fanin" if pallas
+                        else "parallel.sharded_fanin", step)
 
 
 def make_sharded_ingest(mesh: FaninMesh):
@@ -372,10 +400,10 @@ def make_sharded_ingest(mesh: FaninMesh):
                     loc = rows[dev][0] - k * w
                     local[dev, k] = torch.where((loc < 0) | (loc >= w), w,
                                                 loc)
-                ingest_scatter(blk, local[dev, k], *rows[dev][1:], me)
+                ingest_rows(blk, local[dev, k], *rows[dev][1:], me)
         return store
 
-    return step
+    return _record_step("parallel.sharded_ingest", step)
 
 
 def sharded_delta_mask(mesh: FaninMesh):
@@ -384,10 +412,10 @@ def sharded_delta_mask(mesh: FaninMesh):
     the first device."""
 
     def fn(store: ShardedStore, since_lt) -> torch.Tensor:
-        return torch.cat([dense_delta_mask(b, since_lt).to(mesh.home)
+        return torch.cat([_delta_mask(b, since_lt).to(mesh.home)
                           for b in store.blocks[0]])
 
-    return fn
+    return _record_step("parallel.sharded_delta_mask", fn)
 
 
 def sharded_max_logical_time(mesh: FaninMesh):
@@ -396,10 +424,10 @@ def sharded_max_logical_time(mesh: FaninMesh):
     over the mesh."""
 
     def fn(store: ShardedStore) -> torch.Tensor:
-        return torch.stack([dense_max_logical_time(b).to(mesh.home)
+        return torch.stack([_max_logical_time(b).to(mesh.home)
                             for row in store.blocks for b in row]).amax()
 
-    return fn
+    return _record_step("parallel.sharded_max_logical_time", fn)
 
 
 def _check_leaf_width(width: int, leaf_width: int) -> None:
@@ -451,7 +479,7 @@ def make_sharded_digest(mesh: FaninMesh, leaf_width: int):
                           _shard_sem(sem, k, blk))
             for k, blk in enumerate(store.blocks[0])]))
 
-    return fn
+    return _record_step("parallel.sharded_digest", fn)
 
 
 def make_sharded_compact(mesh: FaninMesh, leaf_width: int):
@@ -493,7 +521,7 @@ def make_sharded_compact(mesh: FaninMesh, leaf_width: int):
                 torch.cat(translation),
                 tree_levels_from_leaves(torch.cat(leaves)))
 
-    return fn
+    return _record_step("parallel.sharded_compact", fn)
 
 
 def make_sharded_typed_fanin(mesh: FaninMesh):
@@ -530,4 +558,4 @@ def make_sharded_typed_fanin(mesh: FaninMesh):
         return ShardedStore(blocks), typed_result(
             new_canonical, torch.cat(wins), cs, any_bad)
 
-    return fn
+    return _record_step("semantics.typed_fanin_step", fn)

@@ -54,6 +54,10 @@ from ..ops.dense import _NEG, DenseChangeset, DenseStore, Scalar
 from ..ops.fanin_kernel import BatchResult
 from ..ops.merge import recv_guards
 
+_obs_device.register(
+    "semantics.typed_wire_join_step", "semantics.typed_sparse_join_step",
+    "semantics.typed_fanin_step")
+
 # Wire tags. LWW MUST be 0: a store with no semantics column is
 # all-zeros by construction, and the packed wire form omits the sem
 # lane entirely for all-LWW stores.
@@ -194,17 +198,18 @@ def typed_wire_join_step(store: DenseStore, sem: torch.Tensor,
     ``stamp_lt`` stamps winners' ``modified`` lanes. For an all-zero
     ``sem`` lane the result equals `wire_join_step`'s. Returns
     ``(store, win)``, ``win`` over the N slots."""
-    _obs_device.note_op("typed_wire_join_step")
-    lt_o, node_o, val_o, tomb_o, occ_o, win = typed_join_lanes(
-        sem, store.lt, store.node, store.val, store.occupied, store.tomb,
-        lt, node, val, tomb, valid)
-    for lane, new in ((store.lt, lt_o), (store.node, node_o),
-                      (store.val, val_o), (store.occupied, occ_o),
-                      (store.tomb, tomb_o)):
-        lane.copy_(new)
-    store.mod_lt.masked_fill_(win, stamp_lt)
-    store.mod_node.masked_fill_(win, local_node)
-    return store, win
+    with _obs_device.record("semantics.typed_wire_join_step", dim=lt.shape[0]):
+        _obs_device.note_op("typed_wire_join_step")
+        lt_o, node_o, val_o, tomb_o, occ_o, win = typed_join_lanes(
+            sem, store.lt, store.node, store.val, store.occupied, store.tomb,
+            lt, node, val, tomb, valid)
+        for lane, new in ((store.lt, lt_o), (store.node, node_o),
+                          (store.val, val_o), (store.occupied, occ_o),
+                          (store.tomb, tomb_o)):
+            lane.copy_(new)
+        store.mod_lt.masked_fill_(win, stamp_lt)
+        store.mod_node.masked_fill_(win, local_node)
+        return store, win
 
 
 def typed_sparse_join_step(store: DenseStore, sem_rows: torch.Tensor,
@@ -224,20 +229,22 @@ def typed_sparse_join_step(store: DenseStore, sem_rows: torch.Tensor,
     so no index of ``n_slots`` reaches the store (on the card it would
     be a device-side assert). Slots must be unique among valid rows.
     Returns ``(store, win)``, ``win`` over the k rows."""
-    _obs_device.note_op("typed_sparse_join_step")
-    at = torch.where(valid, slot, 0)
-    lt_o, node_o, val_o, tomb_o, _occ, win = typed_join_lanes(
-        sem_rows, store.lt[at], store.node[at], store.val[at],
-        store.occupied[at], store.tomb[at], lt, node, val, tomb, valid)
-    s = slot[win]
-    store.lt[s] = lt_o[win]
-    store.node[s] = node_o[win]
-    store.val[s] = val_o[win]
-    store.mod_lt[s] = stamp_lt
-    store.mod_node[s] = local_node
-    store.occupied[s] = True
-    store.tomb[s] = tomb_o[win]
-    return store, win
+    with _obs_device.record("semantics.typed_sparse_join_step",
+                            dim=slot.shape[0]):
+        _obs_device.note_op("typed_sparse_join_step")
+        at = torch.where(valid, slot, 0)
+        lt_o, node_o, val_o, tomb_o, _occ, win = typed_join_lanes(
+            sem_rows, store.lt[at], store.node[at], store.val[at],
+            store.occupied[at], store.tomb[at], lt, node, val, tomb, valid)
+        s = slot[win]
+        store.lt[s] = lt_o[win]
+        store.node[s] = node_o[win]
+        store.val[s] = val_o[win]
+        store.mod_lt[s] = stamp_lt
+        store.mod_node[s] = local_node
+        store.occupied[s] = True
+        store.tomb[s] = tomb_o[win]
+        return store, win
 
 
 def typed_fold(store: DenseStore, sem: torch.Tensor, cs: DenseChangeset,
@@ -276,12 +283,13 @@ def typed_fanin_step(store: DenseStore, sem: torch.Tensor,
     result (`ops.fanin_kernel.BatchResult`), the exact recv flag as
     ``any_dup`` and ``any_drift`` False, so the model's merge tail
     takes either route alike."""
-    _obs_device.note_op("typed_fanin_step")
-    new_canonical, flag = typed_guards(cs, canonical_lt, local_node,
-                                       wall_millis)
-    stamp = new_canonical if stamp_lt is None else stamp_lt
-    new_store, win = typed_fold(store, sem, cs, stamp, local_node)
-    return new_store, typed_result(new_canonical, win, cs, flag)
+    with _obs_device.record("semantics.typed_fanin_step", dim=cs.lt.shape[0]):
+        _obs_device.note_op("typed_fanin_step")
+        new_canonical, flag = typed_guards(cs, canonical_lt, local_node,
+                                           wall_millis)
+        stamp = new_canonical if stamp_lt is None else stamp_lt
+        new_store, win = typed_fold(store, sem, cs, stamp, local_node)
+        return new_store, typed_result(new_canonical, win, cs, flag)
 
 
 def typed_guards(cs: DenseChangeset, canonical_lt: Scalar, local_node: int,

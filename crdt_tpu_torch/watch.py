@@ -11,9 +11,10 @@ do NOT emit as they are staged: change events fire at COMMIT time, one
 event per distinct slot carrying the winning post-dedup value. Ordering
 across flushes follows commit order, which is also HLC order.
 
-The port of ``crdt_tpu/watch.py``: the same hub, streams and async
-bridge, with a plain ``threading`` lock; delivered events count in the
-registry's ``crdt_tpu_watch_events_total``.
+The port of ``crdt_tpu/watch.py``: the same hub, streams, async
+bridge and the serving tier's `WatchIndex`, with a plain
+``threading`` lock; delivered events count in the registry's
+``crdt_tpu_watch_events_total``.
 """
 
 from __future__ import annotations
@@ -225,6 +226,79 @@ class AsyncChangeIterator:
 
     async def __aexit__(self, *exc) -> None:
         self.close()
+
+
+class WatchIndex:
+    """Slot-interest bookkeeping for the serving tier's push-on-flush
+    fan-out (docs/FEDERATION.md): who subscribed to which slots, and —
+    given the slots a flush tick touched — which watchers get the
+    pack. Watchers are opaque handles (the serve loop uses session
+    writer records); slot sets are held both ways so registration,
+    removal and the per-tick interest query all stay proportional to
+    the watcher's own subscriptions, never to the watcher count.
+
+    Single-threaded by design: every call site lives on the tier's
+    serve loop, matching the loop's no-lock threading model.
+    """
+
+    __slots__ = ("_by_slot", "_slots_of", "_all")
+
+    def __init__(self) -> None:
+        self._by_slot: dict = {}     # slot -> set of watchers
+        self._slots_of: dict = {}    # watcher -> frozenset of slots
+        self._all: set = set()       # whole-keyspace watchers
+
+    def __len__(self) -> int:
+        return len(self._slots_of) + len(self._all)
+
+    @property
+    def empty(self) -> bool:
+        return not self._slots_of and not self._all
+
+    def add(self, watcher, slots=None) -> None:
+        """Register ``watcher`` for ``slots`` (an iterable of ints) or
+        the whole keyspace (None). Re-adding replaces the previous
+        subscription."""
+        self.remove(watcher)
+        if slots is None:
+            self._all.add(watcher)
+            return
+        fs = frozenset(int(s) for s in slots)
+        self._slots_of[watcher] = fs
+        for s in fs:
+            self._by_slot.setdefault(s, set()).add(watcher)
+
+    def remove(self, watcher) -> None:
+        """Idempotent deregistration (session close, backpressure
+        shed)."""
+        self._all.discard(watcher)
+        fs = self._slots_of.pop(watcher, None)
+        if fs:
+            for s in fs:
+                group = self._by_slot.get(s)
+                if group is not None:
+                    group.discard(watcher)
+                    if not group:
+                        del self._by_slot[s]
+
+    def watchers(self) -> set:
+        """Every live watcher regardless of slot interest — the set a
+        partition retire must re-home (`ServeTier.rehome_watchers`)."""
+        return self._all | set(self._slots_of)
+
+    def touched(self, slots) -> set:
+        """Watchers interested in ANY of ``slots`` — the fan-out set
+        for one flush tick's pack. Whole-keyspace watchers are always
+        included; slot-filtered watchers join via the per-slot index,
+        so a tick touching k slots costs O(k + matches)."""
+        out = set(self._all)
+        by_slot = self._by_slot
+        if by_slot:
+            for s in slots:
+                group = by_slot.get(int(s))
+                if group:
+                    out.update(group)
+        return out
 
 
 class ChangeHub:

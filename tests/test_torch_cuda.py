@@ -975,3 +975,129 @@ def test_two_member_group_on_a_repeated_card_matches_host(cuda):
         (ck, cv), = c._pack_cache.items()
         assert [a.tobytes() for a in hv[0] if a is not None] == \
             [a.tobytes() for a in cv[0] if a is not None]
+
+
+def _serve_flushes(node):
+    snap = port.default_registry().snapshot()
+    return sum(s["value"] for s in snap["counters"].get(
+        "crdt_tpu_ingest_flush_total", [])
+        if s["labels"].get("node") == node)
+
+
+@pytest.mark.parametrize("n", [1000, 4097])
+def test_serve_tier_on_card_one_scatter_a_flush_and_reads_back(cuda, n):
+    """A `ServeTier` over a card replica: one K2 launch (and one
+    ``pallas.ingest_scatter_tiles`` ledger record) per flush with rows,
+    and every acknowledged write reads back, on the JSON and the binary
+    lane, equal to a host twin given the same writes."""
+    import socket
+    import time
+
+    from crdt_tpu_torch import net
+    from crdt_tpu_torch.obs.device import default_ledger
+    node = f"cuda-serve-{n}"
+    crdt = port.DenseCrdt(node, n, device="cuda")
+    twin = port.DenseCrdt("twin", n, device="cpu")
+    rng = np.random.default_rng(n)
+    slots = rng.choice(n, 40, replace=False).tolist()
+    vals = rng.integers(-2 ** 40, 2 ** 40, 40).tolist()
+    led, f0 = default_ledger().as_dict(), _serve_flushes(node)
+    before = obs_device.launches()
+    with port.ServeTier(crdt, flush_interval=0.002) as tier:
+        with socket.create_connection((tier.host, tier.port),
+                                      timeout=30.0) as sock:
+            for s, v in zip(slots[:20], vals[:20]):
+                net.send_frame(sock, {"op": "put", "slot": s, "value": v})
+                assert net.recv_frame(sock, deadline=time.monotonic()
+                                      + 30.0) == {"ok": True}
+            net.send_frame(sock, {"op": "hello", "proto": 1,
+                                  "caps": ["binop"]})
+            net.recv_frame(sock, deadline=time.monotonic() + 30.0)
+            codec = net.FrameCodec(compress=False)
+            st, _, _ = net.binop_round(sock, [net.BINOP_PUT] * 20,
+                                       slots[20:], vals[20:], codec=codec)
+            assert st.tolist() == [net.BINOP_ST_OK] * 20
+            st, got, _ = net.binop_round(sock, [net.BINOP_GET] * 40, slots,
+                                         [0] * 40, codec=codec)
+            assert got.tolist() == vals
+    torch.cuda.synchronize()
+    flushes = _serve_flushes(node) - f0
+    launched = obs_device.launches()["ingest_scatter"] - \
+        before["ingest_scatter"]
+    recorded = default_ledger().as_dict().get(
+        "pallas.ingest_scatter_tiles", 0) - led.get(
+        "pallas.ingest_scatter_tiles", 0)
+    assert launched == recorded == flushes >= 2
+    for s, v in zip(slots, vals):
+        twin.put_batch([s], [v])
+    for f in ("val", "occupied", "tomb"):
+        assert torch.equal(getattr(crdt.store, f).cpu(),
+                           getattr(twin.store, f))
+
+
+def test_push_dense_to_a_card_tier_launches_k1s_once(cuda):
+    """A ``push_dense`` frame into a card tier merges through one K1s
+    launch, to the lanes of the same push into a host tier."""
+    from crdt_tpu_torch import net
+    from crdt_tpu_torch.testing import FakeClock
+    n = 4097
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(9)
+        tier_crdt = port.DenseCrdt("pd-t", n, device=dev,
+                                   wall_clock=FakeClock())
+        tier_crdt.put_batch(rng.choice(n, 50, replace=False),
+                            np.arange(50))
+        client = port.DenseCrdt("pd-c", n, device="cpu",
+                                wall_clock=FakeClock())
+        client.put_batch(np.arange(0, n, 7), np.arange(0, n, 7) * 3)
+        before = obs_device.launches()["fanin_split"]
+        with port.ServeTier(tier_crdt) as tier:
+            with net.PeerConnection(tier.host, tier.port,
+                                    timeout=30.0) as conn:
+                net.sync_dense_over_conn(client, conn)
+        out[dev] = (tier_crdt, obs_device.launches()["fanin_split"]
+                    - before)
+    assert out["cuda"][1] == 1 and out["cpu"][1] == 0
+    for f in out["cpu"][0].store._fields:
+        assert torch.equal(getattr(out["cuda"][0].store, f).cpu(),
+                           getattr(out["cpu"][0].store, f)), f
+
+
+def test_replica_group_on_card_rejoins_and_converges(cuda):
+    """A three-member group on the card: a killed primary's rejoin
+    counts its catch-up bytes from the card store, and the members end
+    on one digest root with every acked write."""
+    from crdt_tpu_torch.replication import ReplicaGroup
+    with ReplicaGroup(1000, replicas=3, ack_replicas=1,
+                      heartbeat_interval=0.05, heartbeat_timeout=1.0,
+                      lease_misses=3) as group:
+        assert group.device.type == "cuda"
+        cli = port.FederatedClient(group.member_addrs(), timeout=30.0)
+        try:
+            for s in range(0, 64, 4):
+                cli.put(s, s + 1)
+            dead = group.kill_primary()
+            cli.put(500, 5)
+            group.rejoin(dead.index)
+            import time
+            deadline = time.monotonic() + 60.0
+            bump = 0
+            while True:
+                bump += 1
+                cli.put(999, bump)
+                roots = []
+                for m in group.members:
+                    with m.tier.lock:
+                        roots.append(int(m.tier.crdt.digest_tree().root))
+                if len(set(roots)) == 1:
+                    break
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+            for m in group.members:
+                with m.tier.lock:
+                    assert [m.tier.crdt.get(s) for s in range(0, 64, 4)] \
+                        == [s + 1 for s in range(0, 64, 4)]
+                    assert m.tier.crdt.store.lt.is_cuda
+        finally:
+            cli.close()

@@ -292,14 +292,18 @@ def test_cpu_wrappers_of_every_kernel_launch_nothing():
     assert d.get(5) == 50 and int(res.win.sum()) == 3
 
 
-# The JAX package's exports the port does not carry yet (ROADMAP A10 and
-# A11: the serving tier, routing, federation, autoscaling and
-# replication), the Pallas entries of its ops (the port's kernels are in
-# csrc/, behind the same ops), and the port's own module exports.
+# The JAX package's exports the port does not carry yet (the rendering
+# half of `obs`: the fleet's exposition and tables, the trajectory and
+# the Prometheus and trace renderers), the Pallas entries of its ops
+# (the port's kernels are in csrc/, behind the same ops), and the port's
+# own module exports.
 JAX_ONLY = {
-    "crdt_tpu": {"ServeTier", "RoutingTable", "PartitionRouter",
-                 "FederatedTier", "FederatedClient", "Autoscaler",
-                 "ReplicaGroup", "Replicator"},
+    "crdt_tpu": set(),
+    "crdt_tpu.obs": {"render_federation", "format_matrix",
+                     "normalize_record", "append_record",
+                     "load_trajectory", "compare", "render_prometheus",
+                     "render_summary", "summarize_trace",
+                     "format_phase_table"},
     "crdt_tpu.ops": {"SplitStore", "SplitChangeset", "PallasFaninResult",
                      "pallas_fanin_batch", "pallas_fanin_step",
                      "pallas_fanin_stream", "split_store",
