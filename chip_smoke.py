@@ -183,6 +183,30 @@ Phases, in order; any failure raises and exits non-zero:
      through three kills of the primary and rejoins, no acked write
      lost and one digest root on all members; one ``Autoscaler``
      swing, a split and a merge each fenced by its epoch;
+   - path K, the analysis layer on the card: ``python -m
+     crdt_tpu_torch.analysis --json`` in a subprocess (the host lint,
+     the lock-order analysis, the law search over the plain ops and
+     the five merge kernels, the op audit) must come back clean with
+     K1, K1s, K2, K3 and K1p launched; the kernel law targets at the
+     main path's shapes, one seed each, compared on the card (K1, K1s
+     wide and K1p at 2^20 x 128, K3 at 2^20 x 8 x 128 chunks in both
+     guard modes, K2 on a 65,536-row flush); the planted broken join
+     (``tests/torch_broken_merge.py``) must fail the gate; an op script
+     (the main path's 16 flushes, an unpipelined ``merge_many`` of 8 x
+     128 rows, a 65,536-row ``merge_packed``, ``gc_purge`` and the
+     fenced replay, one gossip round between two card nodes) runs on
+     fresh replicas once with ``CRDT_TPU_SANITIZE`` off, then three
+     times each way in the order off, on, on, off, off, on (every run's
+     lanes equal the first's, no ``LatticeViolation``, no lock-order
+     violation, the sanitized nodes' locks ``OrderedLock`` s; each
+     step's on-minus-off host time per pair and its median), a planted
+     lost update must raise; then ``python -m crdt_tpu_torch.obs`` in
+     subprocesses: ``--once`` and ``--once --prom`` against a card
+     node, ``fleet --once`` over both (exit 1: its SLO verdict fails on
+     the ack p99 of path J's acks in this process's registry, and on
+     that check alone), ``--trace`` over the last run's trace JSONL and
+     ``bench --compare`` on the trajectory fixtures, each with the exit
+     code of the CPU tests;
    - path D, the probe entry point (``crdt_tpu_torch.bench``) at the JAX
      CLI's defaults: its seven variants (``full``, ``stream``,
      ``stream-noguard``, ``nojoin``, ``copy``, ``copy-batch``,
@@ -4490,6 +4514,363 @@ def path_j(card: str) -> dict:
                 launches=launches, held_s=held_s)
 
 
+K_LAW_ROWS = ROWS_PER_PASS       # K1, K1s and K1p: the main path's merges
+K_SAN_MERGES = 8                 # the unpipelined merge_many: 8 x 128 rows
+K_PACKED = FLUSH_ROWS            # the merge_packed delta
+K_TRACE = os.path.join("chiprun_out", "path_k_trace.jsonl")
+K_KERNELS = ("fanin_batch", "fanin_split", "ingest_scatter",
+             "fanin_stream", "fanin_batch_sharded")
+# The sanitizer's cost: three on/off pairs, each side at the same mean
+# place in the order (the last run sanitized, for steps 4 and 5).
+K_SAN_ORDER = (False, True, True, False, False, True)
+
+
+def k_cmd(module: str, *argv: str) -> list:
+    """The command line of ``python -m <module> <argv>``."""
+    return [sys.executable, "-m", module, *argv]
+
+
+def k_run(cmd: list, timeout: float = 300.0):
+    """``cmd`` from the checkout's root: (rc, stdout, stderr, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc.returncode, proc.stdout, proc.stderr, \
+        time.perf_counter() - t0
+
+
+def k_gate(card: str) -> dict:
+    """Step 1: the analysis gate in a subprocess, its law and audit
+    targets on the card."""
+    rc, out, err, secs = k_run(k_cmd("crdt_tpu_torch.analysis", "--json"),
+                               timeout=600)
+    check(rc == 0, f"path K: the gate exited {rc}: {out[-2000:]} "
+                   f"{err[-2000:]}")
+    doc = json.loads(out)
+    gate = doc["gate"]
+    check(doc["ok"] and doc["findings"] == [],
+          f"path K: the gate found {doc['findings'][:3]}")
+    launches = {k: gate["law_launches"].get(k, 0)
+                + gate["audit_launches"].get(k, 0) for k in K_KERNELS}
+    check(all(launches[k] > 0 for k in K_KERNELS),
+          f"path K: the gate's kernel launches {launches}")
+    print(f"path K gate: clean; {gate['law_targets']} law targets x "
+          f"{len(gate['seeds'])} seeds, {gate['audit_targets']} audit "
+          f"targets; lint {gate['lint_s']:.3f} s, laws {gate['laws_s']:.3f} "
+          f"s, audit {gate['audit_s']:.3f} s, subprocess {secs:.3f} s; "
+          f"launches {launches} [{card}]")
+    return dict(gate, launches=launches, subprocess_s=secs)
+
+
+def k_laws(card: str) -> dict:
+    """Step 2: the kernel law targets at the main path's shapes, one
+    seed each, compared on the card."""
+    from crdt_tpu_torch.analysis import lattice_laws as laws
+    wide = laws.kernel_targets("cuda", n=N_SLOTS, rows=K_LAW_ROWS,
+                               flush_rows=FLUSH_ROWS, dense=True)
+    stream = laws.kernel_targets("cuda", n=N_SLOTS, rows=STREAM_ROWS,
+                                 chunks=STREAM_CHUNKS, dense=True)
+    pick = ["pallas.model_fanin_batch", "pallas.model_fanin_split[wide]",
+            "pallas.ingest_scatter_tiles", "parallel.pallas_fanin_block"]
+    targets = [t for t in wide if t.name in pick] + [
+        t for t in stream if t.name.startswith("pallas.pallas_fanin_step")]
+    out = {}
+    for t in targets:
+        before = obs_device.launches()
+        t0 = time.perf_counter()
+        found = laws.run_laws([t], seeds=(0,))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(found == [], f"path K: {t.name} broke a law: "
+                           f"{found[0].format()[:2000] if found else ''}")
+        fired = {k: v - before[k] for k, v in obs_device.launches().items()
+                 if v != before[k]}
+        check(fired, f"path K: {t.name} launched no kernel")
+        out[t.name] = dict(s=secs, launches=fired,
+                           laws=2 if t.combine is None else 3)
+        print(f"path K laws {t.name}: {out[t.name]['laws']} laws hold, "
+              f"{secs:.3f} s, launches {fired} [{card}]")
+    return out
+
+
+def k_fixture(card: str) -> dict:
+    """Step 3: the planted broken join must fail the gate."""
+    rc, out, err, secs = k_run(k_cmd("crdt_tpu_torch.analysis",
+                                     "--law-fixture",
+                                     "tests/torch_broken_merge.py"))
+    check(rc == 1 and "violated by broken-mean-join" in out
+          and "violating input" in out,
+          f"path K: the planted fixture exited {rc}: {out[-800:]} "
+          f"{err[-800:]}")
+    head = out.splitlines()[:3]
+    print(f"path K planted fixture: exit {rc} in {secs:.3f} s [{card}]")
+    for line in head:
+        print(f"  {line}")
+    return dict(rc=rc, s=secs, head=head)
+
+
+def k_step(name: str, steps: dict, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    steps[name] = time.perf_counter() - t0
+    return out
+
+
+def k_sanitized(sanitize: bool):
+    """Step 4's op script on fresh replicas, with the sanitizer on or
+    off from before any model is built: the main path's 16 flushes, an
+    unpipelined merge_many of 8 x 128 rows, a 65,536-row merge_packed,
+    gc_purge and the fenced replay of both deltas, one gossip round
+    between two nodes. The tracer writes every run's spans to
+    ``K_TRACE`` (the file holds the last run's), so both sides carry
+    its cost. Returns ``(lanes, steps, (node a, node b))``; the caller
+    stops the nodes."""
+    import random
+
+    from crdt_tpu_torch import GossipNode
+    from crdt_tpu_torch.obs.trace import tracer
+    if sanitize:
+        os.environ["CRDT_TPU_SANITIZE"] = "1"
+    else:
+        os.environ.pop("CRDT_TPU_SANITIZE", None)
+    steps: dict = {}
+    start = MILLIS + 500
+    a = DenseCrdt("k0", N_SLOTS, node_ids=IDS, wall_clock=StepClock(start),
+                  device="cuda")
+    b = DenseCrdt("k1", N_SLOTS, node_ids=IDS,
+                  wall_clock=StepClock(start + 7), device="cuda")
+    ring = tracer()
+    os.makedirs("chiprun_out", exist_ok=True)
+    if os.path.exists(K_TRACE):
+        os.remove(K_TRACE)
+    ring.enable(jsonl_path=K_TRACE)
+    try:
+        def flushes():
+            with a.ingest(auto_flush_rows=FLUSH_ROWS):
+                for f in range(FLUSHES):
+                    a.put_batch(*flush_inputs(f))
+
+        k_step("ingest_16_flushes", steps, flushes)
+        batches = [(make_changeset(ROWS_PER_PASS, N_SLOTS, 4000 + i), IDS)
+                   for i in range(K_SAN_MERGES)]
+        k_step("merge_many_8x128", steps, lambda: a.merge_many(batches))
+        slots, vals, tombs = flush_inputs(99, rows=K_PACKED)
+        b.put_batch(slots, vals, tombs)
+        packed = b.pack_since()
+        k_step("merge_packed_65536", steps,
+               lambda: a.merge_packed(*packed))
+        n_purged = k_step("gc_purge", steps, lambda: a.gc_purge(
+            a.canonical_time, drift_slack_ms=0))
+        check(n_purged > 0, "path K: gc_purge purged nothing")
+
+        def replay():
+            a.merge_many(batches)
+            a.merge_packed(*packed)
+
+        k_step("fenced_replay", steps, replay)
+        na = GossipNode(a, rng=random.Random(7)).start()
+        nb = GossipNode(b, rng=random.Random(7)).start()
+        try:
+            na.add_peer("k1", nb.host, nb.port)
+            nb.add_peer("k0", na.host, na.port)
+            if sanitize:
+                from crdt_tpu_torch.analysis.concurrency import OrderedLock
+                check(isinstance(na.lock, OrderedLock),
+                      "path K: the sanitized node's lock is not an "
+                      "OrderedLock")
+            result = k_step("gossip_round", steps, na.run_round)
+            check(result == {"k1": "ok"}, f"path K: the gossip round {result}")
+        except BaseException:
+            na.stop()
+            nb.stop()
+            raise
+    finally:
+        ring.disable()
+    lanes = {f: torch.cat([getattr(a.store, f).reshape(-1).long(),
+                           getattr(b.store, f).reshape(-1).long()])
+             for f in ("lt", "node", "val", "mod_lt", "mod_node",
+                       "occupied", "tomb")}
+    return lanes, steps, (na, nb)
+
+
+def k_sanitizer_runs(card: str):
+    """The op script once off (a warm-up, whose lanes every later run
+    must equal), then once for each entry of ``K_SAN_ORDER`` (off, on,
+    on, off, off, on): each side holds about the same mean place in the
+    order, so a warm-up or a drift largely cancels out of the paired
+    on-minus-off times. The last run is sanitized, and its nodes stay
+    up for step 5.
+    Returns ``(cost, nodes)``."""
+    ref, _, nodes = k_sanitized(False)
+    for node in nodes:
+        node.stop()
+    order = K_SAN_ORDER
+    runs = {False: [], True: []}
+    nodes = None
+    try:
+        for i, sanitize in enumerate(order):
+            lanes, steps, nodes = k_sanitized(sanitize)
+            if i < len(order) - 1:
+                for node in nodes:
+                    node.stop()
+                nodes = None
+            check(all(torch.equal(lanes[f], ref[f]) for f in lanes),
+                  f"path K: run {i} (sanitizer {'on' if sanitize else 'off'})"
+                  " ended with other lanes than the plain run's")
+            runs[sanitize].append(steps)
+            del lanes
+    except BaseException:
+        if nodes is not None:
+            for node in nodes:
+                node.stop()
+        raise
+    cost = {}
+    for name in runs[True][0]:
+        on = [r[name] for r in runs[True]]
+        off = [r[name] for r in runs[False]]
+        deltas = [x - y for x, y in zip(on, off)]
+        cost[name] = dict(on_s=on, off_s=off, delta_s=deltas,
+                          median_delta_s=float(np.median(deltas)),
+                          median_off_s=float(np.median(off)))
+        print(f"path K sanitizer {name}: on - off median "
+              f"{cost[name]['median_delta_s'] * 1e3:.3f} ms (pairs "
+              f"{', '.join(f'{d * 1e3:.3f}' for d in deltas)} ms), off "
+              f"median {cost[name]['median_off_s']:.4f} s [{card}]")
+    return cost, nodes
+
+
+def k_lock_violations() -> float:
+    from crdt_tpu_torch.obs.registry import default_registry
+    return sum(s["value"] for s in default_registry().counter(
+        "crdt_tpu_lock_order_violations_total").samples())
+
+
+def k_planted() -> str:
+    """A merge whose join keeps the old lanes must raise under the
+    sanitizer on the card."""
+    from crdt_tpu_torch.analysis.sanitizer import LatticeViolation
+    c = DenseCrdt("kc", N_SLOTS, node_ids=IDS, wall_clock=StepClock(MILLIS),
+                  device="cuda")
+    real = c._dispatch_fanin
+
+    def keep_old(cs, wall):
+        _, res, seen, vo, g = real(cs, wall)
+        return c._store, res, seen, vo, g
+
+    c._dispatch_fanin = keep_old
+    cs = make_changeset(ROWS_PER_PASS, N_SLOTS, 4100)
+    try:
+        c.merge(cs, IDS)
+    except LatticeViolation as e:
+        return str(e)
+    raise Failure("path K: a planted lost update did not raise")
+
+
+def k_obs(card: str, nodes) -> dict:
+    """Step 5: the observability command line against the step's card
+    nodes, in subprocesses started together."""
+    na, nb = nodes
+    na.enable_canary(0, 2)
+    nb.enable_canary(1, 2)
+    for _ in range(2):
+        check(na.run_round() == {"k1": "ok"} and nb.run_round() == {
+            "k0": "ok"}, "path K: canary rounds")
+    target = f"{na.host}:{na.port}"
+    spec = f"k0={na.host}:{na.port},k1={nb.host}:{nb.port}"
+    fix = os.path.join("tests", "fixtures")
+    runs = {
+        "once": (["--once", target], 0),
+        "once_prom": (["--once", "--prom", target], 0),
+        # The nodes serve this process's registry, whose ack sketch
+        # holds path J's acks, far over the 4.25-ms budget: the verdict
+        # fails on that check alone (held below).
+        "fleet": (["fleet", "--peers", spec, "--once", "--json"], 1),
+        "trace": (["--trace", K_TRACE], 0),
+        "bench_regressed": (["bench", "--compare",
+                             os.path.join(fix, "trajectory_baseline.jsonl"),
+                             "--candidate",
+                             os.path.join(fix, "trajectory_regressed.jsonl")],
+                            1),
+        "bench_clean": (["bench", "--compare",
+                         os.path.join(fix, "trajectory_baseline.jsonl"),
+                         "--candidate",
+                         os.path.join(fix, "trajectory_clean.jsonl")], 0),
+    }
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        k_cmd("crdt_tpu_torch.obs", *argv), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
+        for name, (argv, _) in runs.items()}
+    out = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            want = runs[name][1]
+            check(proc.returncode == want,
+                  f"path K: obs {name} exited {proc.returncode}, want "
+                  f"{want}: {stdout[-800:]} {stderr[-800:]}")
+            out[name] = dict(rc=proc.returncode, bytes=len(stdout))
+            if name == "fleet":
+                fleet = json.loads(stdout)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    checks = fleet["slo"]["checks"]
+    failing = sorted(k for k, c in checks.items() if c["ok"] is False)
+    ack = checks["ack_p99_s"]
+    check(fleet["matrix"]["complete"] and not fleet["slo"]["scrape_errors"]
+          and failing == ["ack_p99_s"] and ack["source"] == "sketch"
+          and ack["value"] > ack["budget"]
+          and checks["convergence_lag_s"]["ok"] is True,
+          f"path K: the fleet verdict {fleet['slo']}")
+    print(f"path K obs fleet: matrix complete, max lag "
+          f"{fleet['matrix']['max_lag_s']} s; fails only ack_p99_s "
+          f"(sketch {ack['value']:.4f} s > {ack['budget']} s, path J's acks)")
+    exits = ", ".join(f"{k} exit {v['rc']}" for k, v in out.items())
+    print(f"path K obs CLI: {exits}; {secs:.3f} s together [{card}]")
+    return dict(runs=out, s=secs)
+
+
+def path_k(card: str) -> dict:
+    """The analysis gate and the sanitizer on the card (module doc)."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    obs_device.reset()
+    gate = k_gate(card)
+    laws = k_laws(card)
+    fixture = k_fixture(card)
+    violations = k_lock_violations()
+    try:
+        cost, nodes = k_sanitizer_runs(card)
+        try:
+            planted = k_planted()
+            obs = k_obs(card, nodes)
+        finally:
+            for node in nodes:
+                node.stop()
+    finally:
+        os.environ.pop("CRDT_TPU_SANITIZE", None)
+    check(k_lock_violations() == violations,
+          "path K: the sanitized runs counted lock-order violations")
+    print(f"path K planted lost update: {planted[:160]}")
+    torch.cuda.synchronize()
+    launches = obs_device.launches()
+    for k in K_KERNELS:
+        launches[k] += gate["launches"][k]
+    check(all(launches[k] > 0 for k in K_KERNELS),
+          f"path K: launches {launches}")
+    held_s = time.perf_counter() - t0
+    print(f"  path K held {held_s:.2f} s [{card}]")
+    return dict(card=card, n_slots=N_SLOTS, gate=gate, laws=laws,
+                fixture=fixture, sanitizer_cost=cost, planted=planted,
+                obs=obs, launches=launches, held_s=held_s)
+
+
 LOOPS = 48                       # the probe CLI's --loops
 STREAM_REPEATS = 64              # bench.py's --repeats
 
@@ -4663,6 +5044,12 @@ def main() -> int:
           "a four-partition federation through a live split and merge, "
           "three failovers of a replica group, one autoscaler swing) "
           "read back every acknowledged write; K2 one launch a flush")
+    analysis = path_k(card)
+    print("phase 3: path K (the analysis gate on the card, K1, K1s, K2, K3 "
+          "and K1p under the lattice laws at the main path's shapes, the "
+          "planted broken join refused, the sanitizer on the full-size "
+          "op script with the plain runs' lanes, the obs command line "
+          "against card nodes) held")
     probes = path_d(card, results)
     print(f"phase 3: path D (the probe entry point's seven variants, the "
           f"distinct and stream rows) ran; P2 "
@@ -4688,6 +5075,9 @@ def main() -> int:
     # merges through K1s.
     for name in ("fanin_split", "ingest_scatter"):
         results[name]["launches"] += serving["launches"][name]
+    # Path K's gate and law targets launch the five merge kernels.
+    for name in K_KERNELS:
+        results[name]["launches"] += analysis["launches"][name]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -4698,7 +5088,8 @@ def main() -> int:
                   path_a=interchange, path_b=stream, path_c=sharded,
                   path_d=probes, path_e=gossip, path_f=storage,
                   path_g=typed, path_h=wire, path_i=general,
-                  path_j=serving, kernel_detail=results, torch=torch.__version__,
+                  path_j=serving, path_k=analysis, kernel_detail=results,
+                  torch=torch.__version__,
                   held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
@@ -4714,6 +5105,7 @@ def main() -> int:
     print(json.dumps({"path_h": wire}, default=str))
     print(json.dumps({"path_i": general}, default=str))
     print(json.dumps({"path_j": serving}, default=str))
+    print(json.dumps({"path_k": analysis}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

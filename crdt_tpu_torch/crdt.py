@@ -18,8 +18,9 @@ stage as the reference's ``lib/src/crdt.dart:1-170``:
   logical time (crdt.dart:114-121).
 
 Wall-clock reads are injectable (``wall_clock``), so N-replica tests
-are deterministic without sleeps. Not carried over: the JAX package's
-sanitizer check after a merge (its analysis layer is not ported).
+are deterministic without sleeps. Under ``CRDT_TPU_SANITIZE=1`` every
+merge ends with the sanitizer's domination check
+(`analysis.sanitizer.check_scalar_join`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from abc import ABC, abstractmethod
 from typing import Any, Callable, Dict, Generic, List, Optional, TypeVar
 
 from . import crdt_json
+from .analysis import sanitizer as _sanitizer
 from .hlc import Hlc, wall_clock_millis
 from .record import (KeyDecoder, KeyEncoder, Record, ValueDecoder,
                      ValueEncoder)
@@ -164,6 +166,9 @@ class Crdt(ABC, Generic[K, V]):
 
         self._canonical_time = Hlc.send(self._canonical_time,
                                         millis=self._wall_clock())
+
+        if _sanitizer.enabled():
+            _sanitizer.check_scalar_join(self, remote_records)
 
     def _decode_wall_millis(self) -> int:
         """The ONE wall-clock read ``merge_json`` spends on the

@@ -61,12 +61,14 @@ from __future__ import annotations
 import sys
 from collections import OrderedDict
 from contextlib import contextmanager
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import crdt_json
+from ..analysis import sanitizer as _sanitizer
 from ..obs.registry import default_registry
 from ..obs.trace import span
 from ..hlc import (MAX_COUNTER, MAX_DRIFT, SHIFT, ClockDriftException,
@@ -221,6 +223,9 @@ class DenseCrdt:
         self._gc_floor_lt = 0
         self._last_gc_floor_lt = 0
         self._gc_fence = None
+        # Under the sanitizer: ``(purged slots, floor)`` of the GC passes
+        # since the last compaction, on the device, or None.
+        self._gc_purged: Optional[Tuple[torch.Tensor, int]] = None
         self._store = self._adopt_store(n_slots, store)
         if self._store.n_slots != n_slots:
             raise ValueError(f"store holds {self._store.n_slots} slots but "
@@ -483,6 +488,7 @@ class DenseCrdt:
                         order: np.ndarray) -> None:
         """ONE ingest-kernel launch committing rows ``order`` (unique
         slots, in slot order) of a flush."""
+        # crdtlint: disable=scatter-combiner-bypass -- only reached from the combiner's own flush, which IS the barrier
         ingest_scatter(self._writable_store(),
                        *self._flush_lanes(slots, lt, vals, tombs, order),
                        self._local_ordinal())
@@ -611,8 +617,10 @@ class DenseCrdt:
         t, me = self._canonical_time.logical_time, self._local_ordinal()
         store, idx = self._writable_store(), self._to_device(slots)
         if values is None:
+            # crdtlint: disable=scatter-combiner-bypass -- only reached from put_batch / delete_batch after their ingest() branch staged the rows and returned, so no window is open here
             delete_scatter(store, idx, t, me)
         else:
+            # crdtlint: disable=scatter-combiner-bypass -- only reached from put_batch / delete_batch after their ingest() branch staged the rows and returned, so no window is open here
             put_scatter(store, idx, self._to_device(values), t, me,
                         tombs=None if tombs is None
                         else self._to_device(tombs))
@@ -920,12 +928,13 @@ class DenseCrdt:
         # see every occurrence, so the O(1) keyed lookup only serves
         # duplicate-free batches.
         pos = {s: i for i, s in enumerate(sl)}
-        get = None
-        if len(pos) == len(sl):
-            def get(k):
-                i = pos.get(k) if isinstance(k, (int, np.integer)) else None
-                return (False, None) if i is None else (True, vals[i])
-        self._hub.add_batch((sl, vals), get)
+        unique = len(pos) == len(sl)
+
+        def get(k):
+            i = pos.get(k) if isinstance(k, (int, np.integer)) else None
+            return (False, None) if i is None else (True, vals[i])
+
+        self._hub.add_batch((sl, vals), get if unique else None)
 
     def _emit_merge_wins(self, store: DenseStore, win: torch.Tensor
                          ) -> None:
@@ -1034,6 +1043,7 @@ class DenseCrdt:
 
     def _scatter_records(self, slots: np.ndarray,
                          rows: Dict[str, np.ndarray]) -> None:
+        # crdtlint: disable=scatter-combiner-bypass -- only reached from put_slot_records, which drained the ingest window first
         record_scatter(self._writable_store(), self._to_device(slots),
                        **{f: self._to_device(a) for f, a in rows.items()})
 
@@ -1323,6 +1333,13 @@ class DenseCrdt:
         self._last_gc_floor_lt = floor
         self._gc_floor_lt = max(self._gc_floor_lt, floor)
         self._fence_add(purged)
+        if _sanitizer.enabled():
+            # Arm the post-purge resurrection check: every later merge
+            # asserts no recorded slot re-occupies at or below the floor
+            # (sanitizer.check_dense_no_resurrection). The record stays
+            # on the device; compaction remaps slots and retires it.
+            slots = torch.nonzero(self._fence_mask()).reshape(-1)
+            self._gc_purged = (slots, floor)
         if n_purged and self._sem is not None:
             typed = self._purged_host(purged) & (self._sem != 0)
             if typed.any():
@@ -1404,6 +1421,7 @@ class DenseCrdt:
         if new_sem is not None:
             self._set_sem(new_sem.cpu().numpy())
         self._set_fence(None)
+        self._gc_purged = None   # the slots it recorded moved
         # Seed AFTER the store swap (which cleared the cache) and the
         # tags' version bump, under the key the next `digest_tree`
         # builds.
@@ -1738,6 +1756,18 @@ class DenseCrdt:
                 raise ClockDriftException(bad_lt >> SHIFT, wall)
         self._store = new_store
         self._store_escaped = False
+        if _sanitizer.enabled():
+            # Wide post-state check against the merged rows. The window
+            # branch above is exempt BY CONTRACT: it promises no host
+            # sync per merge, which a verdict on the host would break —
+            # sanitize soaks run unpipelined.
+            g_lt, g_node, g_valid = guard_lanes()
+            store = self._gathered()
+            _sanitizer.check_dense_join(store, SimpleNamespace(
+                lt=g_lt, node=g_node, valid=g_valid))
+            if self._gc_purged is not None:
+                _sanitizer.check_dense_no_resurrection(
+                    store, *self._gc_purged)
         self.stats.records_adopted += win_count
         self._emit_merge_wins(new_store, res.win)
         self._canonical_time = Hlc.send(
@@ -2132,6 +2162,14 @@ class DenseCrdt:
             win, slot_aligned, repack_mask = self._dispatch_columns(
                 slots, lt, node, val, tomb, new_canonical, my_ord,
                 repack_since_lt)
+        if _sanitizer.enabled():
+            # Slots are unique on this path (the merge's own contract),
+            # so the payload-order domination check is well-defined.
+            store = self._gathered()
+            _sanitizer.check_dense_sparse_join(store, slots, lt, node)
+            if self._gc_purged is not None:
+                _sanitizer.check_dense_no_resurrection(
+                    store, *self._gc_purged)
         if self._hub.active:
             win_h = win.cpu().numpy()
             # The wide join's win is per SLOT: back to payload order.
@@ -2144,6 +2182,7 @@ class DenseCrdt:
 
             # Slots are unique here, so a queried slot matches at most
             # one payload row.
+            # crdtlint: disable=add-batch-unique-keys -- duplicate slots are collapsed last-wins by the callers before reaching here (the unique-slot contract above)
             self._hub.add_batch(
                 lambda: ([int(slots[i]) for i in widx],
                          [value_at(i) for i in widx]),
@@ -2336,8 +2375,10 @@ class ShardedDenseCrdt(DenseCrdt):
                 dev = blk.lt.device
                 idx = torch.tensor(slots[sel] - k * w, device=dev)
                 if values is None:
+                    # crdtlint: disable=scatter-combiner-bypass -- only reached from put_batch / delete_batch after their ingest() branch staged the rows and returned, so no window is open here
                     delete_scatter(blk, idx, t, me)
                 else:
+                    # crdtlint: disable=scatter-combiner-bypass -- only reached from put_batch / delete_batch after their ingest() branch staged the rows and returned, so no window is open here
                     put_scatter(blk, idx, torch.tensor(values[sel],
                                                        device=dev), t, me,
                                 tombs=None if tombs is None
@@ -2349,6 +2390,7 @@ class ShardedDenseCrdt(DenseCrdt):
         for k, sel in self._by_shard(slots):
             for blk in self._store.column(k):
                 dev = blk.lt.device
+                # crdtlint: disable=scatter-combiner-bypass -- only reached from put_slot_records, which drained the ingest window first
                 record_scatter(
                     blk, torch.tensor(slots[sel] - k * w, device=dev),
                     **{f: torch.tensor(a[sel], device=dev)

@@ -239,6 +239,7 @@ class WriteCombiner:
         svals = [None if t else decode(s, v)
                  for s, v, t in zip(sl, vals.tolist(), tombs.tolist())]
         pos = {s: i for i, s in enumerate(sl)}
+        # crdtlint: disable=add-batch-unique-keys -- slots are deduplicated last-wins by flush() before reaching here, so the batch repeats no key
         hub.add_batch(lambda: (sl, svals),
                       lambda q: ((True, svals[pos[q]])
                                  if isinstance(q, (int, np.integer))

@@ -8,7 +8,11 @@
   ``metrics`` op returns, the `trace` ring and its spans (a
   ``torch.profiler.record_function`` range each), the flight
   `recorder` behind ``debug_dump``, the gossip `lag` helpers and the
-  canary `probe`.
+  canary `probe`;
+- the rendering of what they hold, copied too: the Prometheus and
+  human `render` ers and the trace summary, the `fleet` poller's lag
+  matrix, SLO verdict and federation exposition, and the bench
+  `trajectory`; ``python -m crdt_tpu_torch.obs`` drives them (`cli`).
 """
 
 from __future__ import annotations
@@ -20,8 +24,13 @@ from .recorder import FlightRecorder, default_recorder
 from .trace import TraceRing, round_id, span, tracer
 from .lag import health_status, lag_entry, lag_millis
 from .probe import CanaryProbe, canary_observed
-from .fleet import evaluate_slo, lag_matrix, poll_fleet
+from .fleet import (evaluate_slo, format_matrix, lag_matrix,
+                    poll_fleet, render_federation)
 from .device import DispatchLedger, default_ledger, pow2_bucket
+from .trajectory import (append_record, compare, load_trajectory,
+                         normalize_record)
+from .render import (format_phase_table, render_prometheus,
+                     render_summary, summarize_trace)
 
 
 def metrics_snapshot() -> dict:
@@ -38,6 +47,10 @@ __all__ = [
     "TraceRing", "tracer", "span", "round_id",
     "lag_millis", "lag_entry", "health_status",
     "CanaryProbe", "canary_observed",
-    "poll_fleet", "lag_matrix", "evaluate_slo",
+    "poll_fleet", "lag_matrix", "evaluate_slo", "render_federation",
+    "format_matrix",
     "DispatchLedger", "default_ledger", "pow2_bucket",
+    "normalize_record", "append_record", "load_trajectory", "compare",
+    "render_prometheus", "render_summary", "summarize_trace",
+    "format_phase_table",
 ]

@@ -124,7 +124,7 @@ class DispatchLedger:
     dispatch from different threads into the same ledger.
     """
 
-    # Lock-discipline contract, kept for the sanitizer (not ported yet).
+    # Lock-discipline contract, read by the crdtlint analyzers.
     _CRDTLINT_GUARDED = {"_lock": ("_counts", "_compiled", "_registered")}
     # The ledger lock releases before the metric incs (`_dispatch`), so
     # nothing ever nests inside it.

@@ -1,10 +1,10 @@
 """Fleet evaluation: N replicas' ``metrics`` ops → lag matrix + SLO verdict.
 
-Port of the evaluation half of ``crdt_tpu/obs/fleet.py``: the same
-pure functions over the same snapshot dicts, so a fleet of this
-package's tiers is judged exactly as the JAX package judges its own.
-The rendering half (`render_federation`, the ``format_*`` tables and
-the ``fleet`` command line) is not ported yet.
+Port of ``crdt_tpu/obs/fleet.py``: the same pure functions over the
+same snapshot dicts, so a fleet of this package's tiers is judged and
+rendered exactly as the JAX package judges and renders its own —
+``python -m crdt_tpu_torch.obs fleet --peers a=h:p,b=h:p [--once]``
+scrapes the ``metrics`` wire op across the fleet.
 
 - **Lag matrix** — per-(origin, observer) end-to-end replication lag
   from the canary beats (`obs.probe`):
@@ -35,6 +35,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
+from .render import _fmt, _labels, _table
 from .sketch import QuantileSketch, merge_sketches, sketch_from_sample
 
 # Default budgets, the JAX package's own, kept equal so both packages
@@ -354,3 +355,274 @@ def evaluate_slo(snapshots: Dict[str, dict],
             bool(matrix.get("complete")),
             "scrape_errors": scrape_errors,
             "replication": health, "ok": ok}
+
+
+def render_federation(snapshots: Dict[str, dict],
+                      matrix: Optional[Dict[str, Any]] = None) -> str:
+    """Aggregated Prometheus exposition of the fleet-level series;
+    every series carries an ``instance`` (or origin/observer) label so
+    same-named per-replica series cannot collide."""
+    if matrix is None:
+        matrix = lag_matrix(snapshots)
+    lines: List[str] = []
+    lines.append("# TYPE crdt_tpu_fleet_up gauge")
+    for name, snap in sorted(snapshots.items()):
+        up = int(isinstance(snap, dict)
+                 and "_scrape_error" not in snap)
+        lines.append(f"crdt_tpu_fleet_up"
+                     f"{_labels({'instance': name})} {up}")
+    if matrix["origins"]:
+        lines.append("# TYPE crdt_tpu_canary_lag_seconds gauge")
+        for o in matrix["origins"]:
+            for w, v in sorted(matrix["lag_s"][o].items()):
+                if v is None:
+                    continue
+                lines.append(
+                    f"crdt_tpu_canary_lag_seconds"
+                    f"{_labels({'origin': o, 'observer': w})} "
+                    f"{_fmt(v)}")
+    emitted_type = False
+    for name, snap in sorted(snapshots.items()):
+        if not isinstance(snap, dict):
+            continue
+        for s in snap.get("histograms", {}).get(
+                "crdt_tpu_serve_ack_seconds", []):
+            v = histogram_quantile(s, 0.99)
+            if v is None or math.isinf(v):
+                continue
+            if not emitted_type:
+                lines.append(
+                    "# TYPE crdt_tpu_fleet_ack_p99_seconds gauge")
+                emitted_type = True
+            lines.append(f"crdt_tpu_fleet_ack_p99_seconds"
+                         f"{_labels(dict(s['labels'], instance=name))}"
+                         f" {_fmt(v)}")
+    # Sketch-true ack quantiles: per-instance p99 plus the merged
+    # fleet summary. These sit NEXT to the bucket-ceiling gauge above
+    # — the two disagreeing (ceiling 31.25 ms, sketch 16 ms) is the
+    # signal the log2 family cannot express, made visible.
+    emitted_type = False
+    for name, snap in sorted(snapshots.items()):
+        sk = instance_sketch(snap)
+        if sk is None:
+            continue
+        v = sk.quantile(0.99)
+        if v is None:
+            continue
+        if not emitted_type:
+            lines.append(
+                "# TYPE crdt_tpu_fleet_ack_p99_sketch_seconds gauge")
+            emitted_type = True
+        lines.append(f"crdt_tpu_fleet_ack_p99_sketch_seconds"
+                     f"{_labels({'instance': name})} {_fmt(v)}")
+    fleet_ack = fleet_sketch(snapshots)
+    if fleet_ack is not None and fleet_ack.count > 0:
+        lines.append("# TYPE crdt_tpu_fleet_ack_seconds summary")
+        for q in (0.5, 0.9, 0.99):
+            lines.append(
+                f"crdt_tpu_fleet_ack_seconds"
+                f"{_labels({'quantile': f'{q:g}'})} "
+                f"{_fmt(fleet_ack.quantile(q))}")
+        lines.append(f"crdt_tpu_fleet_ack_seconds_count "
+                     f"{fleet_ack.count}")
+        lines.append(f"crdt_tpu_fleet_ack_seconds_sum "
+                     f"{_fmt(fleet_ack.sum)}")
+    emitted_type = False
+    for name, snap in sorted(snapshots.items()):
+        if not isinstance(snap, dict):
+            continue
+        for s in snap.get("counters", {}).get(
+                "crdt_tpu_serve_shed_total", []):
+            if not emitted_type:
+                lines.append(
+                    "# TYPE crdt_tpu_fleet_shed_total counter")
+                emitted_type = True
+            lines.append(f"crdt_tpu_fleet_shed_total"
+                         f"{_labels(dict(s['labels'], instance=name))}"
+                         f" {_fmt(s['value'])}")
+    health = replica_health(snapshots)
+    if health["groups"]:
+        lines.append("# TYPE crdt_tpu_fleet_replica_primary gauge")
+        for g, members in sorted(health["groups"].items()):
+            for inst, m in sorted(members.items()):
+                lines.append(
+                    f"crdt_tpu_fleet_replica_primary"
+                    f"{_labels({'group': g, 'instance': inst})} "
+                    f"{int(m.get('role') == 'primary')}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+def format_replicas(health: Dict[str, Any]) -> str:
+    """Human-readable per-group replica table (role, lease, head);
+    empty string when no snapshot carried a ``replication`` section."""
+    if not health["groups"]:
+        return ""
+    headers = ["group", "instance", "role", "lease_ms", "hlc_head"]
+    rows = []
+    for g, members in sorted(health["groups"].items()):
+        for inst, m in sorted(members.items()):
+            lease = m.get("lease_ms")
+            rows.append([g, inst, str(m.get("role")),
+                         "-" if lease is None else f"{lease:.0f}",
+                         str(m.get("hlc_head") or "-")])
+    text = "\n".join(_table(headers, rows)) + "\n"
+    missing = health["groups_without_primary"]
+    if missing:
+        text += ("NO LIVE PRIMARY: " + ", ".join(missing) + "\n")
+    return text
+
+
+def format_partitions(snapshots: Dict[str, dict]) -> str:
+    """Human-readable per-partition table from the ``partition``
+    sections of scraped (or in-process) metrics snapshots, ranked by
+    committed-row load (rank 1 = hottest) with the last scale action
+    each partition took part in — the at-a-glance view of what the
+    autoscaler has been doing. Empty string when no snapshot carries
+    a partition section. Pure."""
+    parts = []
+    for name, snap in snapshots.items():
+        if isinstance(snap, dict) and isinstance(
+                snap.get("partition"), dict):
+            parts.append((name, snap["partition"]))
+    if not parts:
+        return ""
+    parts.sort(key=lambda kv: (
+        -(kv[1].get("rows_committed") or 0), kv[0]))
+    # Both ack p99 estimates side by side: the histogram's bucket
+    # ceiling and the sketch's relative-error value. When they
+    # disagree (ceiling 31.25 ms vs sketch 16 ms) the gap is the
+    # log2 quantization — visible here instead of silent.
+    headers = ["rank", "instance", "addr", "epoch", "slots", "rows",
+               "queue", "shed", "p99ceil_ms", "p99_ms", "last_scale"]
+    rows = []
+    for rank, (name, p) in enumerate(parts, 1):
+        ls = p.get("last_scale") or {}
+        last = str(ls.get("action") or "-")
+        if ls.get("epoch") is not None:
+            last += f"@e{ls['epoch']}"
+        snap = snapshots.get(name)
+        ceil = None
+        if isinstance(snap, dict):
+            for s in snap.get("histograms", {}).get(ACK_HIST_NAME,
+                                                    []):
+                v = histogram_quantile(s, 0.99)
+                if v is not None:
+                    ceil = v if ceil is None else max(ceil, v)
+        sk = instance_sketch(snap) if isinstance(snap, dict) else None
+        true_p99 = sk.quantile(0.99) if sk is not None else None
+        rows.append([str(rank), name, str(p.get("addr")),
+                     str(p.get("epoch")), str(p.get("slots")),
+                     str(p.get("rows_committed")),
+                     str(p.get("queue_depth")), str(p.get("shed")),
+                     "-" if ceil is None or math.isinf(ceil)
+                     else f"{ceil * 1e3:.1f}",
+                     "-" if true_p99 is None
+                     else f"{true_p99 * 1e3:.1f}",
+                     last])
+    return "\n".join(_table(headers, rows)) + "\n"
+
+
+def format_storage(snapshots: Dict[str, dict]) -> str:
+    """Human-readable storage-plane table: per-instance stability
+    watermark (``PINNED`` when any peer is unmeasured — tombstone GC
+    is parked, docs/STORAGE.md), the last purge floor, and the
+    live/tombstone split of shipped transfer bytes (migrate + rejoin
+    surfaces summed). The split is the payoff metric: post-GC donors
+    should ship ~zero tombstone bytes. Empty string when no snapshot
+    carries storage-plane data. Pure."""
+    rows = []
+    for name, snap in sorted(snapshots.items()):
+        if not isinstance(snap, dict):
+            continue
+        st = snap.get("stability")
+        ctrs = snap.get("counters", {})
+        live = sum(s["value"] for s in ctrs.get(
+            "crdt_tpu_shipped_live_bytes_total", []))
+        tomb = sum(s["value"] for s in ctrs.get(
+            "crdt_tpu_shipped_tombstone_bytes_total", []))
+        if not isinstance(st, dict) and not live and not tomb:
+            continue
+        if isinstance(st, dict):
+            mark = ("PINNED" if st.get("pinned")
+                    else str(st.get("stability_hlc") or "-"))
+            floor = str(st.get("gc_floor") or "-")
+        else:
+            mark, floor = "-", "-"
+        rows.append([name, mark, floor,
+                     str(int(live)), str(int(tomb))])
+    if not rows:
+        return ""
+    headers = ["instance", "stability", "gc_floor",
+               "shipped_live_B", "shipped_tomb_B"]
+    return "\n".join(_table(headers, rows)) + "\n"
+
+
+def format_matrix(matrix: Dict[str, Any]) -> str:
+    """Human-readable (origin × observer) lag table, seconds."""
+    if not matrix["origins"]:
+        return "no canary data\n"
+    headers = ["origin\\observer"] + list(matrix["observers"])
+    rows = []
+    for o in matrix["origins"]:
+        row = [o]
+        for w in matrix["observers"]:
+            v = matrix["lag_s"][o].get(w)
+            row.append("-" if v is None else f"{v:.3f}")
+        rows.append(row)
+    return "\n".join(_table(headers, rows)) + "\n"
+
+
+def fleet_main(argv: Optional[List[str]] = None, out=None) -> int:
+    """``python -m crdt_tpu_torch.obs fleet`` entry point. Returns the exit
+    code CI gates on: 0 iff the SLO verdict is ok (with ``--once``)."""
+    import argparse
+    import json
+    import sys
+    import time
+
+    ap = argparse.ArgumentParser(
+        prog="python -m crdt_tpu_torch.obs fleet",
+        description="scrape a replica fleet into a canary lag matrix "
+                    "and SLO verdict")
+    ap.add_argument("--peers", required=True,
+                    help="comma list of [name=]host:port")
+    ap.add_argument("--once", action="store_true",
+                    help="poll once and exit (exit 1 on SLO breach)")
+    ap.add_argument("--interval", type=float, default=5.0)
+    ap.add_argument("--timeout", type=float, default=5.0)
+    ap.add_argument("--json", action="store_true",
+                    help="emit {matrix, slo} JSON per poll")
+    ap.add_argument("--prom", action="store_true",
+                    help="emit Prometheus federation text per poll")
+    ap.add_argument("--ack-budget", type=float,
+                    default=ACK_P99_BUDGET_S,
+                    help="serve ack p99 budget, seconds")
+    ap.add_argument("--lag-budget", type=float,
+                    default=CONVERGENCE_BUDGET_S,
+                    help="convergence lag budget, seconds")
+    args = ap.parse_args(argv)
+    out = sys.stdout if out is None else out
+    peers = parse_peers(args.peers)
+
+    while True:
+        snapshots = poll_fleet(peers, timeout=args.timeout)
+        matrix = lag_matrix(snapshots)
+        verdict = evaluate_slo(
+            snapshots, matrix, ack_p99_budget_s=args.ack_budget,
+            convergence_budget_s=args.lag_budget)
+        if args.json:
+            out.write(json.dumps({"matrix": matrix,
+                                  "slo": verdict}) + "\n")
+        elif args.prom:
+            out.write(render_federation(snapshots, matrix))
+        else:
+            out.write(format_matrix(matrix))
+            out.write(format_replicas(verdict["replication"]))
+            out.write(format_partitions(snapshots))
+            out.write(format_storage(snapshots))
+            out.write(f"slo ok={verdict['ok']} "
+                      f"{json.dumps(verdict['checks'])}\n")
+        out.flush()
+        if args.once:
+            return 0 if verdict["ok"] else 1
+        time.sleep(args.interval)

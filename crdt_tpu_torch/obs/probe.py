@@ -15,7 +15,7 @@ measures it end to end, through the real write path:
 - Every replica exposes :meth:`~CanaryProbe.observed` — the last-seen
   canary millis per origin — through the ``metrics`` wire op (the
   ``canary`` section `GossipNode` contributes).
-- The fleet poller (`crdt_tpu.obs.fleet`, not ported yet) scrapes those sections into
+- The fleet poller (`obs.fleet`) scrapes those sections into
   a per-(origin, observer) lag matrix:
   ``lag(o, w) = newest_beat(o) − observed(w)[o]``.
 

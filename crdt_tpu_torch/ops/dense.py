@@ -40,8 +40,8 @@ _I32_NEG = -(2 ** 31)
 
 # The dispatch ledger's names for the wrappers below, as the JAX
 # package's XLA route records them (its `dense.fanin_stream` is the
-# XLA model route for wide changesets, which the port's model does not
-# take). Each wrapper records one dispatch; callers inside another
+# stream replay's, recorded by `ops.stream_kernel.fanin_stream`). Each
+# wrapper records one dispatch; callers inside another
 # recorded step use the unrecorded bodies (`_delta_mask`,
 # `_max_logical_time`, `_ingest_scatter`).
 _obs_device.register(

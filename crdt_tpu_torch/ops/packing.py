@@ -191,6 +191,7 @@ def pack_rows(delta) -> Tuple[dict, List[memoryview]]:
         want = np.dtype(dtype)
         if not (isinstance(lane, np.ndarray) and lane.dtype == want
                 and lane.ndim == 1 and lane.flags.c_contiguous):
+            # crdtlint: disable=pack-path-extra-copy -- normalizing a foreign lane (wrong dtype/layout) is the one legitimate pack-path copy; counted below so regressions still surface
             lane = np.ascontiguousarray(np.asarray(lane), want)
             copied += lane.nbytes
         arrs.append(lane)

@@ -276,10 +276,21 @@ def fanin_stream(store: DenseStore, cs: DenseChangeset,
                  ) -> Tuple[DenseStore, StreamResult]:
     """``n_chunks`` replays of ``cs`` into a fresh copy of ``store`` in
     one call (see the module docstring): the hand kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    fn = _fanin_stream_cuda if store.lt.is_cuda else fanin_stream_reference
-    return fn(store, cs, canonical_lt, local_node, wall_millis,
-              n_chunks=n_chunks, guards=guards)
+    tensors, the plain version for CPU tensors. The ledger records one
+    dispatch of the whole replay under the JAX route's name: the plain
+    route as ``dense.fanin_stream``, a kernel launch as the Pallas
+    entry ``pallas.pallas_fanin_stream``."""
+    if store.lt.is_cuda:
+        fn, name = _fanin_stream_cuda, "pallas.pallas_fanin_stream"
+    else:
+        fn, name = fanin_stream_reference, "dense.fanin_stream"
+    with _obs_device.record(name, dim=n_chunks * cs.lt.shape[0]):
+        return fn(store, cs, canonical_lt, local_node, wall_millis,
+                  n_chunks=n_chunks, guards=guards)
+
+
+_obs_device.register("dense.fanin_stream")
+_obs_device.register("pallas.pallas_fanin_stream")
 
 
 def fanin_step(store: DenseStore, cs: DenseChangeset, canonical_lt: Scalar,

@@ -10,9 +10,11 @@ between user values and the int64 lane form that
 type-canonical lane value of an event ``(lt, node)`` that seeded law
 tests draw from.
 
-The JAX package's specs also build an analysis law target and a jaxpr
-audit target for its CI gate; this package has no analysis layer yet,
-so ``law_target`` and ``audit_target`` are None here.
+Each spec also builds the analysis gate's targets at its tag
+(``law_target(device)``, a seeded law target over
+`kernels.typed_wire_join_step`, and ``audit_target(device)``, an op
+audit target over the same join): registering a type is what puts it
+under ``python -m crdt_tpu_torch.analysis``.
 """
 
 from __future__ import annotations
@@ -35,9 +37,11 @@ class SemanticsSpec:
     encode: Callable[[object], int]
     decode: Callable[[int], object]
     law_val: Callable[[object, object], object]
-    law_target: Optional[Callable[[], object]] = None
-    audit_target: Optional[Callable[[], object]] = None
+    law_target: Optional[Callable[..., object]] = None
+    audit_target: Optional[Callable[..., object]] = None
 
+
+_LAW_N = 64   # store width for registry-generated law targets
 
 _REGISTRY: Dict[str, SemanticsSpec] = {}
 _BY_TAG: Dict[int, SemanticsSpec] = {}
@@ -147,11 +151,98 @@ def _mvreg_decode(lane: int) -> Tuple[int, ...]:
     return tuple(v for v in vals if v)
 
 
+# --- registry-driven law / audit target generation ---
+
+
+def _typed_law_target(spec: SemanticsSpec, device="cpu"):
+    """Seeded-law target over `typed_wire_join_step` with a constant
+    ``sem`` lane at this spec's tag, on ``device``. The generator
+    derives lane values through ``spec.law_val`` — type-canonical AND
+    deterministic from (lt, node), the event-uniqueness invariant the
+    law harness requires. ``combine`` is the typed join applied
+    delta-vs-delta (`kernels.combine_wire_deltas`), so
+    non-associativity cannot hide behind a hand-written merge."""
+    import numpy as np
+    import torch
+    from ..analysis.lattice_laws import (LawTarget, _LOCAL_NODE, _WALL,
+                                         _clone, _extract_store,
+                                         _wire_lanes)
+    from ..ops.dense import empty_dense_store
+    from . import kernels
+
+    device = torch.device(device)
+    sem = np.full(_LAW_N, spec.tag, np.int8)
+    sem_dev = torch.as_tensor(sem).to(device)
+
+    def gen(rng):
+        millis = rng.integers(1, 1 << 20, size=_LAW_N)
+        counter = rng.integers(0, 4, size=_LAW_N)
+        lt = ((millis << 16) | counter).astype(np.int64)
+        node = rng.integers(1, 5, size=_LAW_N).astype(np.int32)
+        val = np.asarray(spec.law_val(lt, node), np.int64)
+        tomb = ((lt ^ node) & 1).astype(bool)
+        valid = rng.integers(0, 2, size=_LAW_N).astype(bool)
+        return {"lt": np.where(valid, lt, 0),
+                "node": np.where(valid, node, 0).astype(np.int32),
+                "val": np.where(valid, val, 0),
+                "tomb": valid & tomb, "valid": valid}
+
+    def apply(store, batch):
+        new_store, _win = kernels.typed_wire_join_step(
+            _clone(store), sem_dev, *_wire_lanes(batch, device),
+            _WALL << 16, _LOCAL_NODE)
+        return new_store
+
+    return LawTarget(
+        name=f"semantics.{spec.name}.typed_wire_join",
+        fresh=lambda: empty_dense_store(_LAW_N, device),
+        gen=gen, apply=apply, extract=_extract_store,
+        combine=lambda a, b: kernels.combine_wire_deltas(sem, a, b),
+        notes=f"registry-generated for tag {spec.tag}; all three laws")
+
+
+def _typed_audit_target(spec: SemanticsSpec, device="cpu"):
+    """Op audit target over the typed wire join at this tag —
+    elementwise, so a scatter or float reduce appearing here is a
+    regression by definition."""
+    import torch
+    from ..analysis.op_audit import AuditTarget
+    from ..ops.dense import empty_dense_store
+    from . import kernels
+
+    device = torch.device(device)
+
+    def build():
+        n = _LAW_N
+
+        def z(dtype):
+            return torch.zeros(n, dtype=dtype, device=device)
+
+        return kernels.typed_wire_join_step, (
+            empty_dense_store(n, device),
+            torch.full((n,), spec.tag, dtype=torch.int8, device=device),
+            z(torch.int64), z(torch.int32), z(torch.int64), z(torch.bool),
+            z(torch.bool), 0, 0)
+
+    return AuditTarget(
+        name=f"semantics.{spec.name}.typed_wire_join",
+        notes=f"registry-generated; elementwise typed join at "
+              f"tag {spec.tag}",
+        build=build)
+
+
 def _spec(name: str, tag: int, doc: str, encode, decode,
           law_val) -> SemanticsSpec:
-    return register(SemanticsSpec(name=name, tag=tag, doc=doc,
-                                  encode=encode, decode=decode,
-                                  law_val=law_val))
+    # The factories close over the spec being built (late binding):
+    # they only run when analysis asks for targets, well after
+    # registration completes.
+    spec = SemanticsSpec(
+        name=name, tag=tag, doc=doc, encode=encode, decode=decode,
+        law_val=law_val,
+        law_target=lambda device="cpu": _typed_law_target(spec, device),
+        audit_target=lambda device="cpu": _typed_audit_target(spec,
+                                                               device))
+    return register(spec)
 
 
 # --- the five shipped semantics ---

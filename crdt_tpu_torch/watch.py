@@ -12,18 +12,20 @@ event per distinct slot carrying the winning post-dedup value. Ordering
 across flushes follows commit order, which is also HLC order.
 
 The port of ``crdt_tpu/watch.py``: the same hub, streams, async
-bridge and the serving tier's `WatchIndex`, with a plain
-``threading`` lock; delivered events count in the registry's
+bridge and the serving tier's `WatchIndex`, with the bridge's lock made
+by `utils.concurrency.make_lock` under the JAX package's contract name
+and rank; delivered events count in the registry's
 ``crdt_tpu_watch_events_total``.
 """
 
 from __future__ import annotations
 
 import asyncio
-import threading
 import weakref
 from collections import deque
 from typing import Any, Callable, List, NamedTuple, Optional
+
+from .utils.concurrency import make_lock
 
 
 # Change events delivered to live subscribers, process-wide. Created
@@ -159,13 +161,20 @@ class AsyncChangeIterator:
     dropped iterator detaches on garbage collection.
     """
 
+    # crdtlint lock-discipline contract: the pending buffer is touched
+    # only under self._lock (enforced by analysis.host_lint).
+    _CRDTLINT_GUARDED = {"_lock": ("_pending",)}
+    # Checked by analysis/concurrency.py: singleton leaf — no other
+    # lock is ever taken inside the handoff critical section.
+    _CRDTLINT_LOCK_ORDER = ("_lock",)
+
     _CLOSE = object()
 
     def __init__(self, stream: ChangeStream):
         self._pending: deque = deque()
         self._queue: Optional[asyncio.Queue] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
-        self._lock = threading.Lock()
+        self._lock = make_lock("AsyncChangeIterator._lock", 60)
         self._closed = False
         # Subscribe through a weak shim so the hub never keeps an
         # abandoned iterator alive.
@@ -211,6 +220,7 @@ class AsyncChangeIterator:
 
     async def __anext__(self) -> ChangeEvent:
         if self._queue is None:
+            # crdtlint: disable=async-blocking-call -- bounded handoff: the critical section is a few deque ops, and emitters never block inside it
             with self._lock:
                 self._loop = asyncio.get_running_loop()
                 self._queue = asyncio.Queue()

@@ -328,9 +328,16 @@ def test_fanin_stream_kernel_matches_plain(cuda, case, n, rows, n_chunks,
         store, cs, canonical = closed_inputs(case, rows, n_chunks, n=n)
         local, wall = LOCAL, WALL
     obs_device.reset()
+    led = obs_device.default_ledger()
+    before = led.as_dict()
     k = stream_kernel.fanin_stream(*on(cuda, store, cs), canonical, local,
                                    wall, n_chunks=n_chunks, guards=guards)
     assert obs_device.launches()["fanin_stream"] == 1
+    # The ledger names the route: the Pallas entry for a kernel launch.
+    route = "pallas.pallas_fanin_stream" if torch.device(cuda).type == \
+        "cuda" else "dense.fanin_stream"
+    assert {n: v - before.get(n, 0) for n, v in led.as_dict().items()
+            if v != before.get(n, 0)} == {route: 1}
     p = stream_kernel.fanin_stream(*on("cpu", store, cs), canonical, local,
                                    wall, n_chunks=n_chunks, guards=guards)
     for a, b in zip(list(k[0]) + list(k[1]), list(p[0]) + list(p[1])):
@@ -1101,3 +1108,84 @@ def test_replica_group_on_card_rejoins_and_converges(cuda):
                     assert m.tier.crdt.store.lt.is_cuda
         finally:
             cli.close()
+
+
+# --- the analysis gate's kernel law targets and the sanitizer ---------
+
+
+KERNEL_LAW_KERNELS = {
+    "pallas.model_fanin_batch": "fanin_batch",
+    "pallas.model_fanin_split[wide]": "fanin_split",
+    "pallas.model_fanin_split[narrow]": "fanin_split",
+    "pallas.pallas_fanin_step[exact]": "fanin_stream",
+    "pallas.pallas_fanin_step[fast]": "fanin_stream",
+    "pallas.ingest_scatter_tiles": "ingest_scatter",
+    "parallel.pallas_fanin_block": "fanin_batch_sharded",
+}
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("name", sorted(KERNEL_LAW_KERNELS))
+def test_kernel_law_target_holds_on_the_card(cuda, name, dense):
+    """Each hand kernel under the three laws (K2: two) at a small odd
+    shape, launched, and equal to the same target's plain run."""
+    from crdt_tpu_torch.analysis import lattice_laws as laws
+    kw = dict(n=258, rows=5, chunks=3, flush_rows=33, dense=dense)
+    card, = [t for t in laws.kernel_targets(cuda, **kw) if t.name == name]
+    host, = [t for t in laws.kernel_targets("cpu", **kw) if t.name == name]
+    obs_device.reset()
+    assert laws.run_laws([card], seeds=(0, 1)) == []
+    assert obs_device.launches()[KERNEL_LAW_KERNELS[name]] > 0
+    for seed in (0, 1):
+        rng_c, rng_h = np.random.default_rng(seed), np.random.default_rng(seed)
+        a_c = card.gen(rng_c)
+        a_h = host.gen(rng_h) if not dense else _to_cpu(a_c)
+        got = card.extract(card.apply(card.fresh(), a_c))
+        want = host.extract(host.apply(host.fresh(), a_h))
+        for f in want:
+            assert torch.equal(got[f].cpu(), want[f]), (name, f)
+
+
+def _to_cpu(batch):
+    if isinstance(batch, dict):
+        return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                for k, v in batch.items()}
+    return type(batch)(*(x.cpu() for x in batch))
+
+
+def test_sanitized_k1_merge_on_the_card(cuda, monkeypatch):
+    """A K1 merge, a packed merge, GC and the fenced replay under the
+    sanitizer on the card: no violation, one K1 launch a wide merge,
+    the host twin's lanes; a planted lost update raises."""
+    from crdt_tpu_torch.analysis.sanitizer import LatticeViolation
+    from crdt_tpu_torch.testing import FakeClock
+    monkeypatch.setenv("CRDT_TPU_SANITIZE", "1")
+    lanes_out = {}
+    for dev in (cuda, "cpu"):
+        a = port.DenseCrdt("a", 1001, device=dev, wall_clock=FakeClock())
+        b = port.DenseCrdt("b", 1001, device=dev, wall_clock=FakeClock())
+        a.put_batch(list(range(0, 1001, 7)), list(range(143)))
+        a.delete_batch(list(range(0, 1001, 21)))
+        b.put_batch([3, 500], [1, 2])
+        obs_device.reset()
+        b.merge(*a.export_delta())
+        assert obs_device.launches()["fanin_batch"] == (dev == cuda)
+        packed = a.pack_since()
+        b.merge_packed(*packed)
+        b.gc_purge(b.canonical_time, drift_slack_ms=0)
+        b.merge(*a.export_delta())
+        lanes_out[str(dev)] = {f: getattr(b.store, f).cpu()
+                               for f in ("lt", "node", "val", "occupied",
+                                         "tomb")}
+    for f, lane in lanes_out["cpu"].items():
+        assert torch.equal(lanes_out[str(cuda)][f], lane), f
+    c = port.DenseCrdt("c", 1001, device=cuda, wall_clock=FakeClock())
+    real = c._dispatch_fanin
+
+    def keep_old(cs, wall):
+        _, res, seen, vo, g = real(cs, wall)
+        return c._store, res, seen, vo, g
+
+    monkeypatch.setattr(c, "_dispatch_fanin", keep_old)
+    with pytest.raises(LatticeViolation, match="merged changeset"):
+        c.merge(*a.export_delta())

@@ -292,18 +292,14 @@ def test_cpu_wrappers_of_every_kernel_launch_nothing():
     assert d.get(5) == 50 and int(res.win.sum()) == 3
 
 
-# The JAX package's exports the port does not carry yet (the rendering
-# half of `obs`: the fleet's exposition and tables, the trajectory and
-# the Prometheus and trace renderers), the Pallas entries of its ops
-# (the port's kernels are in csrc/, behind the same ops), and the port's
-# own module exports.
+# The JAX package's exports the port does not carry: the Pallas entries
+# of its ops (the port's kernels are in csrc/, behind the same ops); and
+# the port's own module exports.
 JAX_ONLY = {
     "crdt_tpu": set(),
-    "crdt_tpu.obs": {"render_federation", "format_matrix",
-                     "normalize_record", "append_record",
-                     "load_trajectory", "compare", "render_prometheus",
-                     "render_summary", "summarize_trace",
-                     "format_phase_table"},
+    "crdt_tpu.analysis": set(),
+    "crdt_tpu.obs": set(),
+    "crdt_tpu.semantics": set(),
     "crdt_tpu.ops": {"SplitStore", "SplitChangeset", "PallasFaninResult",
                      "pallas_fanin_batch", "pallas_fanin_step",
                      "pallas_fanin_stream", "split_store",
@@ -312,7 +308,13 @@ JAX_ONLY = {
                      "TILE"},
     "crdt_tpu.utils": set(),
 }
-PORT_ONLY = {"crdt_tpu": {"parallel", "semantics"}}
+PORT_ONLY = {
+    # the JAX package's subpackages it does not re-export at the top
+    "crdt_tpu": {"parallel", "semantics"},
+    # the typed join of two wire deltas, which the JAX package keeps in
+    # `semantics.kernels` and its law targets import from there
+    "crdt_tpu.semantics": {"combine_wire_deltas"},
+}
 
 
 @pytest.mark.parametrize("name", sorted(JAX_ONLY))

@@ -70,8 +70,10 @@ def test_registry_matches_jax():
     for t, j in zip(tsem.all_semantics(), jsem.all_semantics()):
         assert (t.name, t.tag, t.doc) == (j.name, j.tag, j.doc)
         assert tsem.get_semantics(t.name) is t and tsem.by_tag(t.tag) is t
-        # law_target / audit_target build analysis targets in JAX only.
-        assert t.law_target is None and t.audit_target is None
+        # law_target / audit_target build the analysis gate's targets,
+        # under the JAX package's names.
+        assert t.law_target("cpu").name == j.law_target().name
+        assert t.audit_target("cpu").name == j.audit_target().name
     for const in ("SEM_LWW", "SEM_GCOUNTER", "SEM_PNCOUNTER", "SEM_ORSET",
                   "SEM_MVREG", "ORSET_UNIVERSE", "ORSET_MAX_LEN", "MVREG_K",
                   "MVREG_MAX"):
