@@ -207,6 +207,28 @@ Phases, in order; any failure raises and exits non-zero:
      that check alone), ``--trace`` over the last run's trace JSONL and
      ``bench --compare`` on the trajectory fixtures, each with the exit
      code of the CPU tests;
+   - path L, the group join and the sharded model across cards, run
+     when two or more cards are visible, on up to four (one card prints
+     ``path L: not run: 1 card visible, it needs 2``; paths main to K
+     run on the first card whatever the count): three groups of four
+     ``DenseCrdt`` s at 2^20 seeded by path I's flushes, member i on
+     card i (the default mesh: NCCL across the cards), the same members
+     on the same cards through the funnel twin, and four members on
+     the first card (the stacked route); 32 rounds of 256 rows a
+     member, four rounds of 65,536 rows, ``sync_collective`` and four
+     typed rounds (path I's, then three of typed ops), each join of the
+     cards' group held bit for bit against the other two (report,
+     lanes, clocks, seeded packs), its members' lanes on their own cards
+     and nothing through the funnel; each join's host time, the
+     profiler off, every NCCL collective's first call made before the
+     timed rounds; one more round of each kind under the profiler for
+     the busy and NCCL time a card; three ``GossipNode`` s with the collective
+     lane across two cards and loopback packed rounds of 256 rows; then
+     path C's script on ``ShardedDenseCrdt`` at 2^20 on (2, 2), (4, 1)
+     and (1, 4) over the cards, four replicas over two cards and (2, 2)
+     on one card, each against one unsharded run (lanes, clock, the
+     exception, the delta, the digest root, every replica copy; K1p
+     one launch a card and merge);
    - path D, the probe entry point (``crdt_tpu_torch.bench``) at the JAX
      CLI's defaults: its seven variants (``full``, ``stream``,
      ``stream-noguard``, ``nojoin``, ``copy``, ``copy-batch``,
@@ -299,6 +321,12 @@ class StepClock:
         return self.t
 
 
+def one_card(n: int) -> list:
+    """``n`` mesh positions on the first card: paths main to K run on
+    one card however many are visible (path L spreads over them)."""
+    return ["cuda:0"] * n
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -365,9 +393,11 @@ def device_ms(fn) -> dict:
 
 
 def max_abs_err(a, b) -> int:
-    """Largest |a - b| over paired tensors, exact in int64."""
+    """Largest |a - b| over paired tensors, exact in int64 (``b``'s on
+    ``a``'s device)."""
     err = 0
     for x, y in zip(a, b):
+        y = y.to(x.device)
         check(x.shape == y.shape and x.dtype == y.dtype,
               f"shape/dtype mismatch {x.shape} {x.dtype} vs {y.shape} "
               f"{y.dtype}")
@@ -941,7 +971,7 @@ def kernel_fanin_sharded(results: dict) -> None:
     with the plain per-block join and against the unsharded K1 merge of
     the same inputs, with ties planted across the replica-shard
     boundary; timed beside the same blocks as four one-block launches."""
-    mesh = parallel.make_fanin_mesh(2, 2)
+    mesh = parallel.make_fanin_mesh(2, 2, one_card(4))
     store = make_store(N_SLOTS, 11)
     cs = make_changeset(ROWS_PER_PASS, N_SLOTS, 12)
     plant_ties(store, cs)
@@ -1002,7 +1032,7 @@ def kernel_fanin_sharded(results: dict) -> None:
         sep_runs += graph_ms(separate, iters=10)
     call_ms = cuda_ms(joins, iters=10)
     comb_runs = graph_ms(lambda: parallel.fanin.combine_blocks(
-        sstore, parts, canonical, local, wall), iters=5)
+        sstore, parts, canonical, local, wall, mesh), iters=5)
     step = parallel.make_sharded_fanin(mesh)
     step_ms = cuda_ms(lambda: step(sstore, scs, *args), iters=5)
     k1_runs = graph_ms(lambda: fanin_kernel.fanin_cuda_many(
@@ -1750,7 +1780,7 @@ def sharded_ops(crdt, n: int, flushes: int, flush_rows: int,
     with crdt.ingest(auto_flush_rows=flush_rows) as wc:
         for f in range(flushes):
             crdt.put_batch(*flush_inputs(f, n, flush_rows))
-    torch.cuda.synchronize()
+    sync_all()
     out["ingest_s"] = time.perf_counter() - t0
     check(wc.flushes == flushes, f"expected {flushes} flushes, got "
                                  f"{wc.flushes}")
@@ -1828,8 +1858,10 @@ def path_c(card: str) -> dict:
     replica copy equal."""
     runs = []
     for shape, n, flushes, flush_rows, passes in SHARDED_RUNS:
-        mesh = (parallel.make_multislice_fanin_mesh(*shape)
-                if len(shape) == 3 else parallel.make_fanin_mesh(*shape))
+        devices = one_card(int(np.prod(shape)))
+        mesh = (parallel.make_multislice_fanin_mesh(*shape, devices)
+                if len(shape) == 3 else
+                parallel.make_fanin_mesh(*shape, devices))
         start = MILLIS + 500
         crdt = ShardedDenseCrdt("n0", n, mesh, node_ids=IDS,
                                 wall_clock=StepClock(start))
@@ -2815,7 +2847,7 @@ def g_sharded(steps: dict) -> tuple:
     fan-in (each copy of each key shard folds its columns; no K1p).
     Returns the pair, for `sharded_storage` (the digest tree and the
     compaction) at the path's end: it resets the launch counters."""
-    mesh = parallel.make_fanin_mesh(2, 2)
+    mesh = parallel.make_fanin_mesh(2, 2, one_card(4))
     s = ShardedDenseCrdt("s0", N_SLOTS, mesh, wall_clock=StepClock(MILLIS))
     u = g_replica("s0", "cuda")
     g_type(s)
@@ -3420,8 +3452,9 @@ def i_step(name: str, steps: dict, fn):
 
 
 def i_lanes_equal(card, host) -> bool:
-    """Every lane of a card store equals its host twin's."""
-    return max_abs_err(card, [x.to("cuda") for x in host]) == 0
+    """Every lane of a card store equals its twin's (on the host or
+    another card)."""
+    return max_abs_err(card, host) == 0
 
 
 def i_shadow_equal(a, b) -> bool:
@@ -3573,22 +3606,25 @@ def i_member(node_id: str, device, flushes) -> DenseCrdt:
     return crdt
 
 
-def i_groups_equal(card, host, rc, rh, what: str) -> None:
-    """A card group against its host twin group: the report, and each
-    member's lanes, clock and seeded pack."""
+def i_groups_equal(card, host, rc, rh, what: str, path: str = "I") -> None:
+    """A card group against its twin group (on the host, or another
+    route): the report, and each member's lanes, clock and seeded
+    pack."""
     check((rc.new_canonical, rc.win_counts, rc.digest_root, rc.members)
           == (rh.new_canonical, rh.win_counts, rh.digest_root, rh.members)
           and rc.bytes_to_wire == 0,
-          f"path I: {what}: the report differs from the host group's")
+          f"path {path}: {what}: the report differs from the twin group's")
     for c, h in zip(card.members, host.members):
         check(i_lanes_equal(c._store, h._store)
               and c.canonical_time == h.canonical_time,
-              f"path I: {what}: member {c.node_id} differs from its twin")
+              f"path {path}: {what}: member {c.node_id} differs from its "
+              "twin")
         packs = [[None if a is None else a.tobytes() for a in m._pack_cache[
             next(iter(m._pack_cache))][0]] for m in (c, h)]
         check(len(c._pack_cache) == len(h._pack_cache) == 1
               and packs[0] == packs[1],
-              f"path I: {what}: member {c.node_id}'s seeded pack differs")
+              f"path {path}: {what}: member {c.node_id}'s seeded pack "
+              "differs")
 
 
 def i_join(group) -> tuple:
@@ -3623,7 +3659,7 @@ def i_collective(steps: dict) -> dict:
     flushes = [range(4 * i, 4 * i + 4) for i in range(I_MEMBERS)]
     card = CollectiveGroup(
         [i_member(f"m{i}", "cuda", flushes[i]) for i in range(I_MEMBERS)],
-        mesh=make_collective_mesh(I_MEMBERS))
+        mesh=make_collective_mesh(I_MEMBERS, one_card(I_MEMBERS)))
     host = CollectiveGroup(
         [i_member(f"m{i}", "cpu", flushes[i]) for i in range(I_MEMBERS)])
     check(list(card.mesh.devices) == [torch.device("cuda:0")] * I_MEMBERS,
@@ -3681,46 +3717,62 @@ def i_collective(steps: dict) -> dict:
                 digest_root=rc.digest_root, typed=typed)
 
 
+def i_typed_slots() -> list:
+    """Path G's four typed spans' first op slots no seed flush wrote, so
+    an OR-set lane starts empty."""
+    seeded = set()
+    for i in range(I_MEMBERS):
+        seeded.update(flush_inputs(i)[0].tolist())
+    return [[s for s in range(*g_span(t)) if s not in seeded][:I_MEMBERS]
+            for t in range(4)]
+
+
+def i_typed_member(i: int, device, free: list):
+    """Typed member ``i``: path G's tags, one encoded flush, then typed
+    ops on shared and own slots (the mvreg slot at an equal lt
+    everywhere)."""
+    g, p, o, v = free
+    crdt = g_replica(f"t{i}", device)
+    with crdt.ingest(auto_flush_rows=FLUSH_ROWS):
+        crdt.put_batch(*g_flush_rows(900 + i, flush_inputs(i)[0]))
+    crdt.counter_add(g[i], 5 + i)
+    crdt.counter_add(p[i], 3 - 2 * i)
+    crdt.orset_add(o[0], i)
+    crdt.orset_add(o[1], 2 * i)
+    crdt.mvreg_put(v[0], 100 + i)
+    return crdt
+
+
+def i_typed_reads(members, free: list, what: str) -> None:
+    g, _, o, v = free
+    check(members[0].mvreg_get(v[0]) == tuple(sorted(
+        (100 + i for i in range(I_MEMBERS)), reverse=True))
+          and members[1].orset_members(o[0]) == frozenset(range(I_MEMBERS))
+          and all(c.counter_value(g[i]) == 5 + i
+                  for c in members for i in range(I_MEMBERS)),
+          f"{what}: typed reads after the join: "
+          f"{members[0].mvreg_get(v[0])}")
+
+
 def i_typed_round(steps: dict) -> dict:
     """Four typed members on path G's tags, each seeded by one encoded
     flush, with typed ops on shared and own slots (the mvreg slot at an
     equal lt everywhere), joined once: `_typed_group_val` runs."""
     from crdt_tpu_torch import CollectiveGroup
     from crdt_tpu_torch.parallel import make_collective_mesh
-    seeded = set()
-    for i in range(I_MEMBERS):
-        seeded.update(flush_inputs(i)[0].tolist())
-    # Op slots no seed flush wrote, so an OR-set lane starts empty.
-    free = [[s for s in range(*g_span(t)) if s not in seeded][:I_MEMBERS]
-            for t in range(4)]
-    g, p, o, v = free
-
-    def member(i, device):
-        crdt = g_replica(f"t{i}", device)
-        with crdt.ingest(auto_flush_rows=FLUSH_ROWS):
-            crdt.put_batch(*g_flush_rows(900 + i, flush_inputs(i)[0]))
-        crdt.counter_add(g[i], 5 + i)
-        crdt.counter_add(p[i], 3 - 2 * i)
-        crdt.orset_add(o[0], i)
-        crdt.orset_add(o[1], 2 * i)
-        crdt.mvreg_put(v[0], 100 + i)
-        return crdt
-
-    groups = [CollectiveGroup([member(i, "cuda") for i in range(I_MEMBERS)],
-                              mesh=make_collective_mesh(I_MEMBERS)),
-              CollectiveGroup([member(i, "cpu") for i in range(I_MEMBERS)])]
+    free = i_typed_slots()
+    groups = [CollectiveGroup([i_typed_member(i, "cuda", free)
+                               for i in range(I_MEMBERS)],
+                              mesh=make_collective_mesh(
+                                  I_MEMBERS, one_card(I_MEMBERS))),
+              CollectiveGroup([i_typed_member(i, "cpu", free)
+                               for i in range(I_MEMBERS)])]
     rc, s, calls = i_step("collective_join_typed", steps,
                           lambda: i_join(groups[0]))
     check(calls == 1, "path I: the typed round's join calls")
     i_groups_equal(groups[0], groups[1], rc, groups[1].join(),
                    "the typed round")
-    m = groups[0].members
-    check(m[0].mvreg_get(v[0]) == tuple(sorted(
-        (100 + i for i in range(I_MEMBERS)), reverse=True))
-          and m[1].orset_members(o[0]) == frozenset(range(I_MEMBERS))
-          and all(c.counter_value(g[i]) == 5 + i
-                  for c in m for i in range(I_MEMBERS)),
-          f"path I: typed reads after the join: {m[0].mvreg_get(v[0])}")
+    i_typed_reads(groups[0].members, free, "path I")
     return dict(join_s=s, adopted=rc.adopted)
 
 
@@ -3739,7 +3791,8 @@ def i_gossip(steps: dict, join_s: float) -> dict:
     nodes = [GossipNode(c, rng=random.Random(7)).start() for c in reps]
     try:
         n0, n1, nr = nodes
-        group = CollectiveGroup(reps[:2], mesh=make_collective_mesh(2),
+        group = CollectiveGroup(reps[:2],
+                                mesh=make_collective_mesh(2, one_card(2)),
                                 addresses={"g0": f"{n0.host}:{n0.port}",
                                            "g1": f"{n1.host}:{n1.port}"})
         n0.attach_group(group)
@@ -4871,6 +4924,412 @@ def path_k(card: str) -> dict:
                 obs=obs, launches=launches, held_s=held_s)
 
 
+# --- path L: the group join and the sharded model across the cards ---
+
+L_MAX_CARDS = 4                  # the cards path L spreads over, at most
+L_MIN_CARDS = 2
+L_LOOPBACK = 8                   # loopback-packed rounds beside the joins
+L_AGAIN = 4                      # timed 65,536-row rounds, and typed rounds
+# (name, mesh shape, each position's card or None for round robin).
+L_SHARDED = (("2x2", (2, 2), None), ("4x1", (4, 1), None),
+             ("1x4", (1, 4), None),
+             ("4x1_on_2_cards", (4, 1), (0, 1, 0, 1)),
+             ("2x2_one_card", (2, 2), (0, 0, 0, 0)))
+
+
+def l_card(i: int) -> str:
+    return f"cuda:{i}"
+
+
+def sync_all() -> None:
+    """Wait for every visible card (``torch.cuda.synchronize()`` waits
+    for the current one only)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def l_join(group) -> tuple:
+    """One group join: its report, host seconds (every card synced on
+    both sides), join calls and `parallel.comm` tally."""
+    from crdt_tpu_torch.parallel import comm
+    before = obs_device.op_launches()["parallel.collective_join"]
+    tally = dict(comm.TALLY)
+    sync_all()
+    t0 = time.perf_counter()
+    report = group.join()
+    sync_all()
+    s = time.perf_counter() - t0
+    return (report, s,
+            obs_device.op_launches()["parallel.collective_join"] - before,
+            {k: v - tally.get(k, 0) for k, v in comm.TALLY.items()})
+
+
+def l_profiled(fn, cards: int) -> tuple:
+    """``fn()`` under ``torch.profiler``: host seconds, and per card its
+    busy time, device operations and NCCL kernels' time (each device
+    event counted on its ``device_index``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync_all()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync_all()
+        host_s = time.perf_counter() - t0
+    busy, nccl, ops = [0.0] * cards, [0.0] * cards, [0] * cards
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or not 0 <= e.device_index < cards:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        busy[e.device_index] += ms
+        ops[e.device_index] += 1
+        if "nccl" in e.name.lower():
+            nccl[e.device_index] += ms
+    seen = any(ops)
+    return out, dict(host_s=host_s, device_ms=busy if seen else None,
+                     device_ops=ops, nccl_ms=nccl if seen else None,
+                     idle_share=[1 - b / 1e3 / host_s for b in busy]
+                     if seen else None)
+
+
+def l_group_sets(cards: int, make) -> dict:
+    """Three groups of four members, member ``i`` built by ``make(i,
+    device)``: ``cards`` (member i on card i mod ``cards``, the default
+    mesh: NCCL across the cards), ``funnel`` (the same cards, the funnel
+    twin) and ``one_card`` (every member on the first card, the stacked
+    route)."""
+    from crdt_tpu_torch import CollectiveGroup
+    from crdt_tpu_torch.parallel import make_collective_mesh
+    spread = [l_card(i % cards) for i in range(I_MEMBERS)]
+    return dict(
+        cards=CollectiveGroup([make(i, d) for i, d in enumerate(spread)]),
+        funnel=CollectiveGroup(
+            [make(i, d) for i, d in enumerate(spread)],
+            mesh=make_collective_mesh(I_MEMBERS, spread, funnel=True)),
+        one_card=CollectiveGroup(
+            [make(i, l_card(0)) for i in range(I_MEMBERS)],
+            mesh=make_collective_mesh(I_MEMBERS, [l_card(0)] * I_MEMBERS)))
+
+
+def l_joins(sets: dict, what: str, steps: dict = None) -> dict:
+    """One join of each group, each held against the cards' group bit
+    for bit: report, every member's lanes, clock and seeded pack. The
+    cards' group must keep each member on its own card and move nothing
+    through the funnel. Returns each group's seconds, the profiler off;
+    given ``steps``, the cards' join runs under the profiler instead,
+    into ``steps[what]`` (an extra round, its seconds not returned)."""
+    cards = len({m.device for m in sets["cards"].members})
+    out, reports = {}, {}
+    for name, group in sets.items():
+        if name == "cards" and steps is not None:
+            (rep, s, calls, moved), row = l_profiled(
+                lambda: l_join(group), cards)
+            row["comm"] = moved
+            steps[what] = row
+            g_report(what, row if row["device_ms"] is None else dict(
+                row, device_ms=sum(row["device_ms"]),
+                device_ops=sum(row["device_ops"]),
+                idle_share=min(row["idle_share"])), "L")
+            print(f"  path L {what} per card: busy {row['device_ms']} ms, "
+                  f"NCCL {row['nccl_ms']} ms, {moved.get('nccl_calls', 0)} "
+                  f"NCCL calls, {moved.get('nccl_bytes_a_card', 0)} B a "
+                  "card")
+        else:
+            rep, s, calls, moved = l_join(group)
+            out[name] = s
+        check(calls == 1, f"path L: {what}: {name} made {calls} join calls")
+        if name == "cards":
+            check(moved.get("funnel_bytes", 0) == 0
+                  and (moved.get("nccl_calls", 0) > 0)
+                  == (group.mesh.layout.route == "nccl"),
+                  f"path L: {what}: the cards' join moved {moved}")
+            for i, m in enumerate(group.members):
+                check(all(lane.device == torch.device(l_card(i % cards))
+                          for lane in m._store),
+                      f"path L: {what}: member {m.node_id} left its card")
+        reports[name] = rep
+    for name in ("one_card", "funnel"):
+        i_groups_equal(sets["cards"], sets[name], reports["cards"],
+                       reports[name], f"{what} against {name}", path="L")
+    return dict(out, digest_root=reports["cards"].digest_root,
+                adopted=reports["cards"].adopted)
+
+
+def l_rounds(sets: dict, what: str, rounds: int, write, steps: dict
+             ) -> dict:
+    """``rounds`` timed rounds of ``write(sets, r)`` then a join of each
+    group, the profiler off, then one more under the profiler into
+    ``steps[what]``: each group's seconds a round, in order."""
+    times = {k: [] for k in sets}
+    for r in range(rounds):
+        write(sets, r)
+        for k, s in l_joins(sets, f"{what} {r}").items():
+            if k in times:
+                times[k].append(s)
+    write(sets, rounds)
+    l_joins(sets, what, steps)
+    return times
+
+
+def l_warm(layout, n: int) -> None:
+    """Every NCCL collective the joins issue, once on ``layout``'s cards
+    at ``n`` int64 slots: torch builds a communicator per card list, and
+    NCCL sets up each kind of collective, at its first call."""
+    from crdt_tpu_torch.parallel import comm
+    blocks = [torch.zeros((len(g), n), dtype=torch.int64, device=d)
+              for g, d in zip(layout.groups, layout.devices)]
+    for op in (comm.pmax, comm.pmin, comm.psum, comm.all_gather):
+        op(layout, blocks)
+    sync_all()
+
+
+def l_collective(cards: int, steps: dict) -> dict:
+    """The group join across the cards (module doc): 32 rounds of 256
+    rows a member, `L_AGAIN` rounds of 65,536 rows, `sync_collective`
+    and `L_AGAIN` typed rounds, each on the three `l_group_sets` groups,
+    the profiler off; one more profiled round of each kind."""
+    from crdt_tpu_torch.parallel import comm
+    from crdt_tpu_torch.sync import sync_collective
+    flushes = [range(4 * i, 4 * i + 4) for i in range(I_MEMBERS)]
+    sets = l_group_sets(
+        cards, lambda i, d: i_member(f"m{i}", d, flushes[i]))
+    routes = {k: g.mesh.layout.route for k, g in sets.items()}
+    check(routes == dict(cards="nccl" if comm.nccl_built() else "funnel",
+                         funnel="funnel", one_card="local"),
+          f"path L: routes {routes}")
+    first = l_joins(sets, "the first join")     # communicators built here
+    l_warm(sets["cards"].mesh.layout, N_SLOTS)
+    rng = np.random.default_rng(1000)
+    lww = lambda rows: lambda groups, r: i_write(
+        [g.members for g in groups.values()], rng, rows)
+    times = l_rounds(sets, "collective_join_256", I_ROUNDS,
+                     lww(I_ROUND_ROWS), steps)
+    big = l_rounds(sets, "collective_join_65536", L_AGAIN, lww(FLUSH_ROWS),
+                   steps)
+    i_write([g.members for g in sets.values()], rng, I_ROUND_ROWS)
+    calls = obs_device.op_launches()["parallel.collective_join"]
+    synced = {k: sync_collective(g) for k, g in sets.items()}
+    check(obs_device.op_launches()["parallel.collective_join"] - calls == 3,
+          "path L: sync_collective made more than one join a group")
+    for k in ("one_card", "funnel"):
+        i_groups_equal(sets["cards"], sets[k], synced["cards"], synced[k],
+                       f"sync_collective against {k}", path="L")
+    del sets
+    free = i_typed_slots()
+    typed_sets = l_group_sets(cards, lambda i, d: i_typed_member(i, d, free))
+
+    def typed_write(groups: dict, r: int) -> None:
+        """Round 0 joins the seeded members (path I's typed round; their
+        reads checked after); later rounds add typed ops a member."""
+        if r == 1:
+            i_typed_reads(groups["cards"].members, free, "path L")
+        if r == 0:
+            return
+        g, p, _, v = free
+        for group in groups.values():
+            for i, m in enumerate(group.members):
+                m.counter_add(g[i], r)
+                m.counter_add(p[i], -r)
+                m.mvreg_put(v[0], 1000 * r + i)
+
+    typed = l_rounds(typed_sets, "collective_join_typed", L_AGAIN,
+                     typed_write, steps)
+    del typed_sets
+    med = lambda runs: {k: float(np.median(v)) for k, v in runs.items()}
+    medians = med(times)
+    print(f"  path L group join, 4 x 2^20, {I_ROUND_ROWS} rows a member, "
+          f"median of {I_ROUNDS}: {cards} cards "
+          f"{medians['cards'] * 1e3:.3f} ms ({routes['cards']}), funnel "
+          f"{medians['funnel'] * 1e3:.3f} ms, one card "
+          f"{medians['one_card'] * 1e3:.3f} ms")
+    for what, runs in (("65,536-row", big), ("typed", typed)):
+        print(f"  path L {what} join, median of {L_AGAIN}: " + ", ".join(
+            f"{k} {v * 1e3:.3f} ms" for k, v in med(runs).items()))
+    return dict(members=I_MEMBERS, rounds=I_ROUNDS, rows=I_ROUND_ROWS,
+                routes=routes, join_s_median=medians,
+                join_s_min={k: min(v) for k, v in times.items()},
+                join_s_max={k: max(v) for k, v in times.items()},
+                first_join_s={k: first[k] for k in times},
+                join_65536_s_median=med(big), join_65536_s_runs=big,
+                typed_join_s_median=med(typed), typed_join_s_runs=typed,
+                digest_root=synced["cards"].digest_root)
+
+
+def l_gossip(cards: int, steps: dict, join_s: float) -> dict:
+    """Three GossipNodes over card replicas at 2^20: g0 on the first
+    card and g1 on the second in a group with declared addresses (the
+    collective lane across two cards), r0 remote (packed). A sweep, a
+    second to converge, then loopback packed rounds of 256 rows."""
+    import random
+
+    from crdt_tpu_torch import CollectiveGroup, GossipNode
+    reps = [i_member(n, d, [f]) for n, d, f in (
+        ("g0", l_card(0), 4), ("g1", l_card(1), 5), ("r0", l_card(0), 6))]
+    nodes = [GossipNode(c, rng=random.Random(7)).start() for c in reps]
+    try:
+        n0, n1, nr = nodes
+        group = CollectiveGroup(reps[:2],
+                                addresses={"g0": f"{n0.host}:{n0.port}",
+                                           "g1": f"{n1.host}:{n1.port}"})
+        n0.attach_group(group)
+        p1 = n0.add_peer("g1", n1.host, n1.port)
+        far = n0.add_peer("r0", nr.host, nr.port, mode="packed")
+        calls = obs_device.op_launches()["parallel.collective_join"]
+        first, row = l_profiled(n0.run_round, cards)
+        steps["gossip_sweep"] = row
+        calls = obs_device.op_launches()["parallel.collective_join"] - calls
+        check(first == {"g1": "ok", "r0": "ok"} and calls == 1
+              and p1.last_attempt == "collective"
+              and far.last_attempt == "packed"
+              and group.mesh.layout.route != "local",
+              f"path L: the sweep {first}, {calls} joins, "
+              f"{p1.last_attempt} / {far.last_attempt}")
+        n0.run_round()
+        roots = {c.digest_tree().root for c in reps}
+        # Node ordinals are each replica's own: compare the other lanes.
+        replicated = lambda c: [getattr(c._store, f) for f in (
+            "lt", "val", "tomb", "occupied")]
+        check(len(roots) == 1 and all(
+            max_abs_err(replicated(reps[0]), replicated(c)) == 0
+            for c in reps)
+              and reps[1]._store.lt.device == torch.device(l_card(1)),
+              "path L: the three nodes did not converge")
+        rng = np.random.default_rng(77)
+        loop = []
+        for _ in range(L_LOOPBACK):
+            slots = rng.choice(N_SLOTS, I_ROUND_ROWS, replace=False)
+            with n0.lock:
+                reps[0].put_batch(slots, slots % 1000)
+            sync_all()
+            t0 = time.perf_counter()
+            check(n0.sync_peer("r0") == "ok", "path L: a loopback round")
+            loop.append(time.perf_counter() - t0)
+        loop_s = float(np.median(loop))
+    finally:
+        for n in nodes:
+            n.stop()
+    print(f"  path L loopback packed round {loop_s * 1e3:.3f} ms vs the "
+          f"{cards}-card join {join_s * 1e3:.3f} ms (medians)")
+    return dict(route=group.mesh.layout.route, loopback_round_s=loop_s,
+                loopback_round_s_runs=loop)
+
+
+def l_sharded(cards: int) -> dict:
+    """Path C's script (`sharded_ops`) on `ShardedDenseCrdt` at 2^20 over
+    the meshes of ``L_SHARDED``, each held against one unsharded run on
+    the first card: lanes, clock, exception, delta, digest root, every
+    replica copy; K1p one launch per card and merge."""
+    from crdt_tpu_torch.parallel import comm
+    start = MILLIS + 500
+    twin = DenseCrdt("n0", N_SLOTS, node_ids=IDS, wall_clock=StepClock(start))
+    ref = sharded_ops(twin, N_SLOTS, FLUSHES, FLUSH_ROWS, PASSES)
+    e2, (c2, p2, w2) = ref.pop("error"), ref.pop("delta")
+    root = twin.digest_tree().root
+    runs, total = [], {}
+    for name, shape, on in L_SHARDED:
+        positions = int(np.prod(shape))
+        devices = [l_card((i if on is None else on[i]) % cards)
+                   for i in range(positions)]
+        mesh = parallel.make_fanin_mesh(*shape, devices)
+        crdt = ShardedDenseCrdt("n0", N_SLOTS, mesh, node_ids=IDS,
+                                wall_clock=StepClock(start))
+        # NCCL builds a communicator per list of cards at its first call:
+        # build the mesh's and each key column's before the timed window.
+        for lay in [mesh.layout] + mesh.columns:
+            comm.pmax(lay, [torch.zeros((len(g), 1), dtype=torch.int64,
+                                        device=d)
+                            for g, d in zip(lay.groups, lay.devices)])
+        sync_all()
+        obs_device.reset()
+        tally = dict(comm.TALLY)
+        got = sharded_ops(crdt, N_SLOTS, FLUSHES, FLUSH_ROWS, PASSES)
+        sync_all()
+        launches = obs_device.launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        n_dev = len(set(mesh.devices.flat))
+        want = dict(fanin_batch_sharded=n_dev * (PASSES + 3),
+                    ingest_scatter=positions * (FLUSHES + 1))
+        what = f"path L sharded {name}"
+        check(all(launches[k] == v for k, v in want.items())
+              and launches["fanin_batch"] == 0,
+              f"{what}: launches {launches}, expected {want}")
+        err = max_abs_err(crdt.store, twin.store)
+        check(err == 0, f"{what}: lanes differ from the unsharded model "
+                        f"(max |err| {err})")
+        check(crdt.canonical_time == twin.canonical_time,
+              f"{what}: canonical clock differs from the unsharded model")
+        e1 = got.pop("error")
+        check(type(e1) is type(e2) and e1.args == e2.args,
+              f"{what}: exception {e1!r} != {e2!r}")
+        c1, p1, w1 = got.pop("delta")
+        check(max_abs_err(c1, c2) == 0 and w1 == w2 and all(
+            getattr(p1, f).tobytes() == getattr(p2, f).tobytes()
+            for f in ("slots", "lt", "node", "val", "tomb"))
+            and p1.k == DELTA_ROWS, f"{what}: deltas differ")
+        check_copies(crdt._store, what)
+        check(crdt.digest_tree().root == root,
+              f"{what}: the digest root differs from the unsharded one")
+        routes = sorted({c.route for c in mesh.columns})
+        runs.append(dict(
+            name=name, mesh=dict(mesh.shape), devices=devices, cards=n_dev,
+            column_routes=routes, mesh_route=mesh.layout.route,
+            merges_per_s=got["records_merged"] / got["window_s"],
+            ingest_rows_per_s=FLUSHES * FLUSH_ROWS / got["ingest_s"],
+            launches=launches,
+            comm={k: v - tally.get(k, 0) for k, v in comm.TALLY.items()},
+            **got))
+        print(f"  path L sharded {name} on {n_dev} card(s) "
+              f"({'/'.join(routes)}): {runs[-1]['merges_per_s']:.4g} "
+              f"merged records/s, window {got['window_s']:.4f} s, "
+              f"ingest {got['ingest_s']:.4f} s")
+        del crdt
+    return dict(twin_merges_per_s=ref["records_merged"] / ref["window_s"],
+                twin_window_s=ref["window_s"], runs=runs, launches=total)
+
+
+def path_l(card: str) -> dict:
+    """The group join and the sharded model across the cards (module
+    doc); on fewer than two cards, a line saying so."""
+    from crdt_tpu_torch.parallel import comm
+    count = torch.cuda.device_count()
+    if count < L_MIN_CARDS:
+        print(f"path L: not run: {count} card visible, it needs "
+              f"{L_MIN_CARDS}")
+        return dict(ran=False, cards=count, needs=L_MIN_CARDS)
+    cards = min(L_MAX_CARDS, count)
+    t0 = time.perf_counter()
+    sync_all()
+    obs_device.reset()
+    comm.reset_tally()
+    nccl = (".".join(str(x) for x in torch.cuda.nccl.version())
+            if comm.nccl_built() else None)
+    print(f"path L: {cards} cards, "
+          + (f"NCCL {nccl}" if nccl else "torch built without NCCL: "
+             "the funnel's peer copies carry the cross-card steps")
+          + f" [{card}]")
+    steps: dict = {}
+    join = l_collective(cards, steps)
+    gossip = l_gossip(cards, steps, join["join_s_median"]["cards"])
+    sync_all()
+    launches = obs_device.launches()
+    sharded = l_sharded(cards)
+    for k, v in sharded["launches"].items():
+        launches[k] += v
+    check(launches["fanin_batch_sharded"] > 0 and all(
+        v == 0 for k, v in launches.items()
+        if k not in ("fanin_batch_sharded", "ingest_scatter")),
+          f"path L: launches {launches}")
+    held_s = time.perf_counter() - t0
+    print(f"  path L held {held_s:.2f} s [{card}]")
+    return dict(ran=True, card=card, cards=cards,
+                card_names=[torch.cuda.get_device_name(i)
+                            for i in range(cards)],
+                nccl_version=nccl, n_slots=N_SLOTS, join=join,
+                gossip=gossip, sharded=sharded, steps=steps,
+                launches=launches, tally=dict(comm.TALLY), held_s=held_s)
+
+
 LOOPS = 48                       # the probe CLI's --loops
 STREAM_REPEATS = 64              # bench.py's --repeats
 
@@ -5050,6 +5509,15 @@ def main() -> int:
           "planted broken join refused, the sanitizer on the full-size "
           "op script with the plain runs' lanes, the obs command line "
           "against card nodes) held")
+    multi = path_l(card)
+    if multi["ran"]:
+        print(f"phase 3: path L (four members at 2^20 on {multi['cards']} "
+              "cards: 32 rounds, the 65,536-row round, a typed round and "
+              "sync_collective, each equal to the one-card stacked join and "
+              "to the funnel twin; the gossip collective lane across two "
+              "cards; ShardedDenseCrdt on (2, 2), (4, 1), (1, 4), four "
+              "replicas over two cards and (2, 2) on one card, each equal "
+              "to the unsharded model) held")
     probes = path_d(card, results)
     print(f"phase 3: path D (the probe entry point's seven variants, the "
           f"distinct and stream rows) ran; P2 "
@@ -5078,6 +5546,11 @@ def main() -> int:
     # Path K's gate and law targets launch the five merge kernels.
     for name in K_KERNELS:
         results[name]["launches"] += analysis["launches"][name]
+    # Path L's sharded merges launch K1p once a card; K2 seeds its
+    # members and commits its sharded flushes.
+    if multi["ran"]:
+        for name in ("fanin_batch_sharded", "ingest_scatter"):
+            results[name]["launches"] += multi["launches"][name]
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5088,7 +5561,8 @@ def main() -> int:
                   path_a=interchange, path_b=stream, path_c=sharded,
                   path_d=probes, path_e=gossip, path_f=storage,
                   path_g=typed, path_h=wire, path_i=general,
-                  path_j=serving, path_k=analysis, kernel_detail=results,
+                  path_j=serving, path_k=analysis, path_l=multi,
+                  kernel_detail=results,
                   torch=torch.__version__,
                   held_s=time.perf_counter() - t0)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -5106,6 +5580,7 @@ def main() -> int:
     print(json.dumps({"path_i": general}, default=str))
     print(json.dumps({"path_j": serving}, default=str))
     print(json.dumps({"path_k": analysis}, default=str))
+    print(json.dumps({"path_l": multi}, default=str))
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -52,6 +52,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.devices import resolve_device
 from .findings import Finding
 
 # Lanes that ARE lattice state; mod_lt/mod_node are stamping
@@ -260,13 +261,13 @@ def _wire_lanes(batch: dict, device) -> tuple:
 
 
 def make_wire_join_target(step: Callable, name: str, notes: str = "",
-                          device="cpu") -> LawTarget:
+                          device=None) -> LawTarget:
     """LawTarget over a wire_join_step-shaped callable
     ``step(store, lt, node, val, tomb, valid, stamp_lt, local_node)``
     that joins in place. Public so the broken-merge fixture (and future
     ops) reuse the harness instead of reimplementing it."""
     from ..ops.dense import empty_dense_store
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def fresh():
         return empty_dense_store(_N, device)
@@ -374,7 +375,7 @@ def _stream_target(device, n, rows, chunks, guards, gen) -> LawTarget:
               "combine=row concatenation")
 
 
-def kernel_targets(device="cpu", *, n: int = _N, rows: int = _R,
+def kernel_targets(device=None, *, n: int = _N, rows: int = _R,
                    chunks: int = _CHUNKS, flush_rows: Optional[int] = None,
                    dense: bool = False) -> List[LawTarget]:
     """Law targets over the five hand-kernel wrappers, named after the
@@ -391,7 +392,7 @@ def kernel_targets(device="cpu", *, n: int = _N, rows: int = _R,
     from ..parallel.fanin import (gather_store, make_fanin_mesh,
                                   make_sharded_fanin, shard_changeset,
                                   shard_store)
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def gen(rng):
         if dense:
@@ -500,14 +501,15 @@ def kernel_targets(device="cpu", *, n: int = _N, rows: int = _R,
     return targets
 
 
-def builtin_targets(device="cpu") -> List[LawTarget]:
+def builtin_targets(device=None) -> List[LawTarget]:
     """Law targets over the registered merge ops on ``device`` (the JAX
     package's, over this package's plain ops) and the hand kernels
-    (`kernel_targets`)."""
+    (`kernel_targets`). ``device=None`` is the CUDA card and raises
+    without one; ``"cpu"`` takes the plain versions."""
     from ..ops import dense as dense_ops
     from ..ops.dense import DenseStore, empty_dense_store
     from ..parallel import collective as _pc
-    device = torch.device(device)
+    device = resolve_device(device)
 
     targets: List[LawTarget] = [
         make_wire_join_target(
@@ -573,10 +575,10 @@ def builtin_targets(device="cpu") -> List[LawTarget]:
             mod_lt=torch.zeros(_N, dtype=torch.int64, device=device),
             mod_node=torch.zeros(_N, dtype=torch.int32, device=device),
             occupied=valid, tomb=tomb)
-        stacked, _res = coll_step(
+        members, _res = coll_step(
             (store, other), torch.zeros(2, dtype=torch.int64),
             torch.tensor([0, 1], dtype=torch.int32), 0)
-        return DenseStore(*(lane[0] for lane in stacked))
+        return members[0]
 
     targets.append(LawTarget(
         name="parallel.collective_join[member2]",

@@ -46,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..utils.devices import resolve_device
 from .findings import Finding
 
 _SCATTERS = {"index_put", "index_put_", "scatter", "scatter_"}
@@ -220,9 +221,10 @@ _N = 64      # store width for scalar/dense targets
 _M = 8       # changeset rows
 
 
-def builtin_targets(device="cpu") -> List[AuditTarget]:
+def builtin_targets(device=None) -> List[AuditTarget]:
     """Audit targets over every registered merge/join op, under the JAX
-    package's target names, with inputs on ``device``."""
+    package's target names, with inputs on ``device`` (``None``: the
+    CUDA card, a raise without one)."""
     from ..ops import dense as dense_ops
     from ..ops import digest as digest_ops
     from ..ops import merge as merge_ops
@@ -234,7 +236,7 @@ def builtin_targets(device="cpu") -> List[AuditTarget]:
     from ..semantics import audit_targets as _semantics_audit_targets
     from ..semantics import kernels as sem_kernels
 
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def z(dtype, *shape):
         return torch.zeros(shape, dtype=dtype, device=device)

@@ -30,12 +30,13 @@ Differences from the JAX package:
   backend honors donation. Torch has no donation: the join reads the
   old stores and writes new lanes, and the old stores are freed when
   the members drop them.
-- The joined store comes back stacked ``[G, N]`` on the mesh's home
-  device. Member i's new lanes are row i of it, taken with ``unbind``
-  (and copied to the member's device with ``.to()`` where that is
-  another device): rows of one stacked tensor never overlap, so no
-  member's store aliases another's, and an in-place write of one
-  member touches no other member's slots.
+- Member i's joined lanes come back on its mesh position's device,
+  which on the default mesh is its own: the join moves no member's
+  lanes to another card (``.to(m.device)`` is then a no-op). Members
+  that share a device are rows of one stacked tensor there, taken with
+  ``unbind``: rows never overlap, so no member's store aliases
+  another's, and an in-place write of one member touches no other
+  member's slots.
 """
 
 from __future__ import annotations
@@ -212,20 +213,19 @@ class CollectiveGroup:
                   members=len(members), **rid):
             stores = tuple(m._store for m in members)
             args = ((members[0]._sem_device(),) if has_sem else ())
-            stacked, res = step(stores, *args, torch.from_numpy(since),
-                                torch.from_numpy(me), canonical_in)
+            rows, res = step(stores, *args, torch.from_numpy(since),
+                             torch.from_numpy(me), canonical_in)
             # ONE small fetch: the clock and the per-member win counts.
-            head = torch.cat([res.new_canonical.reshape(1),
-                              res.win.sum(1)]).cpu().tolist()
+            home = res.new_canonical.device
+            head = torch.stack([res.new_canonical] + [
+                w.sum().to(home) for w in res.win]).cpu().tolist()
             canonical, win_counts = int(head[0]), head[1:]
             tree = build_digest_tree(members[0].n_slots, leaf_width,
                                      res.levels)
 
-        rows = [DenseStore(*(lane.to(m.device) for lane in row))
-                for m, row in zip(members, zip(*(lane.unbind(0)
-                                                 for lane in stacked)))]
         for i, m in enumerate(members):
-            m._store = rows[i]              # setter clears both caches
+            # The setter clears both caches.
+            m._store = DenseStore(*(lane.to(m.device) for lane in rows[i]))
             m._store_escaped = False
             # The clock lands without a refresh: the join's canonical IS
             # max(member canonicals, every lt joined).
@@ -237,7 +237,7 @@ class CollectiveGroup:
             if seed_packs:
                 self._seed_pack(m, watermarks[i], res.repack[i].to(m.device),
                                 has_sem)
-        del stacked, res
+        del rows, res
         return CollectiveJoinReport(
             new_canonical=canonical, win_counts=win_counts,
             digest_root=tree.root, members=len(members))

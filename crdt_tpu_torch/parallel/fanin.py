@@ -13,13 +13,14 @@ column, the lowest flat rank keeping exact ties — the earliest rows, as
 in the sequential merge.
 
 The JAX package runs one program per device under ``shard_map`` with
-XLA collectives. The port is a single controller too, but plain: a mesh
-is a grid of ``torch.device`` s (one device may appear several times —
-one card, or ``"cpu"`` in the tests), and each replica-axis reduction
-copies the column's blocks to the column's first device with ``.to``,
-reduces there, and copies the result back to every copy. On one card
-the blocks' joins are one launch and the combine queues on the same
-stream; nothing syncs with the host between them.
+XLA collectives. The port is a single controller: a mesh is a grid of
+``torch.device`` s (one device may appear several times: one card, or
+``"cpu"`` in the tests), and each replica-axis reduction is a
+`parallel.comm` collective over the key column's positions. The
+positions that share a device reduce there first; the distinct cards
+then reduce through NCCL, each copy keeping its lanes on its own card.
+On one card the blocks' joins are one launch and the combine queues on
+the same stream; nothing syncs with the host between them.
 
 Representation: a sharded store holds ``blocks[rank][k]``, the copy at
 replica flat rank ``rank`` (outer-major over the replica axes,
@@ -45,13 +46,14 @@ import torch
 
 from ..hlc import MAX_COUNTER, MAX_DRIFT, SHIFT
 from ..obs import device as obs_device
-from ..ops.dense import (_I32_NEG, _NEG, DenseChangeset, DenseStore,
+from ..ops.dense import (_NEG, DenseChangeset, DenseStore,
                          _delta_mask, _max_logical_time, compact_targets,
                          remap_lane, remap_rows)
 from ..ops.digest import fold_leaves, slot_digests, tree_levels_from_leaves
 from ..ops.fanin_kernel import fanin_cuda_many, fanin_join_reference
 from ..ops.ingest_kernel import ingest_rows
 from ..semantics.kernels import typed_fold, typed_guards, typed_result
+from . import comm
 
 REPLICA_AXIS = "replica"
 KEY_AXIS = "key"
@@ -59,29 +61,39 @@ KEY_AXIS = "key"
 # ("slice", "replica") jointly, slice-major.
 SLICE_AXIS = "slice"
 
-# The rank a position that does not hold the column's lex max offers to
-# the stable min-rank tie (parallel/fanin.py:89 of the JAX package).
-_BIG_RANK = 2 ** 30
-
 
 class FaninMesh:
     """A grid of torch devices with named axes, the counterpart of a
     ``jax.sharding.Mesh``: ``devices`` (a numpy object array of
     ``torch.device``), ``axis_names`` and ``shape`` (axis -> size). The
-    key axis is the last one."""
+    key axis is the last one.
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    ``groups`` (an array of the grid's shape, or None) labels each
+    position's collective group: positions with one label reduce
+    together on their device before the groups reduce across
+    (`parallel.comm.Layout`). By default the label is the device, so
+    the groups are the cards. ``funnel=True`` makes every cross-group
+    step the funnel, the plain twin of NCCL (a collective mesh's
+    option: `parallel.collective.make_collective_mesh`)."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 groups: Optional[np.ndarray] = None, funnel: bool = False):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
+        self.groups = devices if groups is None else groups
+        self.funnel = funnel
 
     @functools.cached_property
     def grid(self) -> np.ndarray:
         """``grid[rank, k]``: the device holding replica flat rank
         ``rank`` of key shard ``k``."""
+        return self._by_rank(self.devices)
+
+    def _by_rank(self, a: np.ndarray) -> np.ndarray:
         grid = np.empty((replica_extent(self), self.shape[KEY_AXIS]), object)
-        for pos in np.ndindex(*self.devices.shape):
-            grid[_flat_rank(self, pos[:-1]), pos[-1]] = self.devices[pos]
+        for pos in np.ndindex(*a.shape):
+            grid[_flat_rank(self, pos[:-1]), pos[-1]] = a[pos]
         return grid
 
     @property
@@ -90,9 +102,30 @@ class FaninMesh:
         incoming changesets, and where global views are gathered."""
         return self.devices.flat[0]
 
+    @functools.cached_property
+    def flat_index(self) -> np.ndarray:
+        """``flat_index[rank, k]``: that position's row-major index, its
+        rank in `layout`."""
+        return self._by_rank(np.arange(self.devices.size).reshape(
+            self.devices.shape))
+
+    @functools.cached_property
+    def layout(self) -> comm.Layout:
+        """Every position in row-major order, as one collective's ranks."""
+        return comm.Layout(list(self.devices.flat), list(self.groups.flat),
+                           self.funnel)
+
+    @functools.cached_property
+    def columns(self) -> List[comm.Layout]:
+        """Key column ``k``'s positions in replica rank order."""
+        labels = self._by_rank(self.groups)
+        return [comm.Layout(list(self.grid[:, k]), list(labels[:, k]),
+                            self.funnel)
+                for k in range(self.shape[KEY_AXIS])]
+
 
 def _make_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
-               devices) -> FaninMesh:
+               devices, groups=None, funnel: bool = False) -> FaninMesh:
     want = int(np.prod(shape))
     if devices is None:
         if not torch.cuda.is_available():
@@ -109,25 +142,35 @@ def _make_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
     grid = np.empty(want, object)
     for i, d in enumerate(devices):
         grid[i] = d
-    return FaninMesh(grid.reshape(shape), axis_names)
+    labels = None
+    if groups is not None:
+        if len(groups) != want:
+            raise ValueError(f"{len(groups)} group labels != "
+                             + "x".join(str(s) for s in shape))
+        labels = np.empty(want, object)
+        for i, g in enumerate(groups):
+            labels[i] = g
+        labels = labels.reshape(shape)
+    return FaninMesh(grid.reshape(shape), axis_names, labels, funnel)
 
 
 def make_fanin_mesh(n_replica_shards: int, n_key_shards: int,
-                    devices=None) -> FaninMesh:
+                    devices=None, *, groups=None) -> FaninMesh:
     """A (replica, key) mesh. ``devices`` (names or ``torch.device`` s,
     row-major) defaults to the visible CUDA cards taken round robin, so
-    one card repeats ``cuda:0``; without a card that raises."""
+    one card repeats ``cuda:0``; without a card that raises. ``groups``
+    (row-major labels): see `FaninMesh`."""
     return _make_mesh((n_replica_shards, n_key_shards),
-                      (REPLICA_AXIS, KEY_AXIS), devices)
+                      (REPLICA_AXIS, KEY_AXIS), devices, groups)
 
 
 def make_multislice_fanin_mesh(n_slices: int, n_replica_shards: int,
-                               n_key_shards: int, devices=None
-                               ) -> FaninMesh:
+                               n_key_shards: int, devices=None, *,
+                               groups=None) -> FaninMesh:
     """A (slice, replica, key) mesh: the replica fan-in runs over
     ``(slice, replica)``, slice-major."""
     return _make_mesh((n_slices, n_replica_shards, n_key_shards),
-                      (SLICE_AXIS, REPLICA_AXIS, KEY_AXIS), devices)
+                      (SLICE_AXIS, REPLICA_AXIS, KEY_AXIS), devices, groups)
 
 
 def _replica_axes(mesh: FaninMesh) -> Tuple[str, ...]:
@@ -299,54 +342,73 @@ def _record_step(kernel: str, fn):
 
 def combine_blocks(store: ShardedStore, parts: List[List[tuple]],
                    canonical: torch.Tensor, local_node: int,
-                   wall_millis: int
+                   wall_millis: int, mesh: FaninMesh
                    ) -> Tuple[ShardedStore, ShardedFaninResult]:
     """The replica-axis combine of `block_joins`' partial stores and the
-    global scalars: the JAX block's pmax / masked pmax / stable pmin
-    rank / one-hot psum (parallel/fanin.py:318-351), then the winners
-    stamped with the GLOBAL canonical (each block's own stamp is never
-    made). Every partial is at least the store record (the kernel adopts
-    strictly), so their lex max is the whole join."""
+    global scalars, as the JAX block composes it from collectives
+    (parallel/fanin.py:296-351): one two-lane ``pmax`` over the whole
+    mesh for the largest valid record and the duplicate flag, then per
+    key column ``pmax`` lt, a masked ``pmax`` node, a ``pmin`` of the
+    rank holding the lex max (`comm.lex_winner`) and a one-hot ``psum``
+    of its payload, each over the column's positions through
+    `parallel.comm`. The column's new lanes are made once per device,
+    from that device's first copy, stamped with the GLOBAL canonical
+    (each block's own stamp is never made), and cloned into the other
+    copies there (the copies are equal by construction). Every partial
+    is at least the store record (the kernel adopts strictly), so their
+    lex max is the whole join."""
     home = store.blocks[0][0].lt.device
-    extent = len(parts)
-    # One reduction over every position: the canonical absorbs the
-    # largest valid record; the flags are its closed-form bounds.
-    basemax = torch.stack([p[6].to(home) for row in parts for p in row]
-                          ).amax()
-    any_dup = torch.stack([p[7].to(home) for row in parts for p in row]
-                          ).any()
-    new_canonical = torch.maximum(canonical, basemax)
+    # basemax and any_dup in ONE pmax over every position (row-major
+    # mesh order; a max ignores the order).
+    at = [None] * mesh.devices.size
+    for rank, row in enumerate(parts):
+        for k, p in enumerate(row):
+            at[mesh.flat_index[rank, k]] = p
+    glob = comm.pmax(mesh.layout, [
+        torch.stack([b, d.long()], 1) for b, d in zip(
+            mesh.layout.stack([p[6] for p in at]),
+            mesh.layout.stack([p[7] for p in at]))])
+    scalars = {}
+    for dev, g in zip(mesh.layout.devices, glob):
+        if dev not in scalars:
+            basemax = g[0]
+            new_c = torch.maximum(canonical.to(dev), basemax)
+            scalars[dev] = (new_c, basemax, g[1] > 0)
+    new_canonical, basemax, any_dup = scalars[mesh.layout.devices[0]]
     any_drift = basemax > (((wall_millis + MAX_DRIFT) << SHIFT)
                            | MAX_COUNTER)
     new_blocks: List[List[Optional[DenseStore]]] = [
-        [None] * len(parts[0]) for _ in range(extent)]
+        [None] * len(row) for row in parts]
     wins = []
-    for k, blk in enumerate(store.blocks[0]):
-        dev = blk.lt.device
+    for k, layout in enumerate(mesh.columns):
         lt, node, val, tomb, occ, win = (
-            torch.stack([parts[r][k][i].to(dev) for r in range(extent)])
-            for i in range(6))
-        p_lt = torch.where(occ, lt, _NEG)
-        m1 = p_lt.amax(0)
-        m2 = torch.where(p_lt == m1, node, _I32_NEG).amax(0)
-        has = (p_lt == m1) & (node == m2)
-        rank = torch.arange(extent, device=dev)[:, None]
-        mine = has & (rank == torch.where(has, rank, _BIG_RANK).amin(0))
-        # The slot is adopted iff the winning position's kernel adopted it.
-        g_win = (mine & win).any(0)
-        new = DenseStore(
-            lt=torch.where(g_win, m1, blk.lt),
-            node=torch.where(g_win, m2, blk.node),
-            val=torch.where(g_win, torch.where(mine, val, 0).sum(0),
-                            blk.val),
-            mod_lt=torch.where(g_win, new_canonical.to(dev), blk.mod_lt),
-            mod_node=blk.mod_node.masked_fill(g_win, local_node),
-            occupied=blk.occupied | g_win,
-            tomb=torch.where(g_win, (mine & tomb).any(0), blk.tomb))
-        for r, row in enumerate(store.blocks):
-            new_blocks[r][k] = new if r == 0 else DenseStore(
-                *(x.to(row[k].lt.device, copy=True) for x in new))
-        wins.append(g_win.to(home))
+            layout.stack([row[k][i] for row in parts]) for i in range(6))
+        m1, m2, mine = comm.lex_winner(
+            layout, [torch.where(o, x, _NEG) for o, x in zip(occ, lt)],
+            node)
+        g_val = comm.psum(layout, [torch.where(m, v, 0)
+                                   for m, v in zip(mine, val)])
+        # The slot is adopted iff the winning position's kernel adopted
+        # it; its tombstone rides the same one-hot max.
+        g_flags = comm.pmax(layout, [torch.stack([m & t, m & w], 1)
+                                     for m, t, w in zip(mine, tomb, win)])
+        for j, ranks in enumerate(layout.groups):
+            g_tomb, g_win = g_flags[j]
+            blk = store.blocks[ranks[0]][k]
+            new = DenseStore(
+                lt=torch.where(g_win, m1[j], blk.lt),
+                node=torch.where(g_win, m2[j], blk.node),
+                val=torch.where(g_win, g_val[j], blk.val),
+                mod_lt=torch.where(g_win, scalars[layout.devices[j]][0],
+                                   blk.mod_lt),
+                mod_node=blk.mod_node.masked_fill(g_win, local_node),
+                occupied=blk.occupied | g_win,
+                tomb=torch.where(g_win, g_tomb, blk.tomb))
+            for r in ranks:
+                new_blocks[r][k] = new if r == ranks[0] else DenseStore(
+                    *(x.clone() for x in new))
+            if j == 0:
+                wins.append(g_win.to(home))
     win = torch.cat(wins)
     return ShardedStore(new_blocks), ShardedFaninResult(
         new_canonical=new_canonical,
@@ -369,7 +431,7 @@ def make_sharded_fanin(mesh: FaninMesh, *, reference: bool = False):
                                     device=mesh.home)
         parts = block_joins(store, cs, canonical, local_node, join)
         return combine_blocks(store, parts, canonical, local_node,
-                              wall_millis)
+                              wall_millis, mesh)
 
     # The kernel's route records the Pallas step's name, as JAX's
     # `make_sharded_pallas_fanin` does; the plain route the XLA one's.
@@ -420,12 +482,16 @@ def sharded_delta_mask(mesh: FaninMesh):
 
 def sharded_max_logical_time(mesh: FaninMesh):
     """refreshCanonicalTime's reduction over the sharded store:
-    ``fn(store) -> int64 scalar``, each position's max, then one max
-    over the mesh."""
+    ``fn(store) -> int64 scalar`` on the first device, each position's
+    max, then one ``pmax`` over the mesh."""
 
     def fn(store: ShardedStore) -> torch.Tensor:
-        return torch.stack([_max_logical_time(b).to(mesh.home)
-                            for row in store.blocks for b in row]).amax()
+        maxes = [None] * mesh.devices.size
+        for rank, row in enumerate(store.blocks):
+            for k, b in enumerate(row):
+                maxes[mesh.flat_index[rank, k]] = \
+                    _max_logical_time(b).reshape(1)
+        return comm.pmax(mesh.layout, mesh.layout.stack(maxes))[0][0]
 
     return _record_step("parallel.sharded_max_logical_time", fn)
 

@@ -40,18 +40,19 @@ __all__ = [
 ]
 
 
-def law_targets(device="cpu") -> List:
-    """Seeded-law targets on ``device`` for every registered semantics
-    that declares one — what `analysis.lattice_laws.builtin_targets`
+def law_targets(device=None) -> List:
+    """Seeded-law targets on ``device`` (``None``: the CUDA card, as
+    `utils.devices.resolve_device` reads it) for every registered
+    semantics that declares one — what `analysis.lattice_laws.builtin_targets`
     appends, so a new type gets law coverage by registering, with zero
     hand-listed targets."""
     return [spec.law_target(device) for spec in all_semantics()
             if spec.law_target is not None]
 
 
-def audit_targets(device="cpu") -> List:
-    """Op audit targets on ``device`` for every registered semantics
-    that declares one — appended by `analysis.op_audit.builtin_targets`
+def audit_targets(device=None) -> List:
+    """Op audit targets on ``device`` (``None``: the CUDA card) for
+    every registered semantics that declares one — appended by `analysis.op_audit.builtin_targets`
     beside the shared typed sparse/fanin op targets."""
     return [spec.audit_target(device) for spec in all_semantics()
             if spec.audit_target is not None]

@@ -154,7 +154,7 @@ def _mvreg_decode(lane: int) -> Tuple[int, ...]:
 # --- registry-driven law / audit target generation ---
 
 
-def _typed_law_target(spec: SemanticsSpec, device="cpu"):
+def _typed_law_target(spec: SemanticsSpec, device=None):
     """Seeded-law target over `typed_wire_join_step` with a constant
     ``sem`` lane at this spec's tag, on ``device``. The generator
     derives lane values through ``spec.law_val`` — type-canonical AND
@@ -168,9 +168,10 @@ def _typed_law_target(spec: SemanticsSpec, device="cpu"):
                                          _clone, _extract_store,
                                          _wire_lanes)
     from ..ops.dense import empty_dense_store
+    from ..utils.devices import resolve_device
     from . import kernels
 
-    device = torch.device(device)
+    device = resolve_device(device)
     sem = np.full(_LAW_N, spec.tag, np.int8)
     sem_dev = torch.as_tensor(sem).to(device)
 
@@ -201,16 +202,17 @@ def _typed_law_target(spec: SemanticsSpec, device="cpu"):
         notes=f"registry-generated for tag {spec.tag}; all three laws")
 
 
-def _typed_audit_target(spec: SemanticsSpec, device="cpu"):
+def _typed_audit_target(spec: SemanticsSpec, device=None):
     """Op audit target over the typed wire join at this tag —
     elementwise, so a scatter or float reduce appearing here is a
     regression by definition."""
     import torch
     from ..analysis.op_audit import AuditTarget
     from ..ops.dense import empty_dense_store
+    from ..utils.devices import resolve_device
     from . import kernels
 
-    device = torch.device(device)
+    device = resolve_device(device)
 
     def build():
         n = _LAW_N
@@ -239,9 +241,9 @@ def _spec(name: str, tag: int, doc: str, encode, decode,
     spec = SemanticsSpec(
         name=name, tag=tag, doc=doc, encode=encode, decode=decode,
         law_val=law_val,
-        law_target=lambda device="cpu": _typed_law_target(spec, device),
-        audit_target=lambda device="cpu": _typed_audit_target(spec,
-                                                               device))
+        law_target=lambda device=None: _typed_law_target(spec, device),
+        audit_target=lambda device=None: _typed_audit_target(spec,
+                                                              device))
     return register(spec)
 
 

@@ -199,7 +199,7 @@ def test_stream_replay_records_one_ledger_dispatch():
 
 # ----------------------------------------------------------- law search
 
-PORT_LAW_NAMES = [t.name for t in port_laws.builtin_targets("cpu")]
+PORT_LAW_NAMES = [t.name for t in port_laws.builtin_targets(device="cpu")]
 
 
 def test_law_target_names_contain_jax():
@@ -215,7 +215,7 @@ def test_law_target_names_contain_jax():
 
 @pytest.mark.parametrize("name", PORT_LAW_NAMES)
 def test_builtin_law_target_holds(name):
-    target, = [t for t in port_laws.builtin_targets("cpu")
+    target, = [t for t in port_laws.builtin_targets(device="cpu")
                if t.name == name]
     obs_device.reset()
     assert port_laws.run_laws([target], seeds=(0, 1, 2)) == []
@@ -254,7 +254,7 @@ def test_kernel_targets_catch_a_planted_lost_update(monkeypatch):
                                        else cs.valid), *a, **k)
 
     monkeypatch.setattr(fanin_kernel, "model_fanin_batch", lossy)
-    target, = [t for t in port_laws.kernel_targets("cpu")
+    target, = [t for t in port_laws.kernel_targets(device="cpu")
                if t.name == "pallas.model_fanin_batch"]
     found = port_laws.run_laws([target])
     assert [f.rule for f in found] == ["law-associativity"]
@@ -263,14 +263,14 @@ def test_kernel_targets_catch_a_planted_lost_update(monkeypatch):
 def test_dense_kernel_targets_hold_at_a_wider_shape():
     """`kernel_targets(dense=True)`, what the card runs at the main
     path's shapes, at a small odd shape through the plain versions."""
-    targets = port_laws.kernel_targets("cpu", n=258, rows=5, chunks=3,
-                                       flush_rows=33, dense=True)
+    targets = port_laws.kernel_targets(device="cpu", n=258, rows=5,
+                                       chunks=3, flush_rows=33, dense=True)
     assert port_laws.run_laws(targets, seeds=(0,)) == []
 
 
 # ------------------------------------------------------------- op audit
 
-PORT_AUDIT = op_audit.builtin_targets("cpu")
+PORT_AUDIT = op_audit.builtin_targets(device="cpu")
 
 
 def test_audit_target_names_equal_jaxpr_audit():
@@ -281,7 +281,7 @@ def test_audit_target_names_equal_jaxpr_audit():
 
 @pytest.mark.parametrize("name", [t.name for t in PORT_AUDIT])
 def test_audit_target_clean(name):
-    target, = [t for t in op_audit.builtin_targets("cpu")
+    target, = [t for t in op_audit.builtin_targets(device="cpu")
                if t.name == name]
     report = op_audit.audit_target(target)
     assert report.hazards == []

@@ -15,14 +15,25 @@ forces; the port's on a member mesh of ``cpu`` devices):
 - the gossip lane: a co-located peer goes through one join, a failed
   join falls back to the socket and is counted, `attach_group`
   re-scans, a group without the node's replica is refused;
-- the port's `SemanticsConformance` on typed `DenseCrdt` s.
+- the port's `SemanticsConformance` on typed `DenseCrdt` s;
+- the cross-group route: members declared in groups of 1, 2 (blocked
+  and interleaved) or 4 on one CPU device (``groups=`` of the mesh), so
+  every collective reduces within each group and then across the
+  groups through the funnel, the plain twin of the cards' NCCL step.
+  The raw step on random lanes (every tag, (lt, node) ties across the
+  groups with payloads of their own, mvreg packs at one lt) against
+  JAX's `make_collective_join` on 4 virtual XLA CPU devices, and
+  `CollectiveGroup.join` against JAX's group;
+- each `parallel.comm` collective against a plain numpy fold, and the
+  route each layout takes.
 
-Tolerance 0 throughout.
+Tolerance 0 throughout (integer lanes).
 """
 
 import random
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -30,6 +41,7 @@ import torch
 import crdt_tpu
 import crdt_tpu_torch as port
 from crdt_tpu.collective import CollectiveGroup as JaxGroup
+from crdt_tpu.ops.dense import DenseStore as JaxStore
 from crdt_tpu.parallel import collective as jcoll
 from crdt_tpu.testing import FakeClock as JaxClock
 from crdt_tpu_torch import gossip as pgossip
@@ -38,6 +50,7 @@ from crdt_tpu_torch.obs import default_registry
 from crdt_tpu_torch.obs import device as obs_device
 from crdt_tpu_torch.ops import dense as td
 from crdt_tpu_torch.parallel import collective as pcoll
+from crdt_tpu_torch.parallel import comm
 from crdt_tpu_torch.sync import sync_collective, sync_packed
 from crdt_tpu_torch.testing import FakeClock, SemanticsConformance
 
@@ -378,6 +391,189 @@ def test_failed_join_falls_back_to_the_socket_counted():
     # The sweep's join fails, then the peer's own round tries the lane
     # again before the ladder: JAX counts both.
     assert out["port"][1] >= 1 and out["port"][3] != "collective"
+
+
+# --- the cross-group route on one CPU device --------------------------------------
+
+#: Group labels of four members: four groups of one (four cards), two
+#: of two (blocked, and interleaved so the gathers reorder), one of four.
+GROUPINGS = {"4x1": [0, 1, 2, 3], "2x2": [0, 0, 1, 1],
+             "2x2_interleaved": [0, 1, 0, 1], "1x4": [0, 0, 0, 0]}
+
+
+def grouped_mesh(grouping):
+    mesh = pcoll.make_collective_mesh(4, ["cpu"] * 4,
+                                      groups=GROUPINGS[grouping])
+    want = "local" if grouping == "1x4" else "funnel"
+    assert mesh.layout.route == want
+    return mesh
+
+
+def random_members(seed, n, sem):
+    """Four members' lanes (numpy): lts on few values so (lt, node) ties
+    recur across members, some with payloads of their own (the lowest
+    rank's must land), and the mvreg slots' packs at one lt."""
+    rng = np.random.default_rng(seed)
+    base = BASE << 16
+    out = []
+    for i in range(4):
+        occ = rng.random(n) < 0.7
+        lt = base + (rng.integers(0, 3, n) << 16)
+        mv = sem == 4
+        lt[mv] = base + (5 << 16)
+        node = rng.integers(0, 2, n).astype(np.int32)
+        val = rng.integers(-2 ** 62, 2 ** 62, n)
+        out.append(dict(lt=np.where(occ, lt, 0),
+                        node=np.where(occ, node, 0).astype(np.int32),
+                        val=np.where(occ, val, 0),
+                        mod_lt=np.where(occ, base + (9 << 16), 0),
+                        mod_node=np.where(occ, i, 0).astype(np.int32),
+                        occupied=occ, tomb=occ & (rng.random(n) < 0.3)))
+    return out
+
+
+@pytest.mark.parametrize("has_sem", [False, True], ids=["lww", "typed"])
+@pytest.mark.parametrize("grouping", sorted(GROUPINGS))
+def test_grouped_step_matches_jax(grouping, has_sem):
+    n = 4097                                 # odd, past one leaf row
+    rng = np.random.default_rng(5)
+    sem = (rng.integers(0, 5, n).astype(np.int8) if has_sem
+           else np.zeros(n, np.int8))
+    members = random_members(6, n, sem)
+    since = np.asarray([BASE << 16, (BASE + 1) << 16, 0, BASE << 16],
+                       np.int64)
+    me = np.asarray([3, 1, 0, 2], np.int32)
+    canonical = (BASE + 2) << 16
+    jstep = jcoll.make_collective_join(
+        jcoll.make_collective_mesh(4, jax.devices()[:4]), has_sem, 8)
+    pstep = pcoll.make_collective_join(grouped_mesh(grouping), has_sem, 8)
+    sem_args = lambda mod: (() if not has_sem else (
+        (jnp.asarray(sem),) if mod == "jax" else (torch.from_numpy(sem),)))
+    jstore, jres = jstep(
+        tuple(JaxStore(**{k: jnp.asarray(v) for k, v in m.items()})
+              for m in members), *sem_args("jax"), since, me,
+        jnp.int64(canonical))
+    pstores, pres = pstep(
+        tuple(td.store_from_numpy(m, "cpu") for m in members),
+        *sem_args("port"), torch.from_numpy(since), torch.from_numpy(me),
+        canonical)
+    for i, st in enumerate(pstores):
+        for f in FIELDS:
+            np.testing.assert_array_equal(
+                getattr(st, f).numpy(), np.asarray(getattr(jstore, f))[i],
+                err_msg=f"member {i}: {f}")
+        np.testing.assert_array_equal(pres.win[i].numpy(),
+                                      np.asarray(jres.win)[i])
+        np.testing.assert_array_equal(pres.repack[i].numpy(),
+                                      np.asarray(jres.repack)[i])
+    assert int(pres.new_canonical) == int(jres.new_canonical)
+    assert len(pres.levels) == len(jres.levels)
+    for a, b in zip(pres.levels, jres.levels):      # int64 and uint64 bits
+        np.testing.assert_array_equal(a.numpy().view(np.uint64),
+                                      np.asarray(b).view(np.uint64))
+    # The planted ties and the typed lanes did their work.
+    assert np.asarray(jres.win).any() and not np.asarray(jres.win).all()
+
+
+@pytest.mark.parametrize("mixed", [True, False], ids=["typed", "lww"])
+@pytest.mark.parametrize("grouping", sorted(GROUPINGS))
+def test_grouped_group_join_matches_jax(grouping, mixed):
+    j = build("jax", n_members=4, seed=21, mixed=mixed)
+    p = build("port", n_members=4, seed=21, mixed=mixed)
+    jg, pg = JaxGroup(j), CollectiveGroup(p, mesh=grouped_mesh(grouping))
+    comm.reset_tally()
+    assert report(jg.join()) == report(pg.join())
+    assert_same_members(j, p, f"{grouping}: first join")
+    # Groups on one device: the funnel ran and moved nothing between
+    # devices; one group needs no cross-group step.
+    assert comm.TALLY["funnel_bytes"] == comm.TALLY["nccl_calls"] == 0
+    assert (comm.TALLY["funnel_calls"] > 0) == (grouping != "1x4")
+    for c in j + p:
+        c.put_batch([5, 9], [len(grouping), 7])
+    assert report(jg.join()) == report(pg.join())
+    assert_same_members(j, p, f"{grouping}: after a write")
+    if mixed:
+        assert {c.mvreg_get(3) for c in p} == {j[0].mvreg_get(3)}
+
+
+LAYOUT_DEVICES = ["cpu"] * 5
+
+
+@pytest.mark.parametrize("labels", [[0, 0, 0, 0, 0], [0, 1, 2, 3, 4],
+                                    [0, 0, 1, 1, 1], [1, 0, 1, 2, 0]],
+                         ids=str)
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32, torch.uint8,
+                                   torch.bool], ids=str)
+def test_comm_ops_match_a_plain_fold(labels, dtype):
+    layout = comm.Layout(LAYOUT_DEVICES, labels)
+    rng = np.random.default_rng(len(set(labels)))
+    hi = {torch.int64: 2 ** 62, torch.int32: 2 ** 27, torch.uint8: 40,
+          torch.bool: 2}[dtype]
+    lo = -hi if dtype in (torch.int64, torch.int32) else 0
+    xs = [torch.from_numpy(rng.integers(lo, hi, (3, 7))).to(dtype)
+          for _ in LAYOUT_DEVICES]
+    blocks = layout.stack(xs)
+    ref = np.stack([x.numpy() for x in xs]).astype(np.int64)
+    want = {"pmax": ref.max(0), "pmin": ref.min(0), "psum": ref.sum(0)}
+    for name, fold in (("pmax", comm.pmax), ("pmin", comm.pmin),
+                       ("psum", comm.psum)):
+        if name == "pmin" and dtype == torch.bool:
+            continue
+        outs = fold(layout, blocks)
+        assert len(outs) == len(layout.groups)
+        for out in outs:
+            np.testing.assert_array_equal(out.long().numpy(), want[name],
+                                          err_msg=name)
+    for out in comm.all_gather(layout, blocks):
+        np.testing.assert_array_equal(out.long().numpy(), ref)
+    assert [int(r) for g in layout.ranks for r in g.flatten()] == \
+        [p for g in layout.groups for p in g]
+
+
+@pytest.mark.parametrize("labels", [[0, 0, 0, 0, 0], [0, 1, 2, 3, 4],
+                                    [1, 0, 1, 2, 0]], ids=str)
+def test_comm_lex_winner_matches_a_plain_fold(labels):
+    """The lex (lt, node) max and the lowest rank holding it, against a
+    per-slot scan in rank order; lts and nodes drawn from a few values so
+    ties (on lt, and on both) are common."""
+    layout = comm.Layout(LAYOUT_DEVICES, labels)
+    rng = np.random.default_rng(7)
+    lts = [torch.from_numpy(rng.integers(0, 3, 64)) for _ in LAYOUT_DEVICES]
+    nodes = [torch.from_numpy(rng.integers(0, 2, 64)).to(torch.int32)
+             for _ in LAYOUT_DEVICES]
+    m1, m2, mine = comm.lex_winner(layout, layout.stack(lts),
+                                   layout.stack(nodes))
+    lt, node = np.stack(lts), np.stack(nodes)
+    want = np.zeros(lt.shape, bool)
+    for s in range(lt.shape[1]):
+        keys = list(zip(lt[:, s], node[:, s]))
+        want[keys.index(max(keys)), s] = True
+    got = np.zeros(lt.shape, bool)
+    for ps, block in zip(layout.groups, mine):
+        got[ps] = block.numpy()
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(m1, m2):       # the winner's entry, slot by slot
+        np.testing.assert_array_equal(a.numpy(), lt.T[want.T])
+        np.testing.assert_array_equal(b.numpy(), node.T[want.T])
+
+
+def test_comm_route_follows_the_layout(monkeypatch):
+    monkeypatch.setattr(comm, "nccl_built", lambda: True)
+    cards = [f"cuda:{i}" for i in range(4)]
+    assert comm.Layout(cards).route == "nccl"
+    assert comm.Layout(cards, funnel=True).route == "funnel"
+    assert comm.Layout(["cuda:0", "cuda:1"] * 2).route == "nccl"
+    assert comm.Layout(["cuda:0", "cuda:1"] * 2).groups == [[0, 2], [1, 3]]
+    assert comm.Layout(["cuda:0"] * 4).route == "local"
+    # Two groups declared on one card, or a card and the host: funnel.
+    assert comm.Layout(["cuda:0"] * 2, labels=["a", "b"]).route == "funnel"
+    assert comm.Layout(["cuda:0", "cpu"]).route == "funnel"
+    monkeypatch.setattr(comm, "nccl_built", lambda: False)
+    assert comm.Layout(cards).route == "funnel"
+    with pytest.raises(ValueError, match="share one device"):
+        comm.Layout(["cuda:0", "cuda:1"], labels=["a", "a"])
+    with pytest.raises(ValueError, match="2 group labels != 4"):
+        pcoll.make_collective_mesh(4, ["cpu"] * 4, groups=[0, 1])
 
 
 # --- the port's conformance kit on typed dense models -----------------------------

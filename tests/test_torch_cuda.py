@@ -398,7 +398,7 @@ def test_sharded_step_matches_plain(cuda, shape):
     cs["node"][4, ::3] = cs["node"][0, ::3]
     cs["valid"][[0, 4], ::3] = True
     args = (BASE + 3, 2, 1_700_000_010_000)
-    mesh = parallel.make_fanin_mesh(*shape)
+    mesh = parallel.make_fanin_mesh(*shape, [cuda] * int(np.prod(shape)))
     outs = []
     for reference in (False, True):
         s, c = on(cuda, store, cs)
@@ -428,12 +428,12 @@ def test_sharded_dense_crdt_on_card_matches_host(cuda):
     and copy) and on a host one: identical lanes, clocks, JSON and the
     same duplicate-node raise."""
     results = []
-    for devices in (None, ["cpu"] * 4):
+    for devices in ([cuda] * 4, ["cpu"] * 4):
         mesh = parallel.make_fanin_mesh(2, 2, devices)
         tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
         c = port.ShardedDenseCrdt("n1", 6002, mesh,
                                   wall_clock=tick.__next__)
-        assert c.device.type == ("cuda" if devices is None else "cpu")
+        assert c.device.type == torch.device(devices[0]).type
         rng = np.random.default_rng(5)
         obs_device.reset()
         with c.ingest(auto_flush_rows=100):
@@ -454,7 +454,7 @@ def test_sharded_dense_crdt_on_card_matches_host(cuda):
         with pytest.raises(port.DuplicateNodeException):
             with c.pipelined(exact_guards=True):
                 c.merge(dup, ["n1"])
-        if devices is None:
+        if devices[0] is cuda:
             # One K1p launch per merge on the one card; K2 per copy.
             assert obs_device.launches()["fanin_batch_sharded"] == 3
             assert obs_device.launches()["ingest_scatter"] == 2 * 4
@@ -572,8 +572,7 @@ def test_put_batch_repeated_slots_on_card_keep_the_last_entry(cuda, model):
             c = port.DenseCrdt("n1", n, device=device,
                                wall_clock=tick.__next__)
         else:
-            mesh = parallel.make_fanin_mesh(
-                2, 2, None if device is cuda else ["cpu"] * 4)
+            mesh = parallel.make_fanin_mesh(2, 2, [device] * 4)
             c = port.ShardedDenseCrdt("n1", n, mesh,
                                       wall_clock=tick.__next__)
         c.put_batch(slots, vals, tombs=tombs)
@@ -698,7 +697,7 @@ def test_sharded_storage_plane_on_card_matches_host(cuda):
     folded before K1p, and the columnar join routed by key shard."""
     n = 8208
     runs = []
-    for devices in (None, ["cpu"] * 4):
+    for devices in ([cuda] * 4, ["cpu"] * 4):
         mesh = parallel.make_fanin_mesh(2, 2, devices)
         tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
         c = port.ShardedDenseCrdt("n1", n, mesh, wall_clock=tick.__next__)
@@ -811,8 +810,7 @@ def test_typed_merge_many_launches_no_lww_kernel(cuda, model):
         if model == "dense":
             c = port.DenseCrdt("r0", n, device=dev, wall_clock=tick.__next__)
         else:
-            mesh = parallel.make_fanin_mesh(
-                2, 2, None if dev is cuda else ["cpu"] * 4)
+            mesh = parallel.make_fanin_mesh(2, 2, [dev] * 4)
             c = port.ShardedDenseCrdt("r0", n, mesh,
                                       wall_clock=tick.__next__)
         for name, lo in (("gcounter", 0), ("pncounter", 1000),
@@ -951,7 +949,8 @@ def test_two_member_group_on_a_repeated_card_matches_host(cuda):
     from crdt_tpu_torch.collective import CollectiveGroup
     from crdt_tpu_torch.parallel import make_collective_mesh
     out = []
-    for dev, mesh in (("cpu", None), (cuda, make_collective_mesh(2))):
+    for dev, mesh in (("cpu", None),
+                      (cuda, make_collective_mesh(2, [cuda] * 2))):
         ticks = [iter(range(1_700_000_000_000, 1_700_000_001_000))
                  for _ in range(2)]
         reps = [port.DenseCrdt(name, 4097, device=dev,
@@ -1189,3 +1188,273 @@ def test_sanitized_k1_merge_on_the_card(cuda, monkeypatch):
     monkeypatch.setattr(c, "_dispatch_fanin", keep_old)
     with pytest.raises(LatticeViolation, match="merged changeset"):
         c.merge(*a.export_delta())
+
+
+# --- across cards: `parallel.comm`, the group join and the sharded model ------
+#
+# These need two or four cards and skip below that, naming the count.
+# Each holds the route across the cards (NCCL where torch has it, the
+# route the layout picks) against its funnel twin, the one-card stacked
+# route and the host, bit for bit.
+
+
+def cards_or_skip(n):
+    """The first ``n`` cards, or a skip naming how many are visible."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < n:
+        pytest.skip(f"needs {n} CUDA cards, {count} visible")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+#: Each position's card: one a card, and four positions over two cards
+#: (interleaved and blocked).
+CARD_LAYOUTS = {"4_cards": [0, 1, 2, 3], "2_cards": [0, 1],
+                "mixed_4_on_2": [0, 1, 0, 1], "blocked_4_on_2": [0, 0, 1, 1]}
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32, torch.uint8,
+                                   torch.bool], ids=str)
+@pytest.mark.parametrize("layout", sorted(CARD_LAYOUTS))
+def test_comm_across_cards_matches_the_funnel_and_a_fold(layout, dtype):
+    from crdt_tpu_torch.parallel import comm
+    at = CARD_LAYOUTS[layout]
+    cards = cards_or_skip(max(at) + 1)
+    devices = [cards[i] for i in at]
+    rng = np.random.default_rng(len(at))
+    hi = {torch.int64: 2 ** 60, torch.int32: 2 ** 27, torch.uint8: 50,
+          torch.bool: 2}[dtype]
+    lo = -hi if dtype in (torch.int64, torch.int32) else 0
+    xs = [rng.integers(lo, hi, 4097) for _ in at]
+    ref = np.stack(xs)
+    want = {"pmax": ref.max(0), "pmin": ref.min(0), "psum": ref.sum(0)}
+    for funnel in (False, True):
+        lay = comm.Layout(devices, funnel=funnel)
+        assert lay.route == ("funnel" if funnel or not comm.nccl_built()
+                             else "nccl")
+        blocks = lay.stack([torch.from_numpy(x).to(dtype).to(d)
+                            for x, d in zip(xs, devices)])
+        for name, fold in (("pmax", comm.pmax), ("pmin", comm.pmin),
+                           ("psum", comm.psum)):
+            if name == "pmin" and dtype == torch.bool:
+                continue
+            outs = fold(lay, blocks)
+            for out, dev in zip(outs, lay.devices):
+                assert out.device == torch.device(dev)
+                np.testing.assert_array_equal(out.long().cpu().numpy(),
+                                              want[name], err_msg=name)
+        for out in comm.all_gather(lay, blocks):
+            np.testing.assert_array_equal(out.long().cpu().numpy(), ref)
+
+
+def _group_members(devices, typed, n=4097):
+    """Four replicas, one a device of ``devices``, on the same clock
+    sequence: the shared slots land at one lt on every member (ties on
+    lt across the cards, broken by node), the mvreg slot too (an
+    equal-lt union), plus slots of each member's own."""
+    reps = []
+    for i, dev in enumerate(devices):
+        tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
+        c = port.DenseCrdt(f"m{i}", n, device=dev, wall_clock=tick.__next__)
+        rng = np.random.default_rng(40 + i)
+        if typed:
+            c.set_semantics([0, 1], "gcounter")
+            c.set_semantics([2], "mvreg")
+            c.set_semantics([3], "orset")
+            c.set_semantics([4], "pncounter")
+        c.put_batch(np.arange(100, 400), rng.integers(0, 2 ** 40, 300))
+        own = rng.choice(np.arange(400, n), 300, replace=False)
+        c.put_batch(own, rng.integers(0, 2 ** 40, 300))
+        c.delete_batch(own[:30])
+        if typed:
+            c.counter_add(i % 2, 5 + i)
+            c.mvreg_put(2, 10 + i)
+            c.orset_add(3, i)
+            c.counter_add(4, 3 - 2 * i)
+        reps.append(c)
+    return reps
+
+
+@pytest.mark.parametrize("typed", [False, True], ids=["lww", "typed"])
+@pytest.mark.parametrize("layout", ["4_cards", "mixed_4_on_2"])
+def test_group_join_across_cards_matches_one_card_and_host(layout, typed):
+    from crdt_tpu_torch.collective import CollectiveGroup
+    from crdt_tpu_torch.parallel import comm, make_collective_mesh
+    at = CARD_LAYOUTS[layout]
+    cards = cards_or_skip(max(at) + 1)
+    devices = [cards[i] for i in at]
+    groups = {
+        "cards": CollectiveGroup(_group_members(devices, typed)),
+        "funnel": CollectiveGroup(
+            _group_members(devices, typed),
+            mesh=make_collective_mesh(4, devices, funnel=True)),
+        "one_card": CollectiveGroup(
+            _group_members([cards[0]] * 4, typed),
+            mesh=make_collective_mesh(4, [cards[0]] * 4)),
+        "host": CollectiveGroup(_group_members(["cpu"] * 4, typed))}
+    for round_ in range(2):
+        comm.reset_tally()
+        reports = {"cards": groups["cards"].join()}
+        assert comm.TALLY["funnel_bytes"] == 0
+        assert (comm.TALLY["nccl_calls"] > 0) == comm.nccl_built()
+        for i, m in enumerate(groups["cards"].members):
+            assert all(lane.device == torch.device(devices[i])
+                       for lane in m._store), m.node_id
+        for k in ("funnel", "one_card", "host"):
+            reports[k] = groups[k].join()
+        want = reports["host"]
+        for k, rep in reports.items():
+            assert (rep.new_canonical, rep.win_counts, rep.digest_root) == \
+                (want.new_canonical, want.win_counts, want.digest_root), k
+            for m, h in zip(groups[k].members, groups["host"].members):
+                for x, y in zip(m.store, h.store):
+                    assert torch.equal(x.cpu(), y), (k, m.node_id)
+                (_, mv), = m._pack_cache.items()
+                (_, hv), = h._pack_cache.items()
+                assert [a.tobytes() for a in mv[0] if a is not None] == \
+                    [a.tobytes() for a in hv[0] if a is not None]
+        assert want.adopted > 0 or round_ == 1
+        for g in groups.values():
+            for c in g.members:
+                c.put_batch([7, 100], [round_, 99])
+    if typed:
+        assert {c.mvreg_get(2) for g in groups.values()
+                for c in g.members} == {(13, 12, 11, 10)}
+
+
+@pytest.mark.parametrize("layout", ["4_cards", "mixed_4_on_2"])
+def test_collective_step_ties_across_cards_go_to_the_lowest_rank(layout):
+    """Equal (lt, node) on every member with payloads of their own (a
+    state no valid group holds, which makes the rank tie visible): the
+    cards' route lands rank 0's payload, as the one-card route and the
+    host do."""
+    from crdt_tpu_torch.parallel import collective as pc
+    at = CARD_LAYOUTS[layout]
+    cards = cards_or_skip(max(at) + 1)
+    n = 4097
+    rng = np.random.default_rng(8)
+    stores = []
+    for i in range(4):
+        occ = np.ones(n, bool)
+        stores.append(dict(
+            lt=np.full(n, BASE + 7), node=np.full(n, 2, np.int32),
+            val=rng.integers(-2 ** 62, 2 ** 62, n),
+            mod_lt=np.zeros(n, np.int64),
+            mod_node=np.zeros(n, np.int32), occupied=occ,
+            tomb=rng.random(n) < 0.5))
+    outs = {}
+    for name, devices in (("cards", [cards[i] for i in at]),
+                          ("one_card", [cards[0]] * 4),
+                          ("host", ["cpu"] * 4)):
+        step = pc.make_collective_join(
+            pc.make_collective_mesh(4, devices), False, 8)
+        members, res = step(
+            tuple(td.store_from_numpy(s, d)
+                  for s, d in zip(stores, devices)),
+            torch.zeros(4, dtype=torch.int64),
+            torch.arange(4, dtype=torch.int32), 0)
+        outs[name] = [[x.cpu() for x in m] for m in members]
+    replicated = (0, 1, 2, 5, 6)        # the mod lanes are per member
+    for name, members in outs.items():
+        for m, h in zip(members, outs["host"]):
+            assert np.array_equal(m[2].numpy(), stores[0]["val"]), name
+            for x, y in zip(m, h):
+                assert torch.equal(x, y), name
+            assert all(torch.equal(m[i], outs["host"][0][i])
+                       for i in replicated), name
+
+
+SHARDED_CARD_MESHES = [((2, 2), "4_cards"), ((4, 1), "4_cards"),
+                       ((1, 4), "4_cards"), ((4, 1), "mixed_4_on_2"),
+                       ((2, 2), "blocked_4_on_2")]
+
+
+@pytest.mark.parametrize("shape,layout", SHARDED_CARD_MESHES, ids=str)
+def test_sharded_step_across_cards_matches_plain(shape, layout):
+    """K1p with every mesh position on its layout's card: one launch a
+    card, the combine through the cards' collectives, against the plain
+    per-block join on one card and the unsharded merge, bit for bit, at
+    an odd shard width, with ties across the replica-shard boundary."""
+    at = CARD_LAYOUTS[layout]
+    cards = cards_or_skip(max(at) + 1)
+    n, rows = shape[1] * 4097, 9
+    store, cs = lanes(np.random.default_rng(sum(shape)), n, rows)
+    cs["lt"][5, ::3] = cs["lt"][0, ::3]
+    cs["node"][5, ::3] = cs["node"][0, ::3]
+    cs["valid"][[0, 5], ::3] = True
+    args = (BASE + 3, 2, 1_700_000_010_000)
+    mesh = parallel.make_fanin_mesh(*shape, [cards[i] for i in at])
+    obs_device.reset()
+    s, c = on_card = on(torch.device(cards[0]), store, cs)
+    k_store, k_res = parallel.make_sharded_fanin(mesh)(
+        parallel.shard_store(s, mesh), parallel.shard_changeset(c, mesh),
+        *args)
+    assert obs_device.launches()["fanin_batch_sharded"] == len(set(at))
+    flat = list(mesh.devices.flat)
+    for row in k_store.blocks:
+        for blk in row:
+            assert blk.lt.device in flat
+    one = parallel.make_fanin_mesh(*shape, [cards[0]] * len(at))
+    p_store, p_res = parallel.make_sharded_fanin(one, reference=True)(
+        parallel.shard_store(s, one), parallel.shard_changeset(c, one),
+        *args)
+    for k_row, p_row in zip(k_store.blocks, p_store.blocks):
+        for a, b in zip(k_row, p_row):
+            for x, y in zip(a, b):
+                assert torch.equal(x.cpu(), y.cpu())
+    for x, y in zip(k_res, p_res):
+        assert torch.equal(x.cpu(), y.cpu())
+    u_store, u_res = fanin_kernel.fanin_batch(*on_card, *args)
+    for x, y in zip(parallel.gather_store(k_store), u_store):
+        assert torch.equal(x.cpu(), y.cpu())
+    assert torch.equal(k_res.win.cpu(), u_res.win.cpu())
+    assert int(parallel.sharded_max_logical_time(mesh)(k_store)) == \
+        int(td.dense_max_logical_time(u_store))
+
+
+@pytest.mark.parametrize("shape,layout", SHARDED_CARD_MESHES, ids=str)
+def test_sharded_dense_crdt_across_cards_matches_host(shape, layout):
+    """Flushes, a coarse window, a merge of an exported delta, a
+    refused duplicate, the digest root and a delta out on a sharded
+    replica over the cards against a host one."""
+    at = CARD_LAYOUTS[layout]
+    cards = cards_or_skip(max(at) + 1)
+    n = shape[1] * 4097
+    results = []
+    for devices in ([cards[i] for i in at], ["cpu"] * len(at)):
+        mesh = parallel.make_fanin_mesh(*shape, devices)
+        tick = iter(range(1_700_000_000_000, 1_700_000_100_000))
+        c = port.ShardedDenseCrdt("n1", n, mesh, wall_clock=tick.__next__)
+        rng = np.random.default_rng(5)
+        obs_device.reset()
+        with c.ingest(auto_flush_rows=100):
+            for _ in range(3):
+                c.put_batch(rng.choice(n, 60, replace=False),
+                            rng.integers(0, 1 << 40, 60))
+        _, cs = lanes(rng, n, 5)
+        cs["lt"] += 50 << 16
+        ids = ["n0", "n2", "n3", "n4"]
+        with c.pipelined():
+            c.merge(td.DenseChangeset(**{k: torch.tensor(v)
+                                         for k, v in cs.items()}), ids)
+        since = c.canonical_time
+        c.merge(*c.export_delta())
+        dup = td.DenseChangeset(*(torch.zeros((1, n), dtype=dt)
+                                  for dt in td.CHANGESET_DTYPES.values()))
+        dup.valid[0, 9] = True
+        dup.lt[0, 9] = c.canonical_time.logical_time + (1000 << 16)
+        with pytest.raises(port.DuplicateNodeException):
+            with c.pipelined(exact_guards=True):
+                c.merge(dup, ["n1"])
+        if devices[0] != "cpu":
+            assert obs_device.launches()["fanin_batch_sharded"] == \
+                3 * len(set(at))
+            for k, first in enumerate(c._store.blocks[0]):
+                for blk in c._store.column(k):
+                    for x, y in zip(blk, first):
+                        assert torch.equal(x.cpu(), y.cpu())
+        results.append((c, c.digest_tree().root, c.export_delta(since)))
+    (a, ra, (da, ia)), (b, rb, (db, ib)) = results
+    for x, y in zip(a.store, b.store):
+        assert torch.equal(x.cpu(), y)
+    assert str(a.canonical_time) == str(b.canonical_time) and ra == rb
+    assert ia == ib and all(torch.equal(x.cpu(), y) for x, y in zip(da, db))

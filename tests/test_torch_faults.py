@@ -29,6 +29,12 @@ each held against ``crdt_tpu`` on the same numpy inputs:
   JAX ``empty_dense_store`` places it on the default accelerator:
   without a card they raise the same default-device ``RuntimeError``
   unless asked for ``device="cpu"``.
+- C10: the law and audit target builders (``analysis.lattice_laws``'
+  ``builtin_targets`` and ``kernel_targets``, ``analysis.op_audit``'s
+  ``builtin_targets``, ``semantics.law_targets`` / ``audit_targets``)
+  build on the card by default, as the JAX builders build on the
+  default accelerator: without a card they raise the same
+  default-device ``RuntimeError`` unless asked for ``device="cpu"``.
 """
 
 import importlib
@@ -320,3 +326,49 @@ def test_store_helpers_default_to_the_card(monkeypatch):
     for f in td.DenseStore._fields:
         np.testing.assert_array_equal(np.asarray(getattr(ref, f)),
                                       getattr(back, f).numpy(), f)
+
+
+# --- C10: the law and audit target builders default to the card ---------------
+
+
+C10_BUILDERS = {
+    "lattice_laws.builtin_targets": ("crdt_tpu_torch.analysis.lattice_laws",
+                                     "builtin_targets"),
+    "lattice_laws.kernel_targets": ("crdt_tpu_torch.analysis.lattice_laws",
+                                    "kernel_targets"),
+    "op_audit.builtin_targets": ("crdt_tpu_torch.analysis.op_audit",
+                                 "builtin_targets"),
+    "semantics.law_targets": ("crdt_tpu_torch.semantics", "law_targets"),
+    "semantics.audit_targets": ("crdt_tpu_torch.semantics",
+                                "audit_targets"),
+}
+
+
+@pytest.mark.parametrize("builder", sorted(C10_BUILDERS))
+def test_target_builders_default_to_the_card(builder, monkeypatch):
+    module, name = C10_BUILDERS[builder]
+    build = getattr(importlib.import_module(module), name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as refused:
+        port_model.resolve_device(None)
+    with pytest.raises(RuntimeError) as e:
+        build()
+    assert str(e.value) == str(refused.value)
+    targets = build(device="cpu")
+    assert targets
+    # Every target's inputs lie on the host when the host is asked for.
+    for t in targets:
+        made = t.fresh() if hasattr(t, "fresh") else t.build()[1]
+        devices = {x.device.type for x in _tensors(made)}
+        assert devices <= {"cpu"}, (t.name, devices)
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            yield from _tensors(y)
+    elif isinstance(x, dict):
+        for y in x.values():
+            yield from _tensors(y)

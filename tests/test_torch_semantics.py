@@ -72,8 +72,8 @@ def test_registry_matches_jax():
         assert tsem.get_semantics(t.name) is t and tsem.by_tag(t.tag) is t
         # law_target / audit_target build the analysis gate's targets,
         # under the JAX package's names.
-        assert t.law_target("cpu").name == j.law_target().name
-        assert t.audit_target("cpu").name == j.audit_target().name
+        assert t.law_target(device="cpu").name == j.law_target().name
+        assert t.audit_target(device="cpu").name == j.audit_target().name
     for const in ("SEM_LWW", "SEM_GCOUNTER", "SEM_PNCOUNTER", "SEM_ORSET",
                   "SEM_MVREG", "ORSET_UNIVERSE", "ORSET_MAX_LEN", "MVREG_K",
                   "MVREG_MAX"):

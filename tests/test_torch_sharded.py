@@ -11,6 +11,12 @@ go to both.
   ``win_count``, ``new_canonical`` and the three flags) and against the
   XLA block `make_sharded_fanin` (store lanes), on every mesh shape,
   with identical-HLC ties planted across the replica-shard boundary.
+- The cross-group route: the step and the model on (2, 2) and (4, 1)
+  meshes whose positions are declared in groups on one CPU device
+  (``groups=``: one position a group as on four cards, blocked and
+  interleaved pairs, one group), so each key column's combine and the
+  mesh-wide scalars reduce within each group and then across the groups
+  through the funnel, the plain twin of the cards' NCCL step.
 - The model: one op script on a JAX ``ShardedDenseCrdt(executor="xla")``
   and on the port's (lanes, clock, ``to_json`` bytes, exception types
   and payloads, the replica copies equal after every op), merges against
@@ -45,16 +51,19 @@ START = 1_700_000_000_000
 TILE = 4096                      # the JAX kernel's per-shard alignment
 
 
-def meshes(shape):
-    """The JAX mesh (virtual CPU devices) and the port's (``"cpu"``)."""
+def meshes(shape, groups=None):
+    """The JAX mesh (virtual CPU devices) and the port's (``"cpu"``,
+    its positions in ``groups``, row-major labels, where given)."""
     n_dev = int(np.prod(shape))
     if len(shape) == 3:
         return (jp.make_multislice_fanin_mesh(
                     *shape, devices=jax.devices()[:n_dev]),
                 tp.make_multislice_fanin_mesh(*shape,
-                                              devices=["cpu"] * n_dev))
+                                              devices=["cpu"] * n_dev,
+                                              groups=groups))
     return (jp.make_fanin_mesh(*shape, devices=jax.devices()[:n_dev]),
-            tp.make_fanin_mesh(*shape, devices=["cpu"] * n_dev))
+            tp.make_fanin_mesh(*shape, devices=["cpu"] * n_dev,
+                               groups=groups))
 
 
 def assert_copies_equal(store: tp.ShardedStore, where: str) -> None:
@@ -178,6 +187,97 @@ def test_sharded_step_matches_jax(shape):
                            torch.tensor(store["lt"]))
 
 
+#: Row-major group labels of four mesh positions: one a group (four
+#: cards), blocked and interleaved pairs, one group.
+GROUPINGS = {"4x1": [0, 1, 2, 3], "2x2": [0, 0, 1, 1],
+             "2x2_interleaved": [0, 1, 0, 1], "1x4": [0, 0, 0, 0]}
+GROUPED = [(shape, g) for shape in ((2, 2), (4, 1)) for g in sorted(GROUPINGS)]
+
+
+@pytest.mark.parametrize("shape,grouping", GROUPED, ids=str)
+def test_grouped_sharded_step_matches_jax(shape, grouping):
+    jmesh, tmesh = meshes(shape, GROUPINGS[grouping])
+    routes = {c.route for c in tmesh.columns}
+    if grouping == "1x4":
+        assert routes == {"local"} and tmesh.layout.route == "local"
+    else:
+        assert tmesh.layout.route == "funnel"
+    n, rows = TILE * shape[1], 13
+    extent = shape[0]
+    j_pallas = jp.make_sharded_pallas_fanin(jmesh, interpret=True)
+    t_step = tp.make_sharded_fanin(tmesh)
+    for seed, flagged in ((11, True), (12, False)):
+        store, cs, canonical, local, wall = step_inputs(n, rows, seed,
+                                                        flagged)
+        j_args = jax_step_args(store, cs, jmesh, -(-rows // (8 * extent))
+                               * 8 * extent)
+        j_store, j_res = j_pallas(*j_args, jnp.int64(canonical),
+                                  jnp.int32(local), jnp.int64(wall))
+        t_cs = td.DenseChangeset(**{f: torch.tensor(v) for f, v in cs.items()})
+        t_store, t_res = t_step(
+            tp.shard_store(td.store_from_numpy(store, "cpu"), tmesh),
+            tp.shard_changeset(t_cs, tmesh), canonical, local, wall)
+        where = f"{shape} {grouping} seed {seed}"
+        assert_copies_equal(t_store, where)
+        got = tp.gather_store(t_store)
+        for f in td.DenseStore._fields:
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(j_store, f)),
+                                          err_msg=f"{where}: {f}")
+        np.testing.assert_array_equal(t_res.win.numpy(),
+                                      np.asarray(j_res.win))
+        assert int(t_res.win_count) == int(j_res.win_count) > 0
+        assert int(t_res.new_canonical) == int(j_res.new_canonical)
+        for flag in ("any_bad", "any_dup", "any_drift"):
+            assert bool(getattr(t_res, flag)) == \
+                bool(getattr(j_res, flag)) == flagged, (where, flag)
+        assert int(tp.sharded_max_logical_time(tmesh)(t_store)) == \
+            int(td.dense_max_logical_time(got))
+
+
+@pytest.mark.parametrize("shape,grouping", GROUPED, ids=str)
+def test_grouped_sharded_model_matches_jax(shape, grouping):
+    """Flushes, a merge_many, a coarse window, an exact window that
+    raises DuplicateNodeException and a delta out, on a grouped mesh
+    against JAX's sharded model."""
+    n = 64
+    p = Pair(shape, n, groups=GROUPINGS[grouping])
+    rng = np.random.default_rng(3)
+    with p.jax.ingest(auto_flush_rows=16), p.port.ingest(auto_flush_rows=16):
+        for _ in range(2):
+            slots = rng.choice(n, 12, replace=False)
+            vals = rng.integers(-2 ** 40, 2 ** 40, 12)
+            p.each(lambda c: c.put_batch(slots, vals))
+    p.check(f"{grouping}: after ingest")
+    ids1, ids2 = ["n0", "n2", "zz"], ["a0", "n2", "n3"]
+    p.merge([(peer_lanes(21, 3, n, 3, 0, 40), ids1),
+             (peer_lanes(22, 5, n, 3, 0, 40), ids2)])
+    p.check(f"{grouping}: after merge_many")
+    since = p.jax.canonical_time
+    with p.jax.pipelined(), p.port.pipelined():
+        p.merge([(peer_lanes(23, 6, n, 3, 20, 60), ids1)])
+        p.merge([(peer_lanes(24, 7, n, 3, 30, 80), ids2)])
+    p.check(f"{grouping}: after coarse window")
+    ms = p.jax.canonical_time.millis - START
+    dup = peer_lanes(25, 2, n, 2, 0, 10, fill=0.0)
+    dup["valid"][1, 9], dup["node"][1, 9] = True, 0
+    dup["lt"][1, 9] = (START + ms + 500) << 16
+
+    def exact(c):
+        with c.pipelined(exact_guards=True):
+            c.merge(changeset_of(c, peer_lanes(26, 2, n, 3, 0, 90)), ids1)
+            c.merge(changeset_of(c, dup), ["hub", "n7"])
+    assert isinstance(p.raises(exact), port.DuplicateNodeException)
+    p.check(f"{grouping}: after exact window")
+    tsince = port.Hlc(since.millis, since.counter, since.node_id)
+    (jcs, jids), (tcs, tids) = (p.jax.export_delta(since),
+                                p.port.export_delta(tsince))
+    assert jids == tids
+    for f in td.DenseChangeset._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(jcs, f)),
+                                      getattr(tcs, f).numpy(), err_msg=f)
+
+
 def test_shard_layout_and_ingest():
     """Blocks are views of the home lanes in rank order; a sharded
     flush writes exactly what the unsharded commit writes, on every
@@ -227,8 +327,9 @@ def peer_lanes(seed, rows, n, n_ids, lo_ms, hi_ms, fill=0.3):
 class Pair:
     """A JAX `ShardedDenseCrdt` and the port's, driven in lockstep."""
 
-    def __init__(self, shape, n, node_id="hub", executor="xla", **kw):
-        self.jmesh, self.tmesh = meshes(shape)
+    def __init__(self, shape, n, node_id="hub", executor="xla",
+                 groups=None, **kw):
+        self.jmesh, self.tmesh = meshes(shape, groups)
         self.jax = JaxSharded(node_id, n, self.jmesh, wall_clock=FakeClock(),
                               executor=executor, **kw)
         self.port = port.ShardedDenseCrdt(node_id, n, self.tmesh,
