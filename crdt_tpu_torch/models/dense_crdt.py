@@ -111,6 +111,15 @@ from ..utils.stats import MergeStats, merge_annotation
 from ..watch import ChangeHub, ChangeStream
 
 
+# The merge step's spans (`obs.trace.span`: nothing unless the tracer
+# is on or a profiler records), beside `merge_annotation`'s
+# ``crdt_tpu_torch.dense_merge`` around the dispatch and
+# `ops.fanin_kernel`'s mask, join and stamp spans inside it.
+MERGE_SPAN = "crdt_tpu_torch.merge"
+PREPARE_SPAN = "crdt_tpu_torch.merge.prepare"
+FENCE_SPAN = "crdt_tpu_torch.window.fence"
+
+
 class PipelinedGuardError(Exception):
     """A clock guard tripped inside a ``DenseCrdt.pipelined()`` window.
 
@@ -358,18 +367,24 @@ class DenseCrdt:
             yield self
         finally:
             pipe, self._pipe = self._pipe, None
-            (lt, any_bad, overflow, drift, val_ovf, first_idx, ex_have,
-             ex_dup, ex_lt, ex_wall) = torch.stack(
-                [pipe.canonical, pipe.any_bad.long(), pipe.overflow.long(),
-                 pipe.drift.long(), pipe.val_overflow.long(),
-                 pipe.first_flag_idx.long(), pipe.ex_have.long(),
-                 pipe.ex_dup.long(), pipe.ex_lt, pipe.ex_wall]).tolist()
-            self._canonical_time = Hlc.from_logical_time(lt, self._node_id)
             # Never shadow an exception already leaving the window body.
-            if sys.exc_info()[0] is None:
-                self._flush_report(pipe, any_bad, overflow, drift, val_ovf,
-                                   first_idx, ex_have, ex_dup, ex_lt,
-                                   ex_wall)
+            leaving = sys.exc_info()[0] is not None
+            with span(FENCE_SPAN):
+                self._close_window(pipe, report=not leaving)
+
+    def _close_window(self, pipe: _PipeState, report: bool) -> None:
+        """A window's end: ONE readback materializes the clock, and the
+        flags are reported when ``report``."""
+        (lt, any_bad, overflow, drift, val_ovf, first_idx, ex_have,
+         ex_dup, ex_lt, ex_wall) = torch.stack(
+            [pipe.canonical, pipe.any_bad.long(), pipe.overflow.long(),
+             pipe.drift.long(), pipe.val_overflow.long(),
+             pipe.first_flag_idx.long(), pipe.ex_have.long(),
+             pipe.ex_dup.long(), pipe.ex_lt, pipe.ex_wall]).tolist()
+        self._canonical_time = Hlc.from_logical_time(lt, self._node_id)
+        if report:
+            self._flush_report(pipe, any_bad, overflow, drift, val_ovf,
+                               first_idx, ex_have, ex_dup, ex_lt, ex_wall)
 
     def _flush_report(self, pipe: _PipeState, any_bad, overflow, drift,
                       val_ovf, first_idx, ex_have, ex_dup, ex_lt,
@@ -1596,21 +1611,58 @@ class DenseCrdt:
         sequential-merge order) and run ONE fused lattice join: the
         fan-in kernel, or on a typed store the typed fold (one typed
         join per row), in every window."""
-        self.drain_ingest()
-        self.stats.merges += 1
-        if not changesets:
-            # Merging nothing still spends the absorption-phase wall
-            # read AND the final send bump (crdt.dart:77-94).
-            self._wall_clock()
-            if self._pipe is not None:
-                self._pipe.merges += 1
-                self._pipe_send_bump(self._wall_clock())
+        with span(MERGE_SPAN):
+            with span(PREPARE_SPAN):
+                self.drain_ingest()
+                self.stats.merges += 1
+                if not changesets:
+                    self._merge_nothing()
+                    return
+                cs = self._merge_lanes(changesets)
+            local = self._local_ordinal()
+            pipe = self._pipe
+            if pipe is not None and not pipe.exact and self._FUSED_COARSE \
+                    and self._sem is None:
+                # Both wall reads up front (absorption + send bump): the
+                # count and order of the unpipelined path.
+                wall_merge = self._wall_clock()
+                wall_send = self._wall_clock()
+                with merge_annotation("crdt_tpu_torch.dense_merge",
+                                      hlc=lambda: self._canonical_time):
+                    out = pipelined_model_step(
+                        self._store, cs, pipe.canonical, pipe.any_bad,
+                        pipe.overflow, pipe.drift, pipe.val_overflow,
+                        pipe.first_flag_idx, local, wall_merge, wall_send,
+                        pipe.merges, value_width=self._value_width)
+                self._finish_coarse(out)
                 return
-            self._canonical_time = Hlc.send(self._canonical_time,
-                                            millis=self._wall_clock())
+
+            wall = self._wall_clock()
+            with merge_annotation("crdt_tpu_torch.dense_merge",
+                                  hlc=lambda: self._canonical_time):
+                new_store, res, seen, voverflow, cs = self._dispatch_fanin(
+                    cs, wall)
+            self.stats.add_seen_lazy(seen)
+            self._finish_merge(new_store, res, voverflow, wall,
+                               lambda: (cs.lt, cs.node, cs.valid))
+
+    def _merge_nothing(self) -> None:
+        """A merge of no changesets still spends the absorption-phase
+        wall read AND the final send bump (crdt.dart:77-94)."""
+        self._wall_clock()
+        if self._pipe is not None:
+            self._pipe.merges += 1
+            self._pipe_send_bump(self._wall_clock())
             return
-        # Intern the UNION of every peer's ids first (one table
-        # mutation), then encode each changeset against the final table.
+        self._canonical_time = Hlc.send(self._canonical_time,
+                                        millis=self._wall_clock())
+
+    def _merge_lanes(self, changesets: Sequence[
+            Tuple[DenseChangeset, Sequence[Any]]]) -> DenseChangeset:
+        """The peer changesets as one changeset in this replica's table,
+        slots and device, the GC fence folded into ``valid``. The UNION
+        of every peer's ids is interned first (one table mutation), then
+        each changeset is encoded against the final table."""
         union: set = set()
         for _, ids in changesets:
             union.update(ids)
@@ -1627,32 +1679,7 @@ class DenseCrdt:
             # below the floor onto a purged slot replays purged state.
             cs = cs._replace(valid=cs.valid & ~(
                 (cs.lt <= self._gc_floor_lt) & fence[None, :]))
-        local = self._local_ordinal()
-        pipe = self._pipe
-        if pipe is not None and not pipe.exact and self._FUSED_COARSE \
-                and self._sem is None:
-            # Both wall reads up front (absorption + send bump): the
-            # count and order of the unpipelined path.
-            wall_merge = self._wall_clock()
-            wall_send = self._wall_clock()
-            with merge_annotation("crdt_tpu_torch.dense_merge",
-                                  hlc=lambda: self._canonical_time):
-                out = pipelined_model_step(
-                    self._store, cs, pipe.canonical, pipe.any_bad,
-                    pipe.overflow, pipe.drift, pipe.val_overflow,
-                    pipe.first_flag_idx, local, wall_merge, wall_send,
-                    pipe.merges, value_width=self._value_width)
-            self._finish_coarse(out)
-            return
-
-        wall = self._wall_clock()
-        with merge_annotation("crdt_tpu_torch.dense_merge",
-                              hlc=lambda: self._canonical_time):
-            new_store, res, seen, voverflow, cs = self._dispatch_fanin(
-                cs, wall)
-        self.stats.add_seen_lazy(seen)
-        self._finish_merge(new_store, res, voverflow, wall,
-                           lambda: (cs.lt, cs.node, cs.valid))
+        return cs
 
     def _dispatch_fanin(self, cs: DenseChangeset, wall: int):
         """One merge of a changeset in this replica's table: ``(new_store,

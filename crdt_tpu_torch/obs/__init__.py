@@ -6,7 +6,8 @@
   ``crdt_tpu/obs/``: the process-wide metrics `registry` (counters,
   gauges, log2 histograms, quantile sketches) whose snapshot the
   ``metrics`` op returns, the `trace` ring and its spans (a
-  ``torch.profiler.record_function`` range each), the flight
+  ``torch.profiler.record_function`` range each while the ring is on
+  or a profiler records, timed, with the syncs inside counted), the flight
   `recorder` behind ``debug_dump``, the gossip `lag` helpers and the
   canary `probe`;
 - the rendering of what they hold, copied too: the Prometheus and

@@ -21,10 +21,31 @@ events) with an optional JSONL sink. Events are plain dicts:
 - ``dur_s`` is present on span-shaped events.
 
 **Cost model**: tracing is off by default and every emit site checks
-``tracer().enabled`` (one attribute read) first. :func:`span` always
-wraps its body in ``torch.profiler.record_function`` — so
-``torch.profiler`` traces show named merge/pack/wire phases whether or
-not the ring is on — and only times + emits when the ring is enabled.
+``tracer().enabled`` (one attribute read) first. A :func:`span` is
+*live* when the ring is enabled or a ``torch.profiler`` is recording
+(``torch.autograd.profiler._is_profiler_enabled``, one more attribute
+read). A span that is not live runs its body and nothing else: no
+profiler range, no clock read, no histogram, no sync watch. A live span
+runs its body inside ``torch.profiler.record_function(name)`` (a named
+range on the profiler's host timeline, the clock its device events are
+stamped on), times it into the ``crdt_tpu_span_seconds`` histogram,
+and emits a ring event when the ring is enabled.
+
+**Sync counter**: ``crdt_tpu_span_syncs_total{span}`` counts the
+host-device synchronizations made while spans are live, each under the
+innermost live span of the thread that made it: ``.item()``,
+``.tolist()``, ``int(tensor)``, a blocking copy, an ATen op that reads
+a CUDA scalar inside. The outermost live span sets
+``torch.cuda.set_sync_debug_mode("warn")`` (where CUDA is initialized
+and the mode is the default) and restores it on exit; torch reports
+each synchronization as a warning. The first such span also installs,
+once, a warning hook and an ``always`` filter for those reports, and
+leaves them in place: the hook counts a report and hides it while a
+span holds the mode, and hands every other warning, and a report under
+a mode the caller set, to the hook it replaced. The debug mode is
+process-wide, so the count is exact for spans on one thread: a sync on
+a thread with no live span of its own is dropped, and spans opened on
+other threads in the meantime share the outermost span's mode.
 
 HLC arguments may be zero-arg callables; they are invoked only when an
 event is actually recorded, so disabled tracing never pays for a
@@ -36,12 +57,14 @@ from __future__ import annotations
 import functools
 import json
 import os
+import threading
 import time
+import warnings
 from collections import deque
-from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
 import torch.profiler
+from torch.autograd import profiler as _autograd_profiler
 
 from ..utils.concurrency import make_lock
 
@@ -228,27 +251,134 @@ def _span_histogram():
                 "crdt_tpu_span_seconds",
                 "traced span durations by span name (log2 buckets)",
                 low_exp=-20, high_exp=5)
+            # Registered beside it, so that a reader finds it whenever
+            # a span was live, syncs or none.
+            _sync_counter()
         return _SPAN_HIST
 
 
-@contextmanager
-def span(name: str, kind: str = "span", hlc: Any = None,
-         **fields: Any):
-    """Profiler-annotated span: the body always runs inside
-    ``torch.profiler.record_function(name)`` (named ranges in
-    ``torch.profiler`` traces); when the process tracer is enabled the
-    span is also timed, emitted as an HLC-stamped ring event, and
-    observed into the ``crdt_tpu_span_seconds`` histogram."""
-    ring = _DEFAULT
-    if not ring.enabled:
-        with torch.profiler.record_function(name):
-            yield
-        return
-    start = time.perf_counter()
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        dur = time.perf_counter() - start
-        ring.emit(kind, hlc=hlc, span=name, dur_s=dur, **fields)
-        _span_histogram().observe(dur, span=name)
+def _sync_counter():
+    from .registry import default_registry
+    return default_registry().counter(
+        "crdt_tpu_span_syncs_total",
+        "host-device synchronizations under the innermost live span")
+
+
+# The live spans of each thread, innermost last: a sync is counted
+# under the top of its own thread's stack.
+_LIVE = threading.local()
+# The sync watch: how many spans are live in the process, whether the
+# outermost one set the debug mode (and restores it when the last one
+# exits), and the warning hook that `_on_warning` replaced.
+_SYNC_LOCK = make_lock("trace._SYNC_LOCK", 82)
+_SYNC_DEPTH = 0
+_SYNC_OURS = False
+_SYNC_HOOKED = None
+_SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def _live_stack() -> List[str]:
+    stack = getattr(_LIVE, "stack", None)
+    if stack is None:
+        stack = _LIVE.stack = []
+    return stack
+
+
+def _on_warning(message, category, filename, lineno, file=None,
+                line=None):
+    """The warning hook: counts torch's sync reports under this
+    thread's innermost live span, hides them while a span holds the
+    debug mode, and hands every other warning to the hook it
+    replaced."""
+    if str(message).startswith(_SYNC_WARNING):
+        stack = getattr(_LIVE, "stack", None)
+        if stack:
+            _sync_counter().inc(span=stack[-1])
+        if _SYNC_OURS:
+            return      # the mode is ours: nothing to show
+    (_SYNC_HOOKED or warnings._showwarning_orig)(
+        message, category, filename, lineno, file, line)
+
+
+def _install_hook() -> None:
+    """The hook and the ``always`` filter for sync reports, each put in
+    place where it is missing (the first time, or after a
+    ``warnings.catch_warnings`` exit restored what it found)."""
+    global _SYNC_HOOKED
+    if warnings.showwarning is not _on_warning:
+        _SYNC_HOOKED = warnings.showwarning
+        warnings.showwarning = _on_warning
+    if not any(f[0] == "always" and f[1] is not None
+               and f[1].pattern == _SYNC_WARNING for f in warnings.filters):
+        warnings.filterwarnings("always", message=_SYNC_WARNING)
+
+
+def _watch_syncs() -> None:
+    """Entered by every live span: the outermost one turns torch's sync
+    reports on (where CUDA is up and the mode is the default)."""
+    global _SYNC_DEPTH, _SYNC_OURS
+    with _SYNC_LOCK:
+        _SYNC_DEPTH += 1
+        if _SYNC_DEPTH > 1 or not torch.cuda.is_initialized():
+            return
+        _install_hook()
+        if torch.cuda.get_sync_debug_mode() == 0:
+            torch.cuda.set_sync_debug_mode("warn")
+            _SYNC_OURS = True
+
+
+def _unwatch_syncs() -> None:
+    global _SYNC_DEPTH, _SYNC_OURS
+    with _SYNC_LOCK:
+        _SYNC_DEPTH -= 1
+        if _SYNC_DEPTH or not _SYNC_OURS:
+            return
+        _SYNC_OURS = False
+        torch.cuda.set_sync_debug_mode(0)
+
+
+class span:
+    """A named span (a context manager), live when the process tracer
+    is enabled or a ``torch.profiler`` is recording (module docstring).
+    Not live, the body runs alone. Live, it runs inside
+    ``torch.profiler.record_function(name)``, is timed into the
+    ``crdt_tpu_span_seconds`` histogram, counts its syncs into
+    ``crdt_tpu_span_syncs_total`` and, with the tracer enabled, is
+    emitted as an HLC-stamped ring event.
+
+    A class rather than a generator: a span that is not live costs one
+    object and two attribute reads, which the merge step pays once a
+    stage."""
+
+    __slots__ = ("name", "kind", "hlc", "fields", "_range", "_start")
+
+    def __init__(self, name: str, kind: str = "span", hlc: Any = None,
+                 **fields: Any):
+        self.name = name
+        self.kind = kind
+        self.hlc = hlc
+        self.fields = fields
+        self._range = None
+
+    def __enter__(self) -> None:
+        if not (_DEFAULT.enabled or _autograd_profiler._is_profiler_enabled):
+            return
+        _live_stack().append(self.name)
+        _watch_syncs()
+        self._start = time.perf_counter()
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+
+    def __exit__(self, *exc: Any) -> None:
+        rng, self._range = self._range, None
+        if rng is None:
+            return
+        try:
+            rng.__exit__(*exc)
+        finally:
+            dur = time.perf_counter() - self._start
+            _unwatch_syncs()
+            _live_stack().pop()
+            _DEFAULT.emit(self.kind, hlc=self.hlc, span=self.name,
+                          dur_s=dur, **self.fields)
+            _span_histogram().observe(dur, span=self.name)

@@ -31,6 +31,13 @@ through its row stride: one launch per device over all of its blocks
 Each wrapper takes the kernel for CUDA tensors and its plain version
 (`fanin_join_reference`, `fanin_split_join_reference`) for CPU
 tensors, and never falls back from one to the other.
+
+The batch entry's stages are spans (`obs.trace.span`, live only while
+the tracer is on or a profiler records): ``crdt_tpu_torch.fanin.mask``
+(`mask_value_width`), ``crdt_tpu_torch.fanin.join`` (the join: the
+kernel's checks, allocations and launch, or the plain version) and
+``crdt_tpu_torch.fanin.stamp`` (`_stamp`, with a pipelined step's
+`_pipelined_tail` and its send bump).
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 from .. import _build
 from ..hlc import MAX_COUNTER, MAX_DRIFT, SHIFT
 from ..obs import device as _obs_device
+from ..obs.trace import span
 from .dense import (CHANGESET_DTYPES, STORE_DTYPES, _NEG, DenseChangeset,
                     DenseStore, check_lanes, check_rows, reduce_replicas)
 from .merge import send_step
@@ -56,6 +64,10 @@ _obs_device.register(
 
 Scalar = Union[int, torch.Tensor]
 Join = Tuple[torch.Tensor, ...]
+
+MASK_SPAN = "crdt_tpu_torch.fanin.mask"
+JOIN_SPAN = "crdt_tpu_torch.fanin.join"
+STAMP_SPAN = "crdt_tpu_torch.fanin.stamp"
 
 
 class BatchResult(NamedTuple):
@@ -170,16 +182,29 @@ def _stamp(store: DenseStore, outs: Join, canonical: torch.Tensor,
                                   basemax > thresh)
 
 
-def _fanin(store: DenseStore, cs: DenseChangeset, canonical_lt: Scalar,
-           local_node: int, wall_millis: int, plain: bool
-           ) -> Tuple[DenseStore, BatchResult]:
+def _join(store: DenseStore, cs: DenseChangeset, canonical_lt: Scalar,
+          local_node: int, plain: bool) -> Tuple[torch.Tensor, Join]:
+    """The canonical as a device scalar and the join's own outputs."""
     canonical = torch.as_tensor(canonical_lt, dtype=torch.int64,
                                 device=store.lt.device)
-    if plain:
-        outs = fanin_join_reference(store, cs, canonical, local_node)
-    else:
-        outs = fanin_cuda_many([store], [cs], canonical, local_node)[0]
-    return _stamp(store, outs, canonical, local_node, wall_millis)
+    with span(JOIN_SPAN):
+        if plain:
+            outs = fanin_join_reference(store, cs, canonical, local_node)
+        else:
+            outs = fanin_cuda_many([store], [cs], canonical,
+                                   local_node)[0]
+    return canonical, outs
+
+
+def _fanin(store: DenseStore, cs: DenseChangeset, canonical_lt: Scalar,
+           local_node: int, wall_millis: int, plain: bool, tail=None):
+    """The join and `_stamp`: ``(new_store, BatchResult)``, or what
+    ``tail(new_store, res)`` makes of them inside the same stamp span."""
+    canonical, outs = _join(store, cs, canonical_lt, local_node, plain)
+    with span(STAMP_SPAN):
+        new_store, res = _stamp(store, outs, canonical, local_node,
+                                wall_millis)
+        return (new_store, res) if tail is None else tail(new_store, res)
 
 
 def fanin_batch(store: DenseStore, cs: DenseChangeset,
@@ -214,14 +239,15 @@ def mask_value_width(cs: DenseChangeset, value_width: int):
     records whose value does not fit int32 are masked INVALID, never
     truncated, and ``val_overflow`` says so. Returns ``(cs, seen,
     val_overflow)``, ``seen`` the valid records left."""
-    if value_width == 32:
-        fits = (cs.val >= -(2 ** 31)) & (cs.val < 2 ** 31)
-        val_overflow = (cs.valid & ~fits).any()
-        cs = cs._replace(valid=cs.valid & fits)
-    else:
-        val_overflow = torch.zeros((), dtype=torch.bool,
-                                   device=cs.valid.device)
-    return cs, cs.valid.sum(), val_overflow
+    with span(MASK_SPAN):
+        if value_width == 32:
+            fits = (cs.val >= -(2 ** 31)) & (cs.val < 2 ** 31)
+            val_overflow = (cs.valid & ~fits).any()
+            cs = cs._replace(valid=cs.valid & fits)
+        else:
+            val_overflow = torch.zeros((), dtype=torch.bool,
+                                       device=cs.valid.device)
+        return cs, cs.valid.sum(), val_overflow
 
 
 def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
@@ -236,12 +262,20 @@ def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
                                   wall_millis, value_width)
 
 
-def _model_fanin_batch(store, cs, canonical_lt, local_node, wall_millis,
-                       value_width):
-    cs, seen, val_overflow = mask_value_width(cs, value_width)
-    new_store, res = fanin_batch(store, cs, canonical_lt, local_node,
-                                 wall_millis)
+def _model_result(new_store, res, seen, val_overflow):
     return new_store, res, seen, val_overflow
+
+
+def _model_fanin_batch(store, cs, canonical_lt, local_node, wall_millis,
+                       value_width, tail=_model_result):
+    """`mask_value_width`, then `_fanin` with ``tail(new_store, res,
+    seen, val_overflow)`` inside its stamp span: by default those
+    four."""
+    cs, seen, val_overflow = mask_value_width(cs, value_width)
+    return _fanin(store, cs, canonical_lt, local_node, wall_millis,
+                  plain=not store.lt.is_cuda,
+                  tail=lambda new_store, res: tail(new_store, res, seen,
+                                                   val_overflow))
 
 
 def pipelined_model_step(store: DenseStore, cs: DenseChangeset,
@@ -260,11 +294,12 @@ def pipelined_model_step(store: DenseStore, cs: DenseChangeset,
     with _obs_device.record(
             _ledger_name(store, "pallas.pipelined_model_step"),
             dim=cs.valid.shape[0]):
-        new_store, res, seen, voverflow = _model_fanin_batch(
-            store, cs, canonical, local_node, wall_merge, value_width)
-        return _pipelined_tail(new_store, res, seen, voverflow,
-                               value_width, any_bad, overflow, drift,
-                               val_ovf, first_idx, merge_idx, wall_send)
+        return _model_fanin_batch(
+            store, cs, canonical, local_node, wall_merge, value_width,
+            tail=lambda new_store, res, seen, voverflow: _pipelined_tail(
+                new_store, res, seen, voverflow, value_width, any_bad,
+                overflow, drift, val_ovf, first_idx, merge_idx,
+                wall_send))
 
 
 def _pipelined_tail(new_store, res, seen, voverflow, value_width,

@@ -4,9 +4,10 @@ Port of ``crdt_tpu/utils/stats.py``. `MergeStats` counts merges and
 record flow on a backend; `PeerSyncStats` counts a gossip peer's
 rounds, retries, fallbacks, bytes and breaker transitions;
 `merge_annotation` wraps the device launch in a trace span
-(`crdt_tpu_torch.obs.trace.span`: a ``torch.profiler.record_function``
-range, and an HLC-stamped ``merge`` ring event when the process tracer
-is on).
+(`crdt_tpu_torch.obs.trace.span`: live only while the process tracer
+is on or a ``torch.profiler`` records, and then a
+``torch.profiler.record_function`` range, a timed histogram entry and,
+with the tracer on, an HLC-stamped ``merge`` ring event).
 
 ``register(**labels)`` attaches an instance to the process-wide metrics
 registry (`crdt_tpu_torch.obs.registry`) as a weakly held collector,
@@ -145,9 +146,12 @@ class PeerSyncStats:
 
 
 def merge_annotation(name: str = "crdt_tpu_torch.merge", hlc: Any = None):
-    """Named span around a merge launch: always a
-    ``torch.profiler.record_function`` range; also an HLC-stamped
-    ``merge`` ring event when the process tracer is enabled. ``hlc``
-    may be a zero-arg callable, evaluated only when an event is
-    actually recorded."""
+    """Named span around a merge launch (`obs.trace.span`, kind
+    ``merge``): nothing unless live, that is while the process tracer
+    is enabled or a ``torch.profiler`` records. Live, a
+    ``torch.profiler.record_function`` range, timed into
+    ``crdt_tpu_span_seconds`` with its syncs counted; with the tracer
+    enabled also an HLC-stamped ``merge`` ring event. ``hlc`` may be a
+    zero-arg callable, evaluated only when an event is actually
+    recorded."""
     return _span(name, kind="merge", hlc=hlc)
