@@ -169,14 +169,17 @@ def _stamp(store: DenseStore, outs: Join, canonical: torch.Tensor,
            ) -> Tuple[DenseStore, BatchResult]:
     """Post-pass (outside the kernel on the TPU too): the union-final
     canonical comes from the kernel's own basemax, and only then can the
-    winners' modified lanes be stamped."""
+    winners' modified lanes be stamped. The stamp is a select on the
+    device: a fill with the 0-dim ``new_canonical`` would read it back
+    to the host (torch's CUDA ``masked_fill`` takes its value as a host
+    scalar), a sync a pipelined window promises not to make."""
     lt, node, val, tomb, occupied, win, basemax, any_dup = outs
     new_canonical = torch.maximum(canonical, basemax)
     thresh = ((wall_millis + MAX_DRIFT) << SHIFT) | MAX_COUNTER
     new_store = DenseStore(
         lt=lt, node=node, val=val,
-        mod_lt=store.mod_lt.masked_fill(win, new_canonical),
-        mod_node=store.mod_node.masked_fill(win, local_node),
+        mod_lt=torch.where(win, new_canonical, store.mod_lt),
+        mod_node=torch.where(win, local_node, store.mod_node),
         occupied=occupied, tomb=tomb)
     return new_store, BatchResult(new_canonical, win, basemax, any_dup,
                                   basemax > thresh)

@@ -13,6 +13,9 @@ its merge step.
   filter are put in place once and stay.
 - On the card (``-m cuda``): a live span around one ``.item()`` counts
   1 sync, one that only enqueues counts 0, a window's fence at least 1.
+  In a coarse window, ``merge``, ``merge_many`` and ``merge_split``
+  (wide and narrow lanes) count none under any span of the merge step,
+  and land the lanes and clock of the same merges unpipelined.
 
 This file imports neither jax nor the JAX package, so on a machine
 without jax it runs without the suite's conftest:
@@ -32,6 +35,7 @@ from crdt_tpu_torch.models.dense_crdt import DenseCrdt
 from crdt_tpu_torch.obs import trace as ptrace
 from crdt_tpu_torch.obs.registry import default_registry
 from crdt_tpu_torch.ops.dense import DenseChangeset
+from crdt_tpu_torch.ops.split import split_changeset, split_changeset_narrow
 
 from torch_threads import cap_torch_threads
 
@@ -324,3 +328,53 @@ def test_the_window_fence_counts_its_readback(card, ring):
     got = {name: syncs(name) - n0[name] for name in n0}
     assert got[FENCE] >= 1
     assert span_counts_since(before)["crdt_tpu_torch.merge"] == 3
+
+
+# The hub's table is its peers' ids: the ordinal remap is the identity
+# and the merge step copies nothing from the host, as in the benchmark.
+PEERS = IDS + ["h"]
+WINDOW_CASES = ["merge", "merge_many", "merge_split-wide",
+                "merge_split-narrow"]
+
+
+def window_merges(case, device, pipelined, n=4096):
+    """A fresh hub's merges of three changesets by ``case``'s entry, in
+    one window or one by one."""
+    narrow = case == "merge_split-narrow"
+    crdt = DenseCrdt("h", n, node_ids=PEERS, device=device,
+                     wall_clock=lambda: WALL,
+                     value_width=32 if narrow else 64)
+    batches = [changeset(i, n, device) for i in range(3)]
+    if case == "merge_many":
+        calls = [lambda: crdt.merge_many([(cs, PEERS) for cs in batches])]
+    elif case == "merge":
+        calls = [lambda cs=cs: crdt.merge(cs, PEERS) for cs in batches]
+    else:
+        lanes = [split_changeset_narrow(cs)[0] if narrow
+                 else split_changeset(cs) for cs in batches]
+        calls = [lambda s=s: crdt.merge_split(s, PEERS) for s in lanes]
+    if pipelined:
+        with crdt.pipelined():
+            for call in calls:
+                call()
+    else:
+        for call in calls:
+            call()
+    return crdt, len(calls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_a_coarse_window_syncs_only_at_its_fence(card, ring, case):
+    n0 = {name: syncs(name) for name in PER_MERGE + [FENCE]}
+    before = span_totals()
+    crdt, calls = window_merges(case, card, pipelined=True)
+    got = {name: syncs(name) - n0[name] for name in n0}
+    assert {name: got[name] for name in PER_MERGE} == dict.fromkeys(
+        PER_MERGE, 0)
+    assert got[FENCE] >= 1
+    assert span_counts_since(before)["crdt_tpu_torch.dense_merge"] == calls
+    plain, _ = window_merges(case, card, pipelined=False)
+    for f in crdt.store._fields:
+        assert torch.equal(getattr(crdt.store, f), getattr(plain.store, f)), f
+    assert crdt.canonical_time == plain.canonical_time
