@@ -518,6 +518,9 @@ def kernel_fanin(results: dict) -> None:
 
     launch = lambda: fanin_kernel.fanin_cuda_many([store], [cs], canonical,
                                                   local)
+    k_seen, p_seen = int(launch()[0][8]), int(cs.valid.sum())
+    check(k_seen == p_seen, f"fanin_batch: kernel seen {k_seen} != "
+                            f"cs.valid.sum() {p_seen}")
     runs = graph_ms(launch, iters=20)
     call_ms = cuda_ms(launch, iters=20)
     plain_ms = cuda_ms(lambda: fanin_kernel.fanin_join_reference(

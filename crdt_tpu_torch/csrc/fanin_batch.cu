@@ -19,8 +19,11 @@
 //   - lt/node/val/tomb of the result, occupied |= win, and win;
 //   - basemax, the max lt over every valid entry (int64 atomicMax), and
 //     any_dup, whether a valid entry carries the local node with an lt
-//     above the pre-merge canonical (int32 atomicOr) — the closed-form
-//     superset guard flags of `pallas_fanin_batch`.
+//     above the pre-merge canonical (64-bit atomicOr) — the closed-form
+//     superset guard flags of `pallas_fanin_batch`;
+//   - seen, the number of valid entries (64-bit atomicAdd): the model
+//     layer's `records_seen`, counted from the valid bytes the row loop
+//     loads anyway, so no pass of its own reads the [R, N] lane again.
 // The winners' modified stamp needs the final canonical, which needs
 // this kernel's basemax, so the wrapper stamps mod_lt/mod_node after.
 //
@@ -36,7 +39,7 @@
 // of their compares, and the running best keeps its row index instead
 // of its payload. The winner's val/tomb are gathered once after the
 // loop (one 8-B and one 1-B load per winning slot). Nothing crosses
-// thread blocks but the two scalars per entry, reduced per block (warp
+// thread blocks but the three scalars per entry, reduced per block (warp
 // shuffles, then one atomic each). blockIdx.y picks the table entry;
 // the table is a __grid_constant__ parameter.
 // Of the design steps timed on the H100 (PERF.md) — 4, 8 and 16
@@ -54,7 +57,7 @@ constexpr int kBlock = 256;
 constexpr int kBatch = 4;                     // rows loaded together
 constexpr int kWarps = kBlock / 32;
 constexpr int kMaxEntries = 16;               // ops/fanin_kernel.py
-constexpr int kLanes = 18;
+constexpr int kLanes = 19;
 
 struct Entry {
   const long long* st_lt; const int* st_node; const long long* st_val;
@@ -63,7 +66,8 @@ struct Entry {
   const uint8_t* cs_tomb; const uint8_t* cs_valid;
   long long* o_lt; int* o_node; long long* o_val; uint8_t* o_tomb;
   uint8_t* o_occ; uint8_t* o_win;
-  long long* basemax; int* any_dup;
+  long long* basemax; unsigned long long* any_dup;
+  unsigned long long* seen;
   long long n, r, ld;
 };
 
@@ -79,6 +83,13 @@ __device__ __forceinline__ long long warp_max(long long v) {
   return v;
 }
 
+__device__ __forceinline__ unsigned long long warp_sum(
+    unsigned long long v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
 __global__ void __launch_bounds__(kBlock) fanin_batch_kernel(
     const __grid_constant__ Table t, const long long* __restrict__ canonical,
     int local_node) {
@@ -88,6 +99,7 @@ __global__ void __launch_bounds__(kBlock) fanin_batch_kernel(
   const long long i = first + threadIdx.x;
   long long bmax = kNeg;
   int dup = 0;
+  unsigned count = 0;
   if (i < e.n) {
     const long long canon = *canonical;
     long long b_lt = kNeg;
@@ -110,6 +122,7 @@ __global__ void __launch_bounds__(kBlock) fanin_batch_kernel(
       }
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {
+        count += valid[j] != 0;
         if (!valid[j]) continue;
         const long long x = lt[j];
         const int nd = node[j];
@@ -145,20 +158,28 @@ __global__ void __launch_bounds__(kBlock) fanin_batch_kernel(
     e.o_occ[i] = (occ || win) ? 1 : 0;
     e.o_win[i] = win ? 1 : 0;
   }
-  // Block reduction of the two scalars; every thread of the block gets
-  // here, as the barrier requires.
+  // Block reduction of the three scalars; every thread of the block
+  // gets here, as the barrier requires.
   __shared__ long long warp_best[kWarps];
+  __shared__ unsigned long long warp_count[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   bmax = warp_max(bmax);
-  if (lane == 0) warp_best[warp] = bmax;
+  const unsigned long long wcount = warp_sum(count);
+  if (lane == 0) {
+    warp_best[warp] = bmax;
+    warp_count[warp] = wcount;
+  }
   const int block_dup = __syncthreads_or(dup);
   if (warp == 0) {
     long long v = lane < kWarps ? warp_best[lane] : kNeg;
+    unsigned long long c = lane < kWarps ? warp_count[lane] : 0ull;
     v = warp_max(v);
+    c = warp_sum(c);
     if (lane == 0) {
       if (v > kNeg) atomicMax(e.basemax, v);
-      if (block_dup) atomicOr(e.any_dup, 1);
+      if (block_dup) atomicOr(e.any_dup, 1ull);
+      if (c) atomicAdd(e.seen, c);
     }
   }
 }
@@ -166,15 +187,16 @@ __global__ void __launch_bounds__(kBlock) fanin_batch_kernel(
 }  // namespace
 
 // Launches one kernel over `n_entries` (1..16) merges on `stream`;
-// returns a CUDA error code (0 on success). `lanes` holds 18 device
+// returns a CUDA error code (0 on success). `lanes` holds 19 device
 // pointers per entry, in order: the store's lt, node, val, tomb,
 // occupied; the changeset's lt, node, val, tomb, valid; the outputs lt,
 // node, val, tomb, occupied, win; the entry's basemax (int64, set to
-// NEG by the caller) and any_dup (int32, zeroed by the caller). `dims`
-// holds n, r and ld per entry: ld is the changeset lanes' row stride in
-// entries, n for whole lanes, the full width for a key shard's column
-// block taken in place (K1p). `canonical` is a device int64 scalar, so
-// a pipelined merge never brings the clock back to the host.
+// NEG by the caller), any_dup and seen (int64 each, zeroed by the
+// caller). `dims` holds n, r and ld per entry: ld is the changeset
+// lanes' row stride in entries, n for whole lanes, the full width for a
+// key shard's column block taken in place (K1p). `canonical` is a
+// device int64 scalar, so a pipelined merge never brings the clock back
+// to the host.
 extern "C" int crdt_fanin_batch(const void* const* lanes,
                                 const long long* dims, int n_entries,
                                 const void* canonical, int local_node,
@@ -195,7 +217,9 @@ extern "C" int crdt_fanin_batch(const void* const* lanes,
     e.o_lt = (long long*)q[10]; e.o_node = (int*)q[11];
     e.o_val = (long long*)q[12]; e.o_tomb = (uint8_t*)q[13];
     e.o_occ = (uint8_t*)q[14]; e.o_win = (uint8_t*)q[15];
-    e.basemax = (long long*)q[16]; e.any_dup = (int*)q[17];
+    e.basemax = (long long*)q[16];
+    e.any_dup = (unsigned long long*)q[17];
+    e.seen = (unsigned long long*)q[18];
     e.n = dims[3 * j];
     e.r = dims[3 * j + 1];
     e.ld = dims[3 * j + 2];

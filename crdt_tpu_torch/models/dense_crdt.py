@@ -1687,7 +1687,8 @@ class DenseCrdt:
         changeset whose lanes the exact guards read. A typed store takes
         the typed fold, never the kernel."""
         if self._sem is not None:
-            cs, seen, voverflow = mask_value_width(cs, self._value_width)
+            cs, voverflow = mask_value_width(cs, self._value_width)
+            seen = cs.valid.sum()
             new_store, res = typed_fanin_step(
                 self._store, self._sem_device(), cs, self._canonical_lt(),
                 self._local_ordinal(), wall)
@@ -2491,7 +2492,10 @@ class ShardedDenseCrdt(DenseCrdt):
                              self._local_ordinal())
 
     def _dispatch_fanin(self, cs: DenseChangeset, wall: int):
-        cs, seen, voverflow = mask_value_width(cs, self._value_width)
+        # The whole changeset's count, before sharding: K1p's per-block
+        # counts are not read.
+        cs, voverflow = mask_value_width(cs, self._value_width)
+        seen = cs.valid.sum()
         if self._sem is not None:
             new_store, res = self._typed_step(
                 self._store, self._sem_device(), cs, self._canonical_lt(),

@@ -81,9 +81,10 @@ class BatchResult(NamedTuple):
 def fanin_join_reference(store: DenseStore, cs: DenseChangeset,
                          canonical: torch.Tensor, local_node: int) -> Join:
     """Plain torch version of the kernel's own outputs: ``(lt, node,
-    val, tomb, occupied, win, basemax, any_dup)``. The rows reduce
-    among themselves (lowest row keeps ties), then the winner meets the
-    local slot strictly (local keeps ties)."""
+    val, tomb, occupied, win, basemax, any_dup, seen)``, ``seen`` the
+    valid records. The rows reduce among themselves (lowest row keeps
+    ties), then the winner meets the local slot strictly (local keeps
+    ties)."""
     b_lt, b_node, b_val, b_tomb, _ = reduce_replicas(cs)
     s_lt = torch.where(store.occupied, store.lt, _NEG)
     win = (b_lt > s_lt) | ((b_lt == s_lt) & (b_node > store.node))
@@ -97,7 +98,7 @@ def fanin_join_reference(store: DenseStore, cs: DenseChangeset,
             torch.where(win, b_node, store.node),
             torch.where(win, b_val, store.val),
             torch.where(win, b_tomb, store.tomb),
-            store.occupied | win, win, basemax, any_dup)
+            store.occupied | win, win, basemax, any_dup, cs.valid.sum())
 
 
 _VP = ctypes.c_void_p
@@ -121,14 +122,15 @@ def fanin_cuda_many(stores: Sequence[DenseStore],
     several merges on one device: one launch per `MAX_ENTRIES` merges,
     each counted under ``count_as``. A changeset may be a key shard's
     column block of wider lanes (contiguous rows at one row stride),
-    read in place."""
+    read in place. Each call fills fresh scalars: a caller may keep a
+    merge's ``seen`` unread past the next call."""
     dev = canonical.device
     if canonical.dtype != torch.int64 or canonical.dim() != 0:
         raise ValueError("fanin_batch: canonical must be an int64 scalar "
                          f"tensor on {dev}")
     m = len(stores)
     basemax = torch.full((m,), _NEG, dtype=torch.int64, device=dev)
-    dup = torch.zeros((m,), dtype=torch.int32, device=dev)
+    dup, seen = torch.zeros((2, m), dtype=torch.int64, device=dev)
     outs, todo = [], []
     for j, (store, cs) in enumerate(zip(stores, css)):
         n = store.n_slots
@@ -143,7 +145,8 @@ def fanin_cuda_many(stores: Sequence[DenseStore],
         outs.append(out)
         if n:
             todo.append(([store.lt, store.node, store.val, store.tomb,
-                          store.occupied, *cs, *out, basemax[j], dup[j]],
+                          store.occupied, *cs, *out, basemax[j], dup[j],
+                          seen[j]],
                          (n, r, ld)))
     # The launch goes to the current device: make it the lanes' one.
     with torch.cuda.device(dev):
@@ -161,7 +164,8 @@ def fanin_cuda_many(stores: Sequence[DenseStore],
                                    f"CUDA error {rc}")
             _obs_device.note_launch(count_as)
     any_dup = dup != 0
-    return [(*out, basemax[j], any_dup[j]) for j, out in enumerate(outs)]
+    return [(*out, basemax[j], any_dup[j], seen[j])
+            for j, out in enumerate(outs)]
 
 
 def _stamp(store: DenseStore, outs: Join, canonical: torch.Tensor,
@@ -201,13 +205,16 @@ def _join(store: DenseStore, cs: DenseChangeset, canonical_lt: Scalar,
 
 def _fanin(store: DenseStore, cs: DenseChangeset, canonical_lt: Scalar,
            local_node: int, wall_millis: int, plain: bool, tail=None):
-    """The join and `_stamp`: ``(new_store, BatchResult)``, or what
-    ``tail(new_store, res)`` makes of them inside the same stamp span."""
-    canonical, outs = _join(store, cs, canonical_lt, local_node, plain)
+    """The join and `_stamp`: ``(new_store, BatchResult, seen)``, or
+    what ``tail(new_store, res, seen)`` makes of them inside the same
+    stamp span."""
+    canonical, (*outs, seen) = _join(store, cs, canonical_lt, local_node,
+                                     plain)
     with span(STAMP_SPAN):
         new_store, res = _stamp(store, outs, canonical, local_node,
                                 wall_millis)
-        return (new_store, res) if tail is None else tail(new_store, res)
+        return ((new_store, res, seen) if tail is None
+                else tail(new_store, res, seen))
 
 
 def fanin_batch(store: DenseStore, cs: DenseChangeset,
@@ -217,7 +224,7 @@ def fanin_batch(store: DenseStore, cs: DenseChangeset,
     hand kernel for CUDA tensors, the plain version for CPU tensors.
     See the module docstring for the contract."""
     return _fanin(store, cs, canonical_lt, local_node, wall_millis,
-                  plain=not store.lt.is_cuda)
+                  plain=not store.lt.is_cuda)[:2]
 
 
 def fanin_batch_reference(store: DenseStore, cs: DenseChangeset,
@@ -227,7 +234,7 @@ def fanin_batch_reference(store: DenseStore, cs: DenseChangeset,
     """`fanin_batch` through the plain version on any device — what the
     kernel is held against on the card."""
     return _fanin(store, cs, canonical_lt, local_node, wall_millis,
-                  plain=True)
+                  plain=True)[:2]
 
 
 def _ledger_name(store: DenseStore, pallas_name: str) -> str:
@@ -240,8 +247,8 @@ def _ledger_name(store: DenseStore, pallas_name: str) -> str:
 def mask_value_width(cs: DenseChangeset, value_width: int):
     """The model layer's checks ahead of a merge: with ``value_width=32``
     records whose value does not fit int32 are masked INVALID, never
-    truncated, and ``val_overflow`` says so. Returns ``(cs, seen,
-    val_overflow)``, ``seen`` the valid records left."""
+    truncated, and ``val_overflow`` says so. Returns ``(cs,
+    val_overflow)``."""
     with span(MASK_SPAN):
         if value_width == 32:
             fits = (cs.val >= -(2 ** 31)) & (cs.val < 2 ** 31)
@@ -250,7 +257,7 @@ def mask_value_width(cs: DenseChangeset, value_width: int):
         else:
             val_overflow = torch.zeros((), dtype=torch.bool,
                                        device=cs.valid.device)
-        return cs, cs.valid.sum(), val_overflow
+        return cs, val_overflow
 
 
 def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
@@ -258,27 +265,13 @@ def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
                       wall_millis: int, *, value_width: int = 64):
     """The model layer's merge step: `mask_value_width` and
     `fanin_batch`. Returns ``(new_store, BatchResult, seen,
-    val_overflow)``."""
+    val_overflow)``, ``seen`` the join's count of the valid records
+    left after the masking."""
     with _obs_device.record(_ledger_name(store, "pallas.model_fanin_batch"),
                             dim=cs.valid.shape[0]):
-        return _model_fanin_batch(store, cs, canonical_lt, local_node,
-                                  wall_millis, value_width)
-
-
-def _model_result(new_store, res, seen, val_overflow):
-    return new_store, res, seen, val_overflow
-
-
-def _model_fanin_batch(store, cs, canonical_lt, local_node, wall_millis,
-                       value_width, tail=_model_result):
-    """`mask_value_width`, then `_fanin` with ``tail(new_store, res,
-    seen, val_overflow)`` inside its stamp span: by default those
-    four."""
-    cs, seen, val_overflow = mask_value_width(cs, value_width)
-    return _fanin(store, cs, canonical_lt, local_node, wall_millis,
-                  plain=not store.lt.is_cuda,
-                  tail=lambda new_store, res: tail(new_store, res, seen,
-                                                   val_overflow))
+        cs, val_overflow = mask_value_width(cs, value_width)
+        return (*_fanin(store, cs, canonical_lt, local_node, wall_millis,
+                        plain=not store.lt.is_cuda), val_overflow)
 
 
 def pipelined_model_step(store: DenseStore, cs: DenseChangeset,
@@ -297,9 +290,11 @@ def pipelined_model_step(store: DenseStore, cs: DenseChangeset,
     with _obs_device.record(
             _ledger_name(store, "pallas.pipelined_model_step"),
             dim=cs.valid.shape[0]):
-        return _model_fanin_batch(
-            store, cs, canonical, local_node, wall_merge, value_width,
-            tail=lambda new_store, res, seen, voverflow: _pipelined_tail(
+        cs, voverflow = mask_value_width(cs, value_width)
+        return _fanin(
+            store, cs, canonical, local_node, wall_merge,
+            plain=not store.lt.is_cuda,
+            tail=lambda new_store, res, seen: _pipelined_tail(
                 new_store, res, seen, voverflow, value_width, any_bad,
                 overflow, drift, val_ovf, first_idx, merge_idx,
                 wall_send))

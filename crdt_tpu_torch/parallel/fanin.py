@@ -291,10 +291,10 @@ def block_joins(store: ShardedStore, cs: ShardedChangeset,
                 join: Optional[Callable] = None) -> List[List[tuple]]:
     """K1 on every mesh position's block against its store copy: the
     kernel's own outputs ``(lt, node, val, tomb, occupied, win,
-    basemax, any_dup)`` per position. ``join=None`` takes the K1 kernel
-    for CUDA blocks, one launch per device over all of that device's
-    blocks (counted as ``fanin_batch_sharded``), and the plain version
-    for CPU blocks; a ``join`` given is called per position."""
+    basemax, any_dup, seen)`` per position. ``join=None`` takes the K1
+    kernel for CUDA blocks, one launch per device over all of that
+    device's blocks (counted as ``fanin_batch_sharded``), and the plain
+    version for CPU blocks; a ``join`` given is called per position."""
     out: List[List[Optional[tuple]]] = [[None] * len(row)
                                         for row in store.blocks]
     by_device = {}

@@ -123,6 +123,46 @@ def test_fanin_kernel_block_table_matches_plain(cuda):
             assert torch.equal(a, b)
 
 
+# (n, rows, valid): row counts that are not a multiple of the kernel's
+# batch of 4 rows, slot counts either side of its 256-slot block, every
+# entry invalid or valid; "blocks" a two-entry table of column blocks
+# read in place at the full row stride; "no-slots" a 0-slot store.
+SEEN_CASES = [*((n, rows, "some") for rows in (1, 3, 5, 11)
+                for n in (1, 255, 257, 6000)),
+              (4097, 9, "none"), (4097, 9, "all"), (6000, 11, "blocks"),
+              (0, 5, "no-slots")]
+
+
+@pytest.mark.parametrize("n,rows,valid", SEEN_CASES)
+def test_fanin_kernel_counts_seen(cuda, n, rows, valid):
+    """K1's ninth output is each merge's count of valid entries,
+    ``cs.valid.sum()``; the other eight stay the plain join's."""
+    blocks = valid == "blocks"
+    store, cs = lanes(np.random.default_rng(16 * n + rows),
+                      2 * n if blocks else n, rows)
+    if valid in ("none", "all"):
+        cs["valid"][:] = valid == "all"
+    s, c = on(cuda, store, cs)
+    if blocks:
+        stores = [td.DenseStore(*(x[k * n:(k + 1) * n] for x in s))
+                  for k in range(2)]
+        css = [td.DenseChangeset(*(x[:, k * n:(k + 1) * n] for x in c))
+               for k in range(2)]
+    else:
+        stores, css = [s], [c]
+    canonical = torch.tensor(BASE + 3, device=cuda)
+    obs_device.reset()
+    got = fanin_kernel.fanin_cuda_many(stores, css, canonical, 2)
+    assert obs_device.launches()["fanin_batch"] == (1 if n else 0)
+    for st, cb, g in zip(stores, css, got):
+        want = fanin_kernel.fanin_join_reference(st, cb, canonical, 2)
+        assert len(g) == len(want) == 9
+        assert g[8].dtype == torch.int64
+        assert int(g[8]) == int(cb.valid.sum()) == int(want[8])
+        for a, b in zip(g[:8], want[:8]):
+            assert torch.equal(a, b)
+
+
 def test_ingest_kernel_matches_plain(cuda):
     rng = np.random.default_rng(1)
     store, _ = lanes(rng, 3000, 0)
