@@ -148,7 +148,6 @@ _LEDGER_REQUIRED = (
     "pallas.ingest_scatter_tiles",
     "pallas.model_fanin_batch", "pallas.model_fanin_split",
     "pallas.pallas_fanin_stream",
-    "pallas.pipelined_model_step", "pallas.pipelined_model_step_split",
     "semantics.typed_wire_join_step", "semantics.typed_sparse_join_step",
     "semantics.typed_fanin_step",
     "parallel.sharded_fanin", "parallel.sharded_pallas_fanin",

@@ -114,8 +114,7 @@ _DEVICE_DISPATCH = {
     "range_delta_mask", "max_logical_time", "put_scatter",
     "record_scatter", "delete_scatter", "ingest_scatter",
     "digest_tree_device", "ingest_scatter_tiles", "model_fanin_batch",
-    "model_fanin_split", "pipelined_model_step",
-    "pipelined_model_step_split", "typed_wire_join_step",
+    "model_fanin_split", "typed_wire_join_step",
     "typed_sparse_join_step", "typed_fanin_step", "sharded_fanin",
     "sharded_pallas_fanin", "sharded_ingest", "sharded_digest",
     "sharded_delta_mask", "sharded_max_logical_time",

@@ -82,9 +82,8 @@ from ..ops.dense import (CHANGESET_DTYPES, DenseChangeset, DenseStore,
                          wire_join_step)
 from ..ops.digest import (DEFAULT_LEAF_WIDTH, build_digest_tree,
                           digest_tree_device)
-from ..ops.fanin_kernel import (mask_value_width, model_fanin_batch,
-                                model_fanin_split, pipelined_model_step,
-                                pipelined_model_step_split)
+from ..ops.fanin_kernel import (STAMP_SPAN, mask_value_width,
+                                model_fanin_batch, model_fanin_split)
 from ..ops.ingest_kernel import ingest_scatter
 from ..ops.merge import recv_guards, send_step
 from ..ops.packing import NodeTable, PackedDelta, pack_into_arena
@@ -133,14 +132,16 @@ class PipelinedGuardError(Exception):
 
 
 class _PipeState:
-    """Device-resident clock state threaded across a pipelined window."""
+    """Device-resident clock state threaded across a pipelined window,
+    and the window's bookkeeping of each merge: `absorb` takes in its
+    result, `send_bump` ends it. Nothing leaves the device."""
 
     __slots__ = ("canonical", "any_bad", "overflow", "drift",
                  "val_overflow", "first_flag_idx", "merges", "exact",
-                 "ex_have", "ex_dup", "ex_lt", "ex_wall")
+                 "value_width", "ex_have", "ex_dup", "ex_lt", "ex_wall")
 
     def __init__(self, canonical_lt: int, device: torch.device,
-                 exact: bool = False):
+                 exact: bool = False, value_width: int = 64):
         self.canonical = torch.tensor(canonical_lt, dtype=torch.int64,
                                       device=device)
         false = torch.zeros((), dtype=torch.bool, device=device)
@@ -158,23 +159,54 @@ class _PipeState:
         # read, so a payload never pairs one merge's record with
         # another's wall.
         self.exact = exact
+        # Only a value_width=32 replica masks values out of a merge.
+        self.value_width = value_width
         self.ex_have = self.ex_dup = false
         self.ex_lt = self.ex_wall = zero
 
-    def note(self, flags: torch.Tensor, idx: int) -> None:
-        """Attribute freshly raised flags to window slot ``idx``."""
+    def _note(self, flags: torch.Tensor) -> None:
+        """Attribute freshly raised flags to the merge in progress."""
         self.first_flag_idx = torch.where(
-            (self.first_flag_idx < 0) & flags, idx, self.first_flag_idx)
+            (self.first_flag_idx < 0) & flags, self.merges,
+            self.first_flag_idx)
 
+    def absorb(self, res, val_overflow: torch.Tensor,
+               guard_lanes: Callable[[], Tuple[torch.Tensor, ...]],
+               local_node: int, wall: int) -> None:
+        """Take in one merge's result ahead of its send bump: its recv
+        flags (the kernel's superset flags, or in an exact window one
+        guard pass over ``guard_lanes()``'s ``(lt, node, valid)``,
+        seeded with the threaded canonical and the merge's ``wall``),
+        its value-ref overflow, and its merged canonical."""
+        if self.exact:
+            g_lt, g_node, g_valid = guard_lanes()
+            recv, first_bad, first_is_dup, _ = recv_guards(
+                g_lt, g_node, g_valid, self.canonical, local_node, wall)
+            newly = ~self.ex_have & recv
+            self.ex_dup = torch.where(newly, first_is_dup, self.ex_dup)
+            self.ex_lt = torch.where(newly, g_lt.reshape(-1)[first_bad],
+                                     self.ex_lt)
+            self.ex_wall = torch.where(newly, wall, self.ex_wall)
+            self.ex_have = self.ex_have | recv
+        else:
+            recv = res.any_dup | res.any_drift
+        flags = recv
+        if self.value_width == 32:
+            self.val_overflow = self.val_overflow | val_overflow
+            flags = flags | val_overflow
+        self._note(flags)
+        self.any_bad = self.any_bad | recv
+        self.canonical = res.new_canonical
 
-def _pipe_exact_guards(lt, node, valid, canonical_lt, local_node, wall):
-    """One exact recv-guard pass for a pipelined merge (the r-major
-    running-cummax semantics of `ops.merge.recv_guards`, seeded with the
-    THREADED device canonical): ``(any_bad, offender's logicalTime,
-    offender is a duplicate)``, all on the device."""
-    any_b, first_bad, first_is_dup, _ = recv_guards(
-        lt, node, valid, canonical_lt, local_node, wall)
-    return any_b, lt.reshape(-1)[first_bad], first_is_dup
+    def send_bump(self, wall: int) -> None:
+        """End the merge in progress (a merge of nothing has only this):
+        the final crdt.dart:93 send bump, its flags accumulated for the
+        flush."""
+        self.canonical, overflow, drift = send_step(self.canonical, wall)
+        self._note(overflow | drift)
+        self.overflow = self.overflow | overflow
+        self.drift = self.drift | drift
+        self.merges += 1
 
 
 def reencode(store: DenseStore, remap: np.ndarray) -> DenseStore:
@@ -187,11 +219,6 @@ def reencode(store: DenseStore, remap: np.ndarray) -> DenseStore:
 
 class DenseCrdt:
     """LWW-map CRDT over slots ``[0, n_slots)`` with int64 values."""
-
-    # Coarse windows take the fused step (merge, flags and send bump in
-    # one call); a model that cannot sets this False and its coarse
-    # merges take `_dispatch_fanin` and `_finish_merge`.
-    _FUSED_COARSE = True
 
     def __init__(self, node_id: Any, n_slots: int, *, device=None,
                  wall_clock: Optional[Callable[[], int]] = None,
@@ -341,7 +368,10 @@ class DenseCrdt:
         DEVICE scalar (the final send bump runs on device,
         `ops.merge.send_step`) and accumulate guard flags instead of
         fetching them. On exit, ONE readback materializes the clock and
-        raises if a guard fired.
+        raises if a guard fired. Each merge takes the route it takes
+        unpipelined up to its result; the window's step (`_PipeState`:
+        flags, the first flagged merge, the send bump) follows it on
+        the device.
 
         Merges land optimistically (a guard violation is already in the
         store when the flush reports it). In a coarse window the recv
@@ -362,7 +392,8 @@ class DenseCrdt:
         # window never sees — barrier first.
         self.drain_ingest()
         self._pipe = _PipeState(self._canonical_time.logical_time,
-                                self._device, exact=exact_guards)
+                                self._device, exact=exact_guards,
+                                value_width=self._value_width)
         try:
             yield self
         finally:
@@ -1619,24 +1650,6 @@ class DenseCrdt:
                     self._merge_nothing()
                     return
                 cs = self._merge_lanes(changesets)
-            local = self._local_ordinal()
-            pipe = self._pipe
-            if pipe is not None and not pipe.exact and self._FUSED_COARSE \
-                    and self._sem is None:
-                # Both wall reads up front (absorption + send bump): the
-                # count and order of the unpipelined path.
-                wall_merge = self._wall_clock()
-                wall_send = self._wall_clock()
-                with merge_annotation("crdt_tpu_torch.dense_merge",
-                                      hlc=lambda: self._canonical_time):
-                    out = pipelined_model_step(
-                        self._store, cs, pipe.canonical, pipe.any_bad,
-                        pipe.overflow, pipe.drift, pipe.val_overflow,
-                        pipe.first_flag_idx, local, wall_merge, wall_send,
-                        pipe.merges, value_width=self._value_width)
-                self._finish_coarse(out)
-                return
-
             wall = self._wall_clock()
             with merge_annotation("crdt_tpu_torch.dense_merge",
                                   hlc=lambda: self._canonical_time):
@@ -1651,8 +1664,7 @@ class DenseCrdt:
         wall read AND the final send bump (crdt.dart:77-94)."""
         self._wall_clock()
         if self._pipe is not None:
-            self._pipe.merges += 1
-            self._pipe_send_bump(self._wall_clock())
+            self._pipe.send_bump(self._wall_clock())
             return
         self._canonical_time = Hlc.send(self._canonical_time,
                                         millis=self._wall_clock())
@@ -1698,60 +1710,24 @@ class DenseCrdt:
             wall, value_width=self._value_width)
         return new_store, res, seen, voverflow, cs
 
-    def _finish_coarse(self, out) -> None:
-        """Land one fused coarse-window step (`pipelined_model_step` or
-        its split twin): the window state, the store, lazy stats."""
-        pipe = self._pipe
-        (new_store, pipe.canonical, pipe.any_bad, pipe.overflow,
-         pipe.drift, pipe.val_overflow, pipe.first_flag_idx, win_count,
-         win, seen) = out
-        pipe.merges += 1
-        self._store = new_store
-        self._store_escaped = False
-        self.stats.add_seen_lazy(seen)
-        self.stats.add_adopted_lazy(win_count)
-        self._emit_merge_wins(new_store, win)
-
     def _finish_merge(self, new_store: DenseStore, res, voverflow, wall: int,
                       guard_lanes: Callable[[], Tuple[torch.Tensor, ...]]
                       ) -> None:
-        """The tail shared by ``merge_many`` and ``merge_split`` outside
-        fused coarse windows. ``guard_lanes`` returns the ``(lt, node,
-        valid)`` lanes the exact guards read, with local ordinals: every
-        merge in an exact window needs them, an unpipelined one only when
-        a flag trips."""
+        """The tail shared by ``merge_many`` and ``merge_split``.
+        ``guard_lanes`` returns the ``(lt, node, valid)`` lanes the exact
+        guards read, with local ordinals: every merge in an exact window
+        needs them, an unpipelined one only when a flag trips."""
         local = self._local_ordinal()
         pipe = self._pipe
         if pipe is not None:
-            # Nothing leaves the device.
-            if pipe.exact:
-                # One guard pass seeded with the threaded canonical
-                # supersedes the kernel's superset flags.
-                g_lt, g_node, g_valid = guard_lanes()
-                recv, bad_lt, first_is_dup = _pipe_exact_guards(
-                    g_lt, g_node, g_valid, pipe.canonical, local, wall)
-                newly = ~pipe.ex_have & recv
-                pipe.ex_dup = torch.where(newly, first_is_dup, pipe.ex_dup)
-                pipe.ex_lt = torch.where(newly, bad_lt, pipe.ex_lt)
-                pipe.ex_wall = torch.where(newly, wall, pipe.ex_wall)
-                pipe.ex_have = pipe.ex_have | recv
-            else:
-                # A coarse window without the fused step: the superset
-                # flags accumulate as `_pipelined_tail` accumulates them.
-                recv = res.any_dup | res.any_drift
-            new_flags = recv
-            if self._value_width == 32:
-                pipe.val_overflow = pipe.val_overflow | voverflow
-                new_flags = new_flags | voverflow
-            pipe.note(new_flags, pipe.merges)
-            pipe.any_bad = pipe.any_bad | recv
-            pipe.merges += 1
+            # The window's step; nothing leaves the device.
+            with span(STAMP_SPAN):
+                pipe.absorb(res, voverflow, guard_lanes, local, wall)
+                pipe.send_bump(self._wall_clock())
+                self.stats.add_adopted_lazy(res.win.sum())
             self._store = new_store
             self._store_escaped = False
-            self.stats.add_adopted_lazy(res.win.sum())
             self._emit_merge_wins(new_store, res.win)
-            pipe.canonical = res.new_canonical
-            self._pipe_send_bump(self._wall_clock())
             return
 
         # The result scalars come back in ONE copy; the [N] win mask
@@ -1865,43 +1841,18 @@ class DenseCrdt:
         self._intern_ids(node_ids)
         node_map = torch.tensor([self._table.ordinal(i) for i in node_ids],
                                 dtype=torch.int32, device=self._device)
-        local = self._local_ordinal()
-        pipe = self._pipe
-        if pipe is not None and not pipe.exact:
-            wall_merge = self._wall_clock()
-            wall_send = self._wall_clock()
-            with merge_annotation("crdt_tpu_torch.dense_merge",
-                                  hlc=lambda: self._canonical_time):
-                out = pipelined_model_step_split(
-                    self._store, scs, node_map, pipe.canonical,
-                    pipe.any_bad, pipe.overflow, pipe.drift,
-                    pipe.val_overflow, pipe.first_flag_idx, local,
-                    wall_merge, wall_send, pipe.merges,
-                    value_width=self._value_width)
-            self._finish_coarse(out)
-            return
         wall = self._wall_clock()
         with merge_annotation("crdt_tpu_torch.dense_merge",
                               hlc=lambda: self._canonical_time):
             new_store, res, seen, voverflow = model_fanin_split(
-                self._store, scs, node_map, self._canonical_lt(), local,
-                wall, value_width=self._value_width)
+                self._store, scs, node_map, self._canonical_lt(),
+                self._local_ordinal(), wall, value_width=self._value_width)
         self.stats.add_seen_lazy(seen)
         # The kernel remaps as it reads, so ``scs`` keeps peer ordinals:
         # the guard lanes apply the remap.
         self._finish_merge(
             new_store, res, voverflow, wall,
             lambda: split_guard_lanes(scs.hi, scs.lo, scs.node, node_map))
-
-    def _pipe_send_bump(self, wall: int) -> None:
-        """The final crdt.dart:93 send bump, on device, flags
-        accumulated (the flush checks them)."""
-        pipe = self._pipe
-        pipe.canonical, overflow, drift = send_step(pipe.canonical, wall)
-        # merges already counts this merge: attribute to merges - 1.
-        pipe.note(overflow | drift, pipe.merges - 1)
-        pipe.overflow = pipe.overflow | overflow
-        pipe.drift = pipe.drift | drift
 
     # --- columnar deltas in: packed, JSON, record dicts ---
 
@@ -2307,8 +2258,8 @@ class ShardedDenseCrdt(DenseCrdt):
     closed-form superset flags, and when one trips the exact guards run
     on the unsharded changeset in row order, so raised exceptions carry
     the single-device payloads and per-block false positives never
-    reject a merge. Coarse ``pipelined()`` windows take the sharded step
-    too, never the fused single-device step.
+    reject a merge. A ``pipelined()`` window's merges take the sharded
+    step too, with `DenseCrdt`'s window bookkeeping.
 
     The columnar merges (``merge_packed``, ``merge_json``,
     ``merge_records``, ``merge_and_repack``) and ``put_slot_records``
@@ -2325,8 +2276,6 @@ class ShardedDenseCrdt(DenseCrdt):
     compaction carry the tag column. The host tag column and its device
     mirror are global, on the first device; each block takes its slice.
     """
-
-    _FUSED_COARSE = False
 
     def __init__(self, node_id: Any, n_slots: int, mesh, *,
                  wall_clock: Optional[Callable[[], int]] = None,

@@ -1,13 +1,13 @@
 """The batch fan-in merge on the card: kernel wrapper, plain version,
-and the model-layer steps built on them.
+and the model layer's merge step built on them.
 
 Port of the batch entry of ``crdt_tpu/ops/pallas_merge.py``
-(`pallas_fanin_batch`, `model_fanin_batch`, `pipelined_model_step`).
-The TPU kernel carried its lanes split into hi/lo int32 words, narrowed
-node/tomb wire lanes, padded to 4096-slot tiles and walked rows in
-``chunk_rows`` grid steps with VMEM-resident accumulators; none of that
-carries over. The Hopper kernel (``csrc/fanin_batch.cu``) reads the
-int64/int32/bool lanes as they are, for any ``n_slots`` and any R.
+(`pallas_fanin_batch`, `model_fanin_batch`). The TPU kernel carried its
+lanes split into hi/lo int32 words, narrowed node/tomb wire lanes,
+padded to 4096-slot tiles and walked rows in ``chunk_rows`` grid steps
+with VMEM-resident accumulators; none of that carries over. The Hopper
+kernel (``csrc/fanin_batch.cu``) reads the int64/int32/bool lanes as
+they are, for any ``n_slots`` and any R.
 
 Contract of `fanin_batch` (that of `pallas_fanin_batch`): store lanes,
 ``win`` and ``new_canonical`` equal ONE `ops.dense.fanin_step` of the
@@ -16,12 +16,15 @@ flags — ``any_dup``: some valid local-node record above the pre-merge
 canonical; ``any_drift``: ``basemax`` past the drift threshold. The
 model layer recomputes the exact guards when one trips.
 
-The pre-split entry (K1s: `fanin_split`, `model_fanin_split`,
-`pipelined_model_step_split`; ``csrc/fanin_split.cu``) is the same
-merge fed the JAX peers' split wire lanes (`ops.split`) as they arrive,
-with the ``node_map`` remap and the value-width masking in the kernel:
-the port of `_model_fanin_split_jit` / `_pipelined_model_step_split_jit`.
-It never widens the lanes in memory first.
+The pre-split entry (K1s: `fanin_split`, `model_fanin_split`;
+``csrc/fanin_split.cu``) is the same merge fed the JAX peers' split
+wire lanes (`ops.split`) as they arrive, with the ``node_map`` remap and
+the value-width masking in the kernel: the port of
+`_model_fanin_split_jit`. It never widens the lanes in memory first.
+
+A step here ends at the merge itself (mask, join, stamp): a
+``pipelined()`` window's flags, first flagged merge and send bump are
+the model's (`models.dense_crdt._PipeState`).
 
 The sharded step (K1p, `parallel.fanin`) runs the same kernel on every
 mesh position's block, a column block of the changeset read in place
@@ -36,8 +39,8 @@ The batch entry's stages are spans (`obs.trace.span`, live only while
 the tracer is on or a profiler records): ``crdt_tpu_torch.fanin.mask``
 (`mask_value_width`), ``crdt_tpu_torch.fanin.join`` (the join: the
 kernel's checks, allocations and launch, or the plain version) and
-``crdt_tpu_torch.fanin.stamp`` (`_stamp`, with a pipelined step's
-`_pipelined_tail` and its send bump).
+``crdt_tpu_torch.fanin.stamp`` (`_stamp`; a ``pipelined()`` window
+opens it again around its own step and send bump).
 """
 
 from __future__ import annotations
@@ -54,13 +57,10 @@ from ..obs import device as _obs_device
 from ..obs.trace import span
 from .dense import (CHANGESET_DTYPES, STORE_DTYPES, _NEG, DenseChangeset,
                     DenseStore, check_lanes, check_rows, reduce_replicas)
-from .merge import send_step
 from .split import (I16_NEG, NEG_HI, SPLIT_DTYPES, NarrowSplitChangeset,
                     flat_lanes, join64)
 
-_obs_device.register(
-    "pallas.model_fanin_batch", "pallas.model_fanin_split",
-    "pallas.pipelined_model_step", "pallas.pipelined_model_step_split")
+_obs_device.register("pallas.model_fanin_batch", "pallas.model_fanin_split")
 
 Scalar = Union[int, torch.Tensor]
 Join = Tuple[torch.Tensor, ...]
@@ -204,17 +204,14 @@ def _join(store: DenseStore, cs: DenseChangeset, canonical_lt: Scalar,
 
 
 def _fanin(store: DenseStore, cs: DenseChangeset, canonical_lt: Scalar,
-           local_node: int, wall_millis: int, plain: bool, tail=None):
-    """The join and `_stamp`: ``(new_store, BatchResult, seen)``, or
-    what ``tail(new_store, res, seen)`` makes of them inside the same
-    stamp span."""
+           local_node: int, wall_millis: int, plain: bool):
+    """The join and `_stamp`: ``(new_store, BatchResult, seen)``."""
     canonical, (*outs, seen) = _join(store, cs, canonical_lt, local_node,
                                      plain)
     with span(STAMP_SPAN):
         new_store, res = _stamp(store, outs, canonical, local_node,
                                 wall_millis)
-        return ((new_store, res, seen) if tail is None
-                else tail(new_store, res, seen))
+    return new_store, res, seen
 
 
 def fanin_batch(store: DenseStore, cs: DenseChangeset,
@@ -272,47 +269,6 @@ def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
         cs, val_overflow = mask_value_width(cs, value_width)
         return (*_fanin(store, cs, canonical_lt, local_node, wall_millis,
                         plain=not store.lt.is_cuda), val_overflow)
-
-
-def pipelined_model_step(store: DenseStore, cs: DenseChangeset,
-                         canonical: torch.Tensor, any_bad: torch.Tensor,
-                         overflow: torch.Tensor, drift: torch.Tensor,
-                         val_ovf: torch.Tensor, first_idx: torch.Tensor,
-                         local_node: int, wall_merge: int, wall_send: int,
-                         merge_idx: int, *, value_width: int = 64):
-    """One COARSE pipelined merge with no host synchronization: the
-    model merge plus the window bookkeeping — flag OR-accumulation,
-    first-flag attribution and the final send bump, all on device.
-    ``wall_merge`` is the absorption-phase wall read, ``wall_send`` the
-    send bump's. Returns ``(new_store, new_canonical, any_bad,
-    overflow, drift, val_overflow, first_flag_idx, win_count, win,
-    seen)``."""
-    with _obs_device.record(
-            _ledger_name(store, "pallas.pipelined_model_step"),
-            dim=cs.valid.shape[0]):
-        cs, voverflow = mask_value_width(cs, value_width)
-        return _fanin(
-            store, cs, canonical, local_node, wall_merge,
-            plain=not store.lt.is_cuda,
-            tail=lambda new_store, res, seen: _pipelined_tail(
-                new_store, res, seen, voverflow, value_width, any_bad,
-                overflow, drift, val_ovf, first_idx, merge_idx,
-                wall_send))
-
-
-def _pipelined_tail(new_store, res, seen, voverflow, value_width,
-                    any_bad, overflow, drift, val_ovf, first_idx,
-                    merge_idx, wall_send):
-    recv_flag = res.any_dup | res.any_drift
-    new_flags = recv_flag | voverflow if value_width == 32 else recv_flag
-    first_idx = torch.where((first_idx < 0) & new_flags, merge_idx,
-                            first_idx)
-    new_lt, s_ovf, s_drift = send_step(res.new_canonical, wall_send)
-    first_idx = torch.where((first_idx < 0) & (s_ovf | s_drift),
-                            merge_idx, first_idx)
-    return (new_store, new_lt, any_bad | recv_flag, overflow | s_ovf,
-            drift | s_drift, val_ovf | voverflow, first_idx,
-            res.win.sum().to(torch.int32), res.win, seen)
 
 
 # --- K1s: the pre-split entry, fed the JAX peers' wire lanes ----------
@@ -476,34 +432,8 @@ def model_fanin_split(store: DenseStore, scs, node_map,
     ``(new_store, BatchResult, seen, val_overflow)``."""
     with _obs_device.record(_ledger_name(store, "pallas.model_fanin_split"),
                             dim=scs.hi.shape[0]):
-        return _model_fanin_split(store, scs, node_map, canonical_lt,
-                                  local_node, wall_millis, value_width)
+        node_map = torch.as_tensor(node_map).to(
+            store.lt.device, torch.int32)[:MAX_MAP_LEN].contiguous()
+        return fanin_split(store, scs, node_map, canonical_lt, local_node,
+                           wall_millis, value_width=value_width)
 
-
-def _model_fanin_split(store, scs, node_map, canonical_lt, local_node,
-                       wall_millis, value_width):
-    node_map = torch.as_tensor(node_map).to(
-        store.lt.device, torch.int32)[:MAX_MAP_LEN].contiguous()
-    return fanin_split(store, scs, node_map, canonical_lt, local_node,
-                       wall_millis, value_width=value_width)
-
-
-def pipelined_model_step_split(store: DenseStore, scs, node_map,
-                               canonical: torch.Tensor,
-                               any_bad: torch.Tensor,
-                               overflow: torch.Tensor, drift: torch.Tensor,
-                               val_ovf: torch.Tensor,
-                               first_idx: torch.Tensor, local_node: int,
-                               wall_merge: int, wall_send: int,
-                               merge_idx: int, *, value_width: int = 64):
-    """`pipelined_model_step` for a PRE-SPLIT changeset (`merge_split`
-    in a coarse window); same return tuple."""
-    with _obs_device.record(
-            _ledger_name(store, "pallas.pipelined_model_step_split"),
-            dim=scs.hi.shape[0]):
-        new_store, res, seen, voverflow = _model_fanin_split(
-            store, scs, node_map, canonical, local_node, wall_merge,
-            value_width)
-        return _pipelined_tail(new_store, res, seen, voverflow,
-                               value_width, any_bad, overflow, drift,
-                               val_ovf, first_idx, merge_idx, wall_send)

@@ -18,9 +18,12 @@ import jax.numpy as jnp
 
 import crdt_tpu_torch as port
 from crdt_tpu import DenseCrdt as JaxDenseCrdt
+from crdt_tpu.hlc import MAX_COUNTER
 from crdt_tpu.ops.dense import DenseChangeset as JaxChangeset
+from crdt_tpu.ops.pallas_merge import split_changeset as jax_split_changeset
 from crdt_tpu.testing import FakeClock, assert_dense_stores_equal
 from crdt_tpu_torch.ops.dense import DenseChangeset as PortChangeset
+from crdt_tpu_torch.ops.split import split_changeset as port_split_changeset
 from torch_threads import cap_torch_threads
 
 cap_torch_threads()
@@ -239,6 +242,39 @@ def test_pipelined_guard_error_matches_jax():
     assert "first flagged at merge #1 of 2" in str(errs[1])
     assert str(errs[1]) == str(errs[0])
     p.check("after pipelined guard error")
+
+
+@pytest.mark.parametrize("entry", ["merge", "merge_split"])
+def test_pipelined_send_overflow_matches_jax(entry):
+    """A coarse window of two merges, the second landing a peer record
+    at the counter's top and at or past the wall its send bump reads:
+    the send bump overflows the counter, and both packages name it at
+    merge #1 and end on the same lanes and clock."""
+    p = Pair()
+    first = peer_changeset(12, 1, 2, 0, 10)
+    top = peer_changeset(13, 1, 2, 0, 10, fill=0.0)
+    top["valid"][0, 4] = True
+    top["node"][0, 4] = 0
+    top["lt"][0, 4] = ((START + 5000) << 16) | MAX_COUNTER
+    errs = []
+    for crdt, cls, lane, split in (
+            (p.jax, JaxChangeset, jnp.asarray, jax_split_changeset),
+            (p.port, PortChangeset, torch.tensor, port_split_changeset)):
+        with pytest.raises(Exception) as info:
+            with crdt.pipelined():
+                for lanes in (first, top):
+                    cs = cls(**{k: lane(v) for k, v in lanes.items()})
+                    if entry == "merge_split":
+                        crdt.merge_split(split(cs), ["n0", "n7"])
+                    else:
+                        crdt.merge(cs, ["n0", "n7"])
+        errs.append(info.value)
+    assert type(errs[0]).__name__ == type(errs[1]).__name__ \
+        == "PipelinedGuardError"
+    assert "send counter overflow" in str(errs[1])
+    assert "first flagged at merge #1 of 2" in str(errs[1])
+    assert str(errs[1]) == str(errs[0])
+    p.check(f"after pipelined send overflow ({entry})")
 
 
 def test_watch_events_match_jax():

@@ -7,8 +7,8 @@ the same numpy inputs:
   ``new_canonical`` and both superset flags;
 - `ops.dense.fanin_step`, the XLA fold with exact guards, on every
   lane;
-- `model_fanin_batch` / `pipelined_model_step` in interpret mode,
-  including the value_width=32 masking.
+- `model_fanin_batch` in interpret mode, including the value_width=32
+  masking.
 
 On the CPU the port's wrapper runs the kernel's plain version; the
 CUDA kernel itself is held against that plain version on the card by
@@ -199,42 +199,6 @@ def test_model_fanin_batch_value_width_32(seed, case):
     assert bool(jres.any_drift) == bool(tres.any_drift)
     assert int(jseen) == int(tseen)
     assert bool(jovf) and bool(tovf)
-
-
-def test_pipelined_model_step_matches_jax():
-    """Two coarse pipelined steps, the second tripping the dup flag:
-    threaded clock, accumulated flags and first-flag index agree."""
-    store, cs, _ = make_inputs(6, r=8)
-    _, cs2, _ = make_inputs(7, r=8)
-    cs["valid"][7, 7] = cs2["valid"][7, 7] = False   # no drift-edge row
-    jstate = (jnp.int64(BASE + (10 << SHIFT)), jnp.asarray(False),
-              jnp.asarray(False), jnp.asarray(False), jnp.asarray(False),
-              jnp.int32(-1))
-    tstate = (torch.tensor(BASE + (10 << SHIFT)), torch.tensor(False),
-              torch.tensor(False), torch.tensor(False), torch.tensor(False),
-              torch.tensor(-1, dtype=torch.int32))
-    jstore = jax_lanes(store, jd.DenseStore)
-    tstore = td.store_from_numpy(store, "cpu")
-    cs2["node"][0, :50] = LOCAL
-    cs2["valid"][0, :50] = True
-    # Above the clock threaded out of step 0 (its send bump to WALL+1).
-    cs2["lt"][0, :50] = (WALL + 5) << SHIFT
-    for i, c in enumerate((cs, cs2)):
-        jout = jp.pipelined_model_step(
-            jstore, jax_lanes(c, jd.DenseChangeset), *jstate,
-            jnp.int32(LOCAL), jnp.int64(WALL + 2 * i),
-            jnp.int64(WALL + 2 * i + 1), jnp.int32(i), chunk_rows=8,
-            interpret=True)
-        tout = tk.pipelined_model_step(
-            tstore, torch_cs(c), *tstate, LOCAL, WALL + 2 * i,
-            WALL + 2 * i + 1, i)
-        jstore, tstore = jout[0], tout[0]
-        jstate, tstate = jout[1:7], tout[1:7]
-        assert_dense_stores_equal(jstore, tstore, where=f"step {i}")
-        for j, (a, b) in enumerate(zip(jout[1:], tout[1:])):
-            np.testing.assert_array_equal(np.asarray(a), b.numpy(),
-                                          err_msg=f"step {i} output {j}")
-    assert int(tstate[5]) == 1 and bool(tstate[1])
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

@@ -272,12 +272,20 @@ def _one_dispatch_calls():
             val=torch.tensor(rng.integers(0, 99, (3, n))),
             tomb=torch.zeros((3, n), dtype=torch.bool), valid=valid)
 
-    def state():
-        return (torch.tensor(base), torch.tensor(False), torch.tensor(False),
-                torch.tensor(False), torch.tensor(False),
-                torch.tensor(-1, dtype=torch.int32))
-
     wall = (base >> 16) + 10
+    ids = ["n0", "n1", "n2", "n3", "n4"]
+
+    def window(entry, lanes):
+        """A coarse window's merge by ``entry`` on a replica built here,
+        outside the call."""
+        crdt = port.DenseCrdt("n1", n, device="cpu", node_ids=ids,
+                              wall_clock=lambda: wall + 100)
+
+        def call():
+            with crdt.pipelined():
+                getattr(crdt, entry)(lanes, ids)
+        return call
+
     rows = (torch.tensor([0, 5, 9, n]), torch.arange(4) + base + 99,
             torch.arange(4), torch.zeros(4, dtype=torch.bool))
     mesh = tp.make_fanin_mesh(1, 2, devices=["cpu"] * 2)
@@ -295,14 +303,11 @@ def _one_dispatch_calls():
                            "dense.ingest_scatter"),
         "model_fanin_batch": (lambda: tk.model_fanin_batch(
             store(), changeset(), base, 1, wall), "dense.fanin_step"),
-        "pipelined_model_step": (lambda: tk.pipelined_model_step(
-            store(), changeset(), *state(), 1, wall, wall + 1, 0),
+        "coarse_window_merge": (window("merge", changeset()),
+                                "dense.fanin_step"),
+        "coarse_window_merge_split": (
+            window("merge_split", ts.split_changeset(changeset())),
             "dense.fanin_step"),
-        "pipelined_model_step_split": (
-            lambda: tk.pipelined_model_step_split(
-                store(), ts.split_changeset(changeset()),
-                np.arange(8, dtype=np.int32), *state(), 1, wall, wall + 1,
-                0), "dense.fanin_step"),
         "sharded_ingest": (lambda: tp.make_sharded_ingest(mesh)(
             tp.shard_store(store(), mesh), *rows, 1),
             "parallel.sharded_ingest"),

@@ -4,8 +4,9 @@ its merge step.
 - Not live (the ring off, no profiler recording), a span runs its body
   alone: no profiler range, no clock, no histogram, no sync debug mode.
 - Under a CPU ``torch.profiler`` every span of the merge step is a
-  profiler range, and each is timed once a merge (the fence once a
-  window), on the pipelined fused path and the unpipelined one alike.
+  profiler range, and each is timed once a merge, on the pipelined path
+  and the unpipelined one alike; in a window the stamp span is timed
+  twice a merge (the stamp, then the window's step) and the fence once.
   With the ring on, a merge is still one ``merge`` event.
 - The sync counter's hook: the outermost live span turns torch's sync
   reports on and restores the mode; a report counts under the innermost
@@ -139,6 +140,7 @@ def test_the_merge_steps_spans_reach_the_profiler(pipelined):
     assert (FENCE in ranges) == pipelined
     want = {name: 3 for name in PER_MERGE}
     if pipelined:
+        want["crdt_tpu_torch.fanin.stamp"] = 6
         want[FENCE] = 1
     assert span_counts_since(before) == want
     # The stages lie inside the merge span.

@@ -6,10 +6,10 @@ on the same numpy inputs:
 
 - the wire-lane functions against `crdt_tpu.ops.pallas_merge`'s, lane
   values and dtypes;
-- `model_fanin_split` / `pipelined_model_step_split` against the JAX
-  functions with the Pallas kernel in interpret mode, wide and narrow,
-  with a remapping ``node_map``, value-width masking and a malformed
-  sentinel entry, on every lane and every returned field;
+- `model_fanin_split` against the JAX function with the Pallas kernel
+  in interpret mode, wide and narrow, with a remapping ``node_map``,
+  value-width masking and a malformed sentinel entry, on every lane and
+  every returned field;
 - the model: the scripts of ``tests/test_dense_crdt.py``'s
   ``TestSplitInterchange`` and ``TestPipelinedExactGuards`` on a JAX
   ``DenseCrdt(executor="pallas-interpret")`` and a port
@@ -36,7 +36,7 @@ from crdt_tpu_torch.ops import dense as td
 from crdt_tpu_torch.ops import fanin_kernel as tk
 from crdt_tpu_torch.ops import split as ts
 
-from test_torch_fanin import (BASE, LOCAL, N, R, WALL, assert_lanes_equal,
+from test_torch_fanin import (LOCAL, N, R, WALL, assert_lanes_equal,
                               jax_lanes, make_inputs, torch_cs)
 from torch_threads import cap_torch_threads
 
@@ -169,42 +169,6 @@ def test_model_fanin_split_matches_pallas(seed, case, narrow, value_width,
     assert bool(tovf) == (value_width == 32 and not narrow)
     assert bool(tres.any_dup) == (case == "dup")
     assert bool(tres.any_drift) == (case == "drift")
-
-
-def test_pipelined_model_step_split_matches_jax():
-    """Two coarse pipelined steps on split lanes, the second tripping
-    the dup flag: threaded clock, flags and first-flag index agree."""
-    store, j0, _, _ = split_inputs(6, r=8, edge=False)
-    _, cs1, _ = make_inputs(7, r=8)
-    cs1["valid"][7, 7] = False                 # no drift-edge record
-    cs1["node"][0, :50] = 1                    # peer 1 = the local node
-    cs1["valid"][0, :50] = True
-    cs1["lt"][0, :50] = (WALL + 5) << 16
-    j1 = jp.tile_changeset(jp.split_changeset(
-        jax_lanes(cs1, jd.DenseChangeset)))
-    jstate = (jnp.int64(BASE + (10 << 16)), jnp.asarray(False),
-              jnp.asarray(False), jnp.asarray(False), jnp.asarray(False),
-              jnp.int32(-1))
-    tstate = (torch.tensor(BASE + (10 << 16)), torch.tensor(False),
-              torch.tensor(False), torch.tensor(False), torch.tensor(False),
-              torch.tensor(-1, dtype=torch.int32))
-    jstore = jax_lanes(store, jd.DenseStore)
-    tstore = td.store_from_numpy(store, "cpu")
-    for i, jscs in enumerate((j0, j1)):
-        jout = jp.pipelined_model_step_split(
-            jstore, jscs, jnp.asarray(NODE_MAP), *jstate, jnp.int32(LOCAL),
-            jnp.int64(WALL + 2 * i), jnp.int64(WALL + 2 * i + 1),
-            jnp.int32(i), chunk_rows=8, interpret=True)
-        tout = tk.pipelined_model_step_split(
-            tstore, to_port_split(jscs), NODE_MAP, *tstate, LOCAL,
-            WALL + 2 * i, WALL + 2 * i + 1, i)
-        jstore, tstore = jout[0], tout[0]
-        jstate, tstate = jout[1:7], tout[1:7]
-        assert_lanes_equal(jstore, tstore, f"step {i}")
-        for j, (a, b) in enumerate(zip(jout[1:], tout[1:])):
-            np.testing.assert_array_equal(np.asarray(a), b.numpy(),
-                                          err_msg=f"step {i} output {j}")
-    assert int(tstate[5]) == 1 and bool(tstate[1])
 
 
 # --- the model: split interchange ---------------------------------------

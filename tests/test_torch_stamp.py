@@ -1,13 +1,13 @@
 """The fan-in merge step's stamp (`ops.fanin_kernel._stamp`) and the
-host syncs of a coarse pipelined step, on the CPU.
+host syncs of a merge in a coarse pipelined window, on the CPU.
 
 - `_stamp` writes the winners' ``modified`` lanes with a select on the
   device; its lanes and its `BatchResult` equal the fill it replaced
   (``masked_fill`` with the new canonical as a host int) bit for bit.
-- The fused coarse steps (`pipelined_model_step`,
-  `pipelined_model_step_split`) dispatch no op that reads a device
-  value back to the host: no ``masked_fill`` whose value is a tensor
-  (torch's CUDA kernel reads that value back), no ``item`` and no
+- A ``DenseCrdt.merge`` and a ``merge_split`` in a coarse
+  ``pipelined()`` window dispatch no op that reads a device value back
+  to the host: no ``masked_fill`` whose value is a tensor (torch's CUDA
+  kernel reads that value back), no ``item`` and no
   ``_local_scalar_dense``. The card counts the syncs themselves
   (``tests/test_torch_spans.py``, ``-m cuda``).
 
@@ -16,14 +16,16 @@ This file imports neither jax nor the JAX package:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_stamp.py
 """
 
+import contextlib
+
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from crdt_tpu_torch.hlc import MAX_COUNTER, MAX_DRIFT, SHIFT
+from crdt_tpu_torch.models.dense_crdt import DenseCrdt, PipelinedGuardError
 from crdt_tpu_torch.ops import fanin_kernel as tk
-from crdt_tpu_torch.ops.dense import (_NEG, DenseChangeset, DenseStore,
-                                      empty_dense_store)
+from crdt_tpu_torch.ops.dense import _NEG, DenseChangeset, DenseStore
 from crdt_tpu_torch.ops.split import split_changeset
 
 from torch_threads import cap_torch_threads
@@ -100,7 +102,7 @@ def test_the_stamp_keeps_the_fills_bits(case):
     assert bool(res.any_drift) == (case == "canonical-below-basemax")
 
 
-# --- no readback in a coarse pipelined step ------------------------------------
+# --- no readback in a coarse pipelined window's merge ---------------------
 
 READBACKS = {"aten.masked_fill.Tensor", "aten.masked_fill_.Tensor",
              "aten._local_scalar_dense.default", "aten.item.default"}
@@ -128,43 +130,45 @@ def changeset(seed, n=N, rows=R):
         valid=torch.rand(rows, n, generator=g) < 0.7)
 
 
-def window_state():
-    """A coarse window's device state at its opening."""
-    false = torch.tensor(False)
-    return (torch.tensor(BASE), false, false, false, false,
-            torch.tensor(-1, dtype=torch.int32))
+# The replica's table: the changeset's ordinals 0..3 are its peers and
+# the remap is the identity.
+IDS = ["p0", "p1", "p2", "p3", "p4"]
 
 
-def fused_step(split, value_width):
-    """One fused coarse step's call, inputs made ahead of it."""
+def window_merge(split, value_width):
+    """A replica and one merge's call, made ahead of it."""
     cs = changeset(3)
-    store = empty_dense_store(N, "cpu")
+    crdt = DenseCrdt(IDS[4], N, node_ids=IDS, device="cpu",
+                     wall_clock=lambda: WALL, value_width=value_width)
     if not split:
-        return lambda: tk.pipelined_model_step(
-            store, cs, *window_state(), LOCAL, WALL, WALL, 0,
-            value_width=value_width)
+        return crdt, lambda: crdt.merge(cs, IDS)
     # Wide split lanes: a value_width=32 replica masks the values past
     # int32 as it reads them.
     scs = split_changeset(cs)
-    node_map = torch.arange(4, dtype=torch.int32)
-    return lambda: tk.pipelined_model_step_split(
-        store, scs, node_map, *window_state(), LOCAL, WALL, WALL, 0,
-        value_width=value_width)
+    return crdt, lambda: crdt.merge_split(scs, IDS)
 
 
 @pytest.mark.parametrize("value_width", [32, 64])
 @pytest.mark.parametrize("split", [False, True], ids=["wide", "split"])
 def test_a_coarse_pipelined_step_reads_nothing_back(split, value_width):
-    step = fused_step(split, value_width)
-    with OpRecorder() as rec:
-        out = step()
+    crdt, merge = window_merge(split, value_width)
+    with pytest.raises(PipelinedGuardError) if value_width == 32 \
+            else contextlib.nullcontext() as info:
+        with crdt.pipelined():
+            with OpRecorder() as rec:
+                merge()
+    if value_width == 32:
+        # The values past int32 were masked out, and the fence says so.
+        assert "value-ref overflow" in str(info.value)
     assert rec.ops, "the recorder saw no op"
     assert "aten.where.self" in rec.ops
     assert sorted(set(rec.ops) & READBACKS) == []
     # The step did merge: some slot won and carries the stamp.
-    new_store, new_lt, win = out[0], out[1], out[8]
+    new_store = crdt.store
+    win = new_store.occupied
     assert bool(win.any())
     assert torch.equal(new_store.mod_lt[win],
                        torch.full_like(new_store.mod_lt[win],
                                        int(new_store.lt[win].max())))
-    assert int(new_lt) > int(new_store.lt[win].max())
+    assert bool((new_store.mod_node[win] == 4).all())
+    assert crdt.canonical_time.logical_time > int(new_store.lt[win].max())
