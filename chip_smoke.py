@@ -261,10 +261,11 @@ from crdt_tpu_torch import (DenseCrdt, DuplicateNodeException, Hlc,
                             ShardedDenseCrdt, _build, parallel, semantics)
 from crdt_tpu_torch.hlc import MAX_DRIFT, SHIFT
 from crdt_tpu_torch.obs import device as obs_device
+from crdt_tpu_torch.utils.stats import MergeStats
 from crdt_tpu_torch.bench import fanin as bench_fanin
 from crdt_tpu_torch.bench import probe_kernel as bench_probe
-from crdt_tpu_torch.ops import (fanin_kernel, ingest_kernel, probe,
-                                stream_kernel)
+from crdt_tpu_torch.ops import (fanin_kernel, fanin_tail, ingest_kernel,
+                                probe, stream_kernel)
 from crdt_tpu_torch.ops.split import (NEG_HI, NarrowSplitChangeset, join64,
                                       split_changeset,
                                       split_changeset_narrow, split_store,
@@ -554,6 +555,88 @@ def kernel_fanin(results: dict) -> None:
         one_block=dict(shape=[ROWS_PER_PASS // 2, half], ld=N_SLOTS,
                        ms=float(np.median(block_runs)), ms_runs=block_runs))
     del cs, store, k_store, p_store, blk, cblk
+
+
+TAIL_STATE = ("canonical", "any_bad", "overflow", "drift", "val_overflow",
+              "first_flag_idx")
+
+
+def kernel_tail(results: dict) -> None:
+    """K1t (`ops.fanin_tail.fanin_tail`) against the plain tail
+    (`_stamp`, then `plain_step`) on K1's join at the main path's shape,
+    the dup and drift flags planted: unpipelined (the readback's four
+    scalars) and as a window's step (its state after it), with a lazy
+    ``seen`` count pending, lanes and scalars bit for bit; then its time
+    alone (graph replay, a window's step) beside the plain tail's."""
+    store = make_store(N_SLOTS, 1)
+    cs = make_changeset(ROWS_PER_PASS, N_SLOTS, 2)
+    plant_ties(store, cs)
+    wall = MILLIS + 10_000
+    local = 3
+    cs.lt[9, 12345] = (wall + MAX_DRIFT + 5) << SHIFT
+    cs.valid[9, 12345] = True
+    start = (MILLIS + 500) << SHIFT
+    send = lambda: wall + 7
+    dev = torch.device("cuda")
+    join = fanin_kernel.model_fanin_join(
+        store, cs, torch.tensor(start, device=dev), local)
+
+    def tail(kernel: bool, window: bool):
+        stats = MergeStats()
+        stats.add_seen_lazy(torch.tensor(5, device=dev))
+        pipe = fanin_tail.PipeState(start, dev) if window else None
+        if kernel:
+            new_store, _, words = fanin_tail.fanin_tail(
+                join, local, wall, pipe, stats, send)
+        else:
+            new_store, res = join.stamp(local, wall)
+            words = fanin_tail.plain_step(res, join.seen, join.val_overflow,
+                                          local, wall, pipe, stats, send,
+                                          None)
+        scalars = [int(getattr(pipe, f)) for f in TAIL_STATE] \
+            if window else words[:4].tolist()
+        return list(new_store), scalars, stats.records_seen
+
+    err, scalars = 0, {}
+    for window in (False, True):
+        k_lanes, k_scalars, k_seen = tail(True, window)
+        p_lanes, p_scalars, p_seen = tail(False, window)
+        err = max(err, max_abs_err(k_lanes, p_lanes))
+        check(k_scalars == p_scalars and k_seen == p_seen,
+              f"fanin_tail (window={window}): kernel {k_scalars}, seen "
+              f"{k_seen} != plain {p_scalars}, seen {p_seen}")
+        scalars["window" if window else "unpipelined"] = k_scalars
+    check(err == 0, f"fanin_tail kernel != plain tail (max |err| {err})")
+    check(scalars["unpipelined"][0] == 1 and scalars["window"][1] == 1
+          and scalars["window"][5] == 0,
+          f"fanin_tail: the planted flags did not trip: {scalars}")
+
+    pipe = fanin_tail.PipeState(start, dev)
+    stats = MergeStats()
+    runs = graph_ms(lambda: fanin_tail.fanin_tail(join, local, wall, pipe,
+                                                  stats, send), iters=20)
+
+    def plain():
+        new_store, res = join.stamp(local, wall)
+        fanin_tail.plain_step(res, join.seen, join.val_overflow, local,
+                              wall, pipe, stats, send, None)
+
+    plain_ms = cuda_ms(plain, iters=20)
+    win = join.outs[5]
+    # The win lane, the modified lanes where the store keeps the slot,
+    # both modified lanes written.
+    moved = (N_SLOTS + sector_bytes(~win, 4) + sector_bytes(~win, 8)
+             + N_SLOTS * 12)
+    results["fanin_tail"] = dict(
+        name="fanin_tail", route="cuda",
+        source="crdt_tpu_torch/csrc/fanin_batch.cu",
+        replaces="crdt_tpu/ops/pallas_merge.py:785 and :938 (XLA: the "
+                 "stamp and _pipelined_tail)",
+        max_abs_err=err, ms=float(np.median(runs)), plain_ms=plain_ms,
+        bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, shape=[N_SLOTS], bytes_moved=moved, ms_runs=runs,
+        scalars=scalars)
+    del cs, store, join
 
 
 def cold_graph_ms(fn, iters: int = 20, repeats: int = 3) -> list:
@@ -4558,9 +4641,12 @@ def path_j(card: str) -> dict:
     autoscale = j_autoscale(steps)
     torch.cuda.synchronize()
     launches = obs_device.launches()
+    # Each K1s merge (the dense push's merge_split) ends in one K1t.
     check(launches["ingest_scatter"] > 0 and launches["fanin_split"] > 0
+          and launches["fanin_tail"] == launches["fanin_split"]
           and all(v == 0 for k, v in launches.items()
-                  if k not in ("ingest_scatter", "fanin_split")),
+                  if k not in ("ingest_scatter", "fanin_split",
+                               "fanin_tail")),
           f"path J: launches {launches}")
     held_s = time.perf_counter() - t0
     print(f"  path J held {held_s:.2f} s")
@@ -4812,8 +4898,10 @@ def k_planted() -> str:
     real = c._dispatch_fanin
 
     def keep_old(cs, wall):
-        _, res, seen, vo, g = real(cs, wall)
-        return c._store, res, seen, vo, g
+        join, g = real(cs, wall)
+        old = c._store
+        return join._replace(outs=(old.lt, old.node, old.val, old.tomb,
+                                   old.occupied, *join.outs[5:])), g
 
     c._dispatch_fanin = keep_old
     cs = make_changeset(ROWS_PER_PASS, N_SLOTS, 4100)
@@ -5449,6 +5537,7 @@ def main() -> int:
 
     results: dict = {}
     kernel_fanin(results)
+    kernel_tail(results)
     kernel_ingest(results)
     kernel_split(results)
     kernel_stream(results)
@@ -5527,7 +5616,8 @@ def main() -> int:
           f"{probes['p2']['tb_per_s']:.4f} TB/s, copy_ "
           f"{probes['copy_rate']['tb_per_s']:.4f} TB/s")
     # Each kernel's launches on the path it serves.
-    for name, counts in (("fanin_batch", path), ("ingest_scatter", path),
+    for name, counts in (("fanin_batch", path), ("fanin_tail", path),
+                         ("ingest_scatter", path),
                          ("fanin_split", interchange),
                          ("fanin_stream", stream),
                          ("fanin_batch_sharded", sharded),
@@ -5536,15 +5626,15 @@ def main() -> int:
                          ("probe_copy_batch", probes)):
         results[name]["launches"] = counts["launches"][name]
     # Path H's rounds run K2 (the seed flushes) and K1s (the dense
-    # rounds' merge_split on both ends).
-    for name in ("fanin_split", "ingest_scatter"):
+    # rounds' merge_split on both ends), each K1s merge ending in K1t.
+    for name in ("fanin_split", "ingest_scatter", "fanin_tail"):
         results[name]["launches"] += wire["launches"][name]
     # Path I's members and replicas are seeded by K2 flushes.
     results["ingest_scatter"]["launches"] += \
         general["launches"]["ingest_scatter"]
     # Path J's tiers commit every flush tick through K2; its dense push
-    # merges through K1s.
-    for name in ("fanin_split", "ingest_scatter"):
+    # merges through K1s, then K1t.
+    for name in ("fanin_split", "ingest_scatter", "fanin_tail"):
         results[name]["launches"] += serving["launches"][name]
     # Path K's gate and law targets launch the five merge kernels.
     for name in K_KERNELS:

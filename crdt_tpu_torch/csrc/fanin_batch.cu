@@ -45,6 +45,22 @@
 // Of the design steps timed on the H100 (PERF.md) — 4, 8 and 16
 // rows a batch, and two adjacent slots a thread with 16-B lt loads —
 // 4 rows a batch with one slot a thread came out fastest.
+//
+// The launcher sets the scalars before the join, in a one-block kernel
+// of its own (a byte-wise memset cannot write NEG), so the caller
+// enqueues nothing but the launcher's call.
+//
+// The fan-in tail (K1t, `fanin_tail_kernel`, launched by
+// `crdt_fanin_tail` on the join's stream right after it) is the merge's
+// step after one K1 entry, in one launch: the stamp of the winners'
+// modified lanes with the final canonical, the count of adopted slots
+// (a block reduction, one atomic a block), and in the last block to
+// finish (an atomic ticket after a fence) the merge's scalars: the
+// drift flag, the recv flags, and, inside a pipelined() window, the
+// window's step of ops/fanin_tail.py (`PipeState.absorb`, then the
+// send bump of ops/merge.py `send_step`, then the flag ORs), and the
+// running seen and adopted counts. It writes every scalar into a fresh
+// buffer: nothing K1 or another block of the launch reads is rewritten.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -58,6 +74,9 @@ constexpr int kBatch = 4;                     // rows loaded together
 constexpr int kWarps = kBlock / 32;
 constexpr int kMaxEntries = 16;               // ops/fanin_kernel.py
 constexpr int kLanes = 19;
+constexpr int kShift = 16;                    // hlc.py SHIFT
+constexpr long long kMaxCounter = 0xFFFF;     // hlc.py MAX_COUNTER
+constexpr long long kMaxDrift = 60000;        // hlc.py MAX_DRIFT
 
 struct Entry {
   const long long* st_lt; const int* st_node; const long long* st_val;
@@ -184,15 +203,133 @@ __global__ void __launch_bounds__(kBlock) fanin_batch_kernel(
   }
 }
 
+__global__ void fanin_scalars_init(const __grid_constant__ Table t,
+                                   int n_entries) {
+  const int j = threadIdx.x;
+  if (j < n_entries) {
+    *t.e[j].basemax = kNeg;
+    *t.e[j].any_dup = 0;
+    *t.e[j].seen = 0;
+  }
+}
+
+// K1t. The words of `out`, int64 each (ops/fanin_tail.py names them):
+// the merge's own, written in every mode, then the window's, written
+// inside a pipelined() window; the last two are the launch's scratch,
+// zeroed by the launcher.
+enum Word {
+  kRecv, kAdopted, kNewCanonical, kValOverflow, kSeenSum, kAdoptedSum,
+  kCanonical, kAnyBad, kOverflow, kDrift, kValOverflowAll, kFirstFlag,
+  kAdoptedAcc, kTicket, kWords
+};
+
+struct Tail {
+  // Per slot: the pre-merge modified lanes, K1's win lane, the fresh
+  // stamped lanes.
+  const long long* st_mod_lt; const int* st_mod_node; const uint8_t* win;
+  long long* o_mod_lt; int* o_mod_node;
+  // The join's scalars: the pre-merge canonical K1 read, its basemax,
+  // its any_dup (a bool), its seen; the merge's value-ref overflow (a
+  // bool; null where no value was masked).
+  const long long* canonical; const long long* basemax;
+  const uint8_t* any_dup; const long long* seen;
+  const uint8_t* val_overflow;
+  // The running counts before this merge (null: 0).
+  const long long* seen_sum; const long long* adopted_sum;
+  // The window's state before this merge (bools and an int32; null
+  // outside a window).
+  const uint8_t* any_bad; const uint8_t* overflow; const uint8_t* drift;
+  const uint8_t* val_overflow_all; const int* first_flag_idx;
+  long long* out;
+  long long n, thresh, send_wall, merge_idx;
+  int local_node, window;
+};
+
+// ops/merge.py `send_step` on one packed clock: the new clock, and its
+// overflow and drift flags.
+__device__ __forceinline__ long long send_bump(long long lt, long long wall,
+                                               bool* overflow, bool* drift) {
+  const long long ms = lt >> kShift;
+  const bool stay = ms >= wall;
+  *overflow = stay && (lt & kMaxCounter) == kMaxCounter;
+  *drift = ms - wall > kMaxDrift;
+  return *overflow ? lt : (stay ? lt + 1 : (wall << kShift));
+}
+
+// The merge's scalars, once every block has counted: `adopted` is the
+// whole count, `new_c` the final canonical.
+__device__ void tail_scalars(const Tail& a, long long new_c,
+                             long long bmax, unsigned long long adopted) {
+  long long* o = a.out;
+  const bool recv = *a.any_dup != 0 || bmax > a.thresh;
+  const bool vo = a.val_overflow != nullptr && *a.val_overflow != 0;
+  o[kRecv] = recv;
+  o[kAdopted] = (long long)adopted;
+  o[kNewCanonical] = new_c;
+  o[kValOverflow] = vo;
+  o[kSeenSum] = (a.seen_sum ? *a.seen_sum : 0) + *a.seen;
+  o[kAdoptedSum] = (a.adopted_sum ? *a.adopted_sum : 0) + (long long)adopted;
+  if (!a.window) return;
+  // PipeState.absorb: the superset recv flags and, where values were
+  // masked, the value-ref overflow, then the first flagged merge.
+  int first = *a.first_flag_idx;
+  if (first < 0 && (recv || vo)) first = (int)a.merge_idx;
+  // PipeState.send_bump, with the merge's second wall read.
+  bool overflow, drift;
+  const long long c = send_bump(new_c, a.send_wall, &overflow, &drift);
+  if (first < 0 && (overflow || drift)) first = (int)a.merge_idx;
+  o[kCanonical] = c;
+  o[kAnyBad] = *a.any_bad != 0 || recv;
+  o[kOverflow] = *a.overflow != 0 || overflow;
+  o[kDrift] = *a.drift != 0 || drift;
+  o[kValOverflowAll] = *a.val_overflow_all != 0 || vo;
+  o[kFirstFlag] = first;
+}
+
+// One thread a slot; every block reads the two clock scalars itself.
+__global__ void __launch_bounds__(kBlock) fanin_tail_kernel(
+    const __grid_constant__ Tail a) {
+  const long long canon = *a.canonical;
+  const long long bmax = *a.basemax;
+  const long long new_c = bmax > canon ? bmax : canon;
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  unsigned long long won = 0;
+  if (i < a.n) {
+    const bool w = a.win[i] != 0;
+    a.o_mod_lt[i] = w ? new_c : a.st_mod_lt[i];
+    a.o_mod_node[i] = w ? a.local_node : a.st_mod_node[i];
+    won = w;
+  }
+  __shared__ unsigned long long warp_count[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  won = warp_sum(won);
+  if (lane == 0) warp_count[warp] = won;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned long long c = 0;
+  for (int w = 0; w < kWarps; ++w) c += warp_count[w];
+  unsigned long long* acc = (unsigned long long*)(a.out + kAdoptedAcc);
+  if (c) atomicAdd(acc, c);
+  // The count lands before the ticket is taken, so the block that takes
+  // the last ticket sees every block's count.
+  __threadfence();
+  const unsigned long long ticket =
+      atomicAdd((unsigned long long*)(a.out + kTicket), 1ull);
+  if (ticket != gridDim.x - 1) return;
+  __threadfence();
+  tail_scalars(a, new_c, bmax, atomicAdd(acc, 0ull));
+}
+
 }  // namespace
 
 // Launches one kernel over `n_entries` (1..16) merges on `stream`;
 // returns a CUDA error code (0 on success). `lanes` holds 19 device
 // pointers per entry, in order: the store's lt, node, val, tomb,
 // occupied; the changeset's lt, node, val, tomb, valid; the outputs lt,
-// node, val, tomb, occupied, win; the entry's basemax (int64, set to
-// NEG by the caller), any_dup and seen (int64 each, zeroed by the
-// caller). `dims` holds n, r and ld per entry: ld is the changeset
+// node, val, tomb, occupied, win; the entry's basemax, any_dup and seen
+// (int64 each; the launcher sets them to NEG, 0 and 0 first, and
+// any_dup ends 0 or 1). `dims` holds n, r and ld per entry: ld is the changeset
 // lanes' row stride in entries, n for whole lanes, the full width for a
 // key shard's column block taken in place (K1p). `canonical` is a
 // device int64 scalar, so a pipelined merge never brings the clock back
@@ -225,10 +362,60 @@ extern "C" int crdt_fanin_batch(const void* const* lanes,
     e.ld = dims[3 * j + 2];
     max_n = e.n > max_n ? e.n : max_n;
   }
-  if (max_n <= 0) return 0;
+  fanin_scalars_init<<<1, kMaxEntries, 0, (cudaStream_t)stream>>>(
+      t, n_entries);
+  if (max_n <= 0) return (int)cudaGetLastError();
   const dim3 grid((unsigned)((max_n + kBlock - 1) / kBlock),
                   (unsigned)n_entries);
   fanin_batch_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       t, (const long long*)canonical, local_node);
+  return (int)cudaGetLastError();
+}
+
+// Launches K1t for one merge on `stream`, after its join; returns a
+// CUDA error code (0 on success). `ptrs` holds the 18 pointers of
+// `Tail` in its order, st_mod_lt to out; `dims` holds n, thresh (the
+// drift threshold of the merge's wall read), send_wall (the window's
+// second wall read), merge_idx (the merge's index in its window),
+// local_node and window (1 inside a pipelined() window). `out` holds
+// kWords int64 words; the launcher zeroes its scratch first.
+extern "C" int crdt_fanin_tail(const void* const* ptrs,
+                               const long long* dims, void* stream) {
+  Tail a = {};
+  a.st_mod_lt = (const long long*)ptrs[0];
+  a.st_mod_node = (const int*)ptrs[1];
+  a.win = (const uint8_t*)ptrs[2];
+  a.o_mod_lt = (long long*)ptrs[3];
+  a.o_mod_node = (int*)ptrs[4];
+  a.canonical = (const long long*)ptrs[5];
+  a.basemax = (const long long*)ptrs[6];
+  a.any_dup = (const uint8_t*)ptrs[7];
+  a.seen = (const long long*)ptrs[8];
+  a.val_overflow = (const uint8_t*)ptrs[9];
+  a.seen_sum = (const long long*)ptrs[10];
+  a.adopted_sum = (const long long*)ptrs[11];
+  a.any_bad = (const uint8_t*)ptrs[12];
+  a.overflow = (const uint8_t*)ptrs[13];
+  a.drift = (const uint8_t*)ptrs[14];
+  a.val_overflow_all = (const uint8_t*)ptrs[15];
+  a.first_flag_idx = (const int*)ptrs[16];
+  a.out = (long long*)ptrs[17];
+  a.n = dims[0];
+  a.thresh = dims[1];
+  a.send_wall = dims[2];
+  a.merge_idx = dims[3];
+  a.local_node = (int)dims[4];
+  a.window = (int)dims[5];
+  if (a.n < 0 || !a.out || (a.window && !(a.any_bad && a.overflow &&
+                                          a.drift && a.val_overflow_all &&
+                                          a.first_flag_idx)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t rc = cudaMemsetAsync(a.out + kAdoptedAcc, 0,
+                                         2 * sizeof(long long), s);
+  if (rc != cudaSuccess) return (int)rc;
+  // One block at least: the last block to finish writes the scalars.
+  const long long blocks = a.n > 0 ? (a.n + kBlock - 1) / kBlock : 1;
+  fanin_tail_kernel<<<(unsigned)blocks, kBlock, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

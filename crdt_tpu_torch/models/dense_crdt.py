@@ -83,9 +83,10 @@ from ..ops.dense import (CHANGESET_DTYPES, DenseChangeset, DenseStore,
 from ..ops.digest import (DEFAULT_LEAF_WIDTH, build_digest_tree,
                           digest_tree_device)
 from ..ops.fanin_kernel import (STAMP_SPAN, mask_value_width,
-                                model_fanin_batch, model_fanin_split)
+                                model_fanin_join, model_fanin_split_join)
+from ..ops.fanin_tail import PipeState, Stamped, merge_tail
 from ..ops.ingest_kernel import ingest_scatter
-from ..ops.merge import recv_guards, send_step
+from ..ops.merge import recv_guards
 from ..ops.packing import NodeTable, PackedDelta, pack_into_arena
 from ..parallel.fanin import (KEY_AXIS, gather_lane, gather_store,
                               make_sharded_compact, make_sharded_digest,
@@ -129,84 +130,6 @@ class PipelinedGuardError(Exception):
     unpipelined for the exact diagnosis (the store already holds the
     merged state — merge is idempotent, a re-run is safe).
     """
-
-
-class _PipeState:
-    """Device-resident clock state threaded across a pipelined window,
-    and the window's bookkeeping of each merge: `absorb` takes in its
-    result, `send_bump` ends it. Nothing leaves the device."""
-
-    __slots__ = ("canonical", "any_bad", "overflow", "drift",
-                 "val_overflow", "first_flag_idx", "merges", "exact",
-                 "value_width", "ex_have", "ex_dup", "ex_lt", "ex_wall")
-
-    def __init__(self, canonical_lt: int, device: torch.device,
-                 exact: bool = False, value_width: int = 64):
-        self.canonical = torch.tensor(canonical_lt, dtype=torch.int64,
-                                      device=device)
-        false = torch.zeros((), dtype=torch.bool, device=device)
-        zero = torch.zeros((), dtype=torch.int64, device=device)
-        self.any_bad = self.overflow = self.drift = false
-        self.val_overflow = false
-        # Index (0-based, window order) of the first merge that set ANY
-        # flag — the flush names it so a re-run can start there.
-        self.first_flag_idx = torch.tensor(-1, dtype=torch.int32,
-                                           device=device)
-        self.merges = 0
-        # Exact mode: the first offender's own fields, in sequential
-        # visit order (one recv_guards pass per merge, seeded with the
-        # threaded canonical). ex_wall is the OFFENDING merge's wall
-        # read, so a payload never pairs one merge's record with
-        # another's wall.
-        self.exact = exact
-        # Only a value_width=32 replica masks values out of a merge.
-        self.value_width = value_width
-        self.ex_have = self.ex_dup = false
-        self.ex_lt = self.ex_wall = zero
-
-    def _note(self, flags: torch.Tensor) -> None:
-        """Attribute freshly raised flags to the merge in progress."""
-        self.first_flag_idx = torch.where(
-            (self.first_flag_idx < 0) & flags, self.merges,
-            self.first_flag_idx)
-
-    def absorb(self, res, val_overflow: torch.Tensor,
-               guard_lanes: Callable[[], Tuple[torch.Tensor, ...]],
-               local_node: int, wall: int) -> None:
-        """Take in one merge's result ahead of its send bump: its recv
-        flags (the kernel's superset flags, or in an exact window one
-        guard pass over ``guard_lanes()``'s ``(lt, node, valid)``,
-        seeded with the threaded canonical and the merge's ``wall``),
-        its value-ref overflow, and its merged canonical."""
-        if self.exact:
-            g_lt, g_node, g_valid = guard_lanes()
-            recv, first_bad, first_is_dup, _ = recv_guards(
-                g_lt, g_node, g_valid, self.canonical, local_node, wall)
-            newly = ~self.ex_have & recv
-            self.ex_dup = torch.where(newly, first_is_dup, self.ex_dup)
-            self.ex_lt = torch.where(newly, g_lt.reshape(-1)[first_bad],
-                                     self.ex_lt)
-            self.ex_wall = torch.where(newly, wall, self.ex_wall)
-            self.ex_have = self.ex_have | recv
-        else:
-            recv = res.any_dup | res.any_drift
-        flags = recv
-        if self.value_width == 32:
-            self.val_overflow = self.val_overflow | val_overflow
-            flags = flags | val_overflow
-        self._note(flags)
-        self.any_bad = self.any_bad | recv
-        self.canonical = res.new_canonical
-
-    def send_bump(self, wall: int) -> None:
-        """End the merge in progress (a merge of nothing has only this):
-        the final crdt.dart:93 send bump, its flags accumulated for the
-        flush."""
-        self.canonical, overflow, drift = send_step(self.canonical, wall)
-        self._note(overflow | drift)
-        self.overflow = self.overflow | overflow
-        self.drift = self.drift | drift
-        self.merges += 1
 
 
 def reencode(store: DenseStore, remap: np.ndarray) -> DenseStore:
@@ -275,7 +198,7 @@ class DenseCrdt:
         self.stats = MergeStats().register(backend="DenseCrdt",
                                            node=str(node_id))
         self._hub = ChangeHub()
-        self._pipe: Optional[_PipeState] = None
+        self._pipe: Optional[PipeState] = None
         self._ingest = None     # active WriteCombiner (models/ingest.py)
         self.refresh_canonical_time()
 
@@ -369,9 +292,10 @@ class DenseCrdt:
         `ops.merge.send_step`) and accumulate guard flags instead of
         fetching them. On exit, ONE readback materializes the clock and
         raises if a guard fired. Each merge takes the route it takes
-        unpipelined up to its result; the window's step (`_PipeState`:
-        flags, the first flagged merge, the send bump) follows it on
-        the device.
+        unpipelined up to its join; its tail (`ops.fanin_tail`: the
+        stamp, then the window's step in `PipeState`: flags, the first
+        flagged merge, the send bump) follows it on the device, in one
+        kernel launch after a K1 or K1s join on the card.
 
         Merges land optimistically (a guard violation is already in the
         store when the flush reports it). In a coarse window the recv
@@ -391,9 +315,9 @@ class DenseCrdt:
         # Staged ingest rows would otherwise commit with stamps the
         # window never sees — barrier first.
         self.drain_ingest()
-        self._pipe = _PipeState(self._canonical_time.logical_time,
-                                self._device, exact=exact_guards,
-                                value_width=self._value_width)
+        self._pipe = PipeState(self._canonical_time.logical_time,
+                               self._device, exact=exact_guards,
+                               value_width=self._value_width)
         try:
             yield self
         finally:
@@ -403,7 +327,7 @@ class DenseCrdt:
             with span(FENCE_SPAN):
                 self._close_window(pipe, report=not leaving)
 
-    def _close_window(self, pipe: _PipeState, report: bool) -> None:
+    def _close_window(self, pipe: PipeState, report: bool) -> None:
         """A window's end: ONE readback materializes the clock, and the
         flags are reported when ``report``."""
         (lt, any_bad, overflow, drift, val_ovf, first_idx, ex_have,
@@ -417,7 +341,7 @@ class DenseCrdt:
             self._flush_report(pipe, any_bad, overflow, drift, val_ovf,
                                first_idx, ex_have, ex_dup, ex_lt, ex_wall)
 
-    def _flush_report(self, pipe: _PipeState, any_bad, overflow, drift,
+    def _flush_report(self, pipe: PipeState, any_bad, overflow, drift,
                       val_ovf, first_idx, ex_have, ex_dup, ex_lt,
                       ex_wall) -> None:
         def coarse(include_recv: bool) -> None:
@@ -1653,10 +1577,8 @@ class DenseCrdt:
             wall = self._wall_clock()
             with merge_annotation("crdt_tpu_torch.dense_merge",
                                   hlc=lambda: self._canonical_time):
-                new_store, res, seen, voverflow, cs = self._dispatch_fanin(
-                    cs, wall)
-            self.stats.add_seen_lazy(seen)
-            self._finish_merge(new_store, res, voverflow, wall,
+                merged, cs = self._dispatch_fanin(cs, wall)
+            self._finish_merge(merged, wall,
                                lambda: (cs.lt, cs.node, cs.valid))
 
     def _merge_nothing(self) -> None:
@@ -1694,47 +1616,51 @@ class DenseCrdt:
         return cs
 
     def _dispatch_fanin(self, cs: DenseChangeset, wall: int):
-        """One merge of a changeset in this replica's table: ``(new_store,
-        result, seen, val_overflow, guard_cs)``, ``guard_cs`` the
-        changeset whose lanes the exact guards read. A typed store takes
-        the typed fold, never the kernel."""
+        """One merge of a changeset in this replica's table, up to its
+        tail: ``(merged, guard_cs)``, ``merged`` what `merge_tail` takes
+        (the kernel's join, or the typed fold's stamped merge: a typed
+        store never takes the kernel) and ``guard_cs`` the changeset
+        whose lanes the exact guards read."""
         if self._sem is not None:
             cs, voverflow = mask_value_width(cs, self._value_width)
             seen = cs.valid.sum()
             new_store, res = typed_fanin_step(
                 self._store, self._sem_device(), cs, self._canonical_lt(),
                 self._local_ordinal(), wall)
-            return new_store, res, seen, voverflow, cs
-        new_store, res, seen, voverflow = model_fanin_batch(
-            self._store, cs, self._canonical_lt(), self._local_ordinal(),
-            wall, value_width=self._value_width)
-        return new_store, res, seen, voverflow, cs
+            return Stamped(new_store, res, seen, voverflow), cs
+        join = model_fanin_join(self._store, cs, self._canonical_lt(),
+                                self._local_ordinal(),
+                                value_width=self._value_width)
+        return join, join.cs
 
-    def _finish_merge(self, new_store: DenseStore, res, voverflow, wall: int,
+    def _finish_merge(self, merged, wall: int,
                       guard_lanes: Callable[[], Tuple[torch.Tensor, ...]]
                       ) -> None:
-        """The tail shared by ``merge_many`` and ``merge_split``.
-        ``guard_lanes`` returns the ``(lt, node, valid)`` lanes the exact
-        guards read, with local ordinals: every merge in an exact window
-        needs them, an unpipelined one only when a flag trips."""
+        """The end shared by ``merge_many`` and ``merge_split``: the
+        merge's tail (`ops.fanin_tail.merge_tail`: the stamp, and in a
+        window the window's step), then outside a window its one
+        readback, guards and clock. ``guard_lanes`` returns the ``(lt,
+        node, valid)`` lanes the exact guards read, with local ordinals:
+        every merge in an exact window needs them, an unpipelined one
+        only when a flag trips."""
         local = self._local_ordinal()
         pipe = self._pipe
+        with span(STAMP_SPAN):
+            new_store, win, scalars = merge_tail(
+                merged, local, wall, pipe, self.stats, self._wall_clock,
+                guard_lanes)
         if pipe is not None:
-            # The window's step; nothing leaves the device.
-            with span(STAMP_SPAN):
-                pipe.absorb(res, voverflow, guard_lanes, local, wall)
-                pipe.send_bump(self._wall_clock())
-                self.stats.add_adopted_lazy(res.win.sum())
+            # The window's step ran in the tail; nothing leaves the
+            # device.
             self._store = new_store
             self._store_escaped = False
-            self._emit_merge_wins(new_store, res.win)
+            self._emit_merge_wins(new_store, win)
             return
 
         # The result scalars come back in ONE copy; the [N] win mask
         # stays on device unless a watch subscriber needs it.
-        any_bad, win_count, new_canonical, val_ovf = torch.stack(
-            [(res.any_dup | res.any_drift).long(), res.win.sum(),
-             res.new_canonical, voverflow.long()]).tolist()
+        any_bad, win_count, new_canonical, val_ovf = \
+            scalars[:4].tolist()
         if val_ovf:
             # Rejected before the store swap: the replica is untouched.
             raise ValueError(
@@ -1773,7 +1699,7 @@ class DenseCrdt:
                 _sanitizer.check_dense_no_resurrection(
                     store, *self._gc_purged)
         self.stats.records_adopted += win_count
-        self._emit_merge_wins(new_store, res.win)
+        self._emit_merge_wins(new_store, win)
         self._canonical_time = Hlc.send(
             Hlc.from_logical_time(new_canonical, self._node_id),
             millis=self._wall_clock())
@@ -1844,14 +1770,13 @@ class DenseCrdt:
         wall = self._wall_clock()
         with merge_annotation("crdt_tpu_torch.dense_merge",
                               hlc=lambda: self._canonical_time):
-            new_store, res, seen, voverflow = model_fanin_split(
+            join = model_fanin_split_join(
                 self._store, scs, node_map, self._canonical_lt(),
-                self._local_ordinal(), wall, value_width=self._value_width)
-        self.stats.add_seen_lazy(seen)
+                self._local_ordinal(), value_width=self._value_width)
         # The kernel remaps as it reads, so ``scs`` keeps peer ordinals:
         # the guard lanes apply the remap.
         self._finish_merge(
-            new_store, res, voverflow, wall,
+            join, wall,
             lambda: split_guard_lanes(scs.hi, scs.lo, scs.node, node_map))
 
     # --- columnar deltas in: packed, JSON, record dicts ---
@@ -2453,7 +2378,7 @@ class ShardedDenseCrdt(DenseCrdt):
             new_store, res = self._sharded_step(
                 self._store, shard_changeset(cs, self._mesh),
                 self._canonical_lt(), self._local_ordinal(), wall)
-        return new_store, res, seen, voverflow, cs
+        return Stamped(new_store, res, seen, voverflow), cs
 
     def _emit_merge_wins(self, store, win: torch.Tensor) -> None:
         if self._hub.active:

@@ -11,7 +11,9 @@ the main path and reads them after. The K1 kernel is counted under two
 names: as ``fanin_batch`` on the unsharded merge, and as
 ``fanin_batch_sharded`` where the sharded step (`parallel.fanin`)
 launches it over a device's blocks, once per device per merge. The
-four kernel probes (`ops.probe`) count under their source names.
+fan-in tail (K1t, `ops.fanin_tail`), in K1's source, counts as
+``fanin_tail``, once a merge it ends. The four kernel probes
+(`ops.probe`) count under their source names.
 
 `OPS` counts, beside them, the plain-torch ops of the anti-entropy and
 storage plane, of the typed joins, of the general-key `ops.merge.Store`
@@ -60,7 +62,7 @@ from .registry import MetricsRegistry, default_registry
 
 KERNELS = ("fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream",
            "fanin_batch_sharded", "probe_join", "probe_copy",
-           "probe_stream_noguard", "probe_copy_batch")
+           "probe_stream_noguard", "probe_copy_batch", "fanin_tail")
 
 OPS = ("digest_tree", "range_delta_mask", "gc_purge", "compact_remap",
        "typed_wire_join_step", "typed_sparse_join_step",

@@ -22,9 +22,12 @@ wire lanes (`ops.split`) as they arrive, with the ``node_map`` remap and
 the value-width masking in the kernel: the port of
 `_model_fanin_split_jit`. It never widens the lanes in memory first.
 
-A step here ends at the merge itself (mask, join, stamp): a
-``pipelined()`` window's flags, first flagged merge and send bump are
-the model's (`models.dense_crdt._PipeState`).
+A step here ends at the merge itself (mask, join, stamp). The model
+layer's route stops before the stamp (`model_fanin_join`,
+`model_fanin_split_join`: a `FaninJoin`) and ends each merge in
+`ops.fanin_tail`, which stamps and, in a ``pipelined()`` window, runs
+the window's step: in one launch of the fan-in tail kernel (K1t) on the
+card.
 
 The sharded step (K1p, `parallel.fanin`) runs the same kernel on every
 mesh position's block, a column block of the changeset read in place
@@ -39,15 +42,15 @@ The batch entry's stages are spans (`obs.trace.span`, live only while
 the tracer is on or a profiler records): ``crdt_tpu_torch.fanin.mask``
 (`mask_value_width`), ``crdt_tpu_torch.fanin.join`` (the join: the
 kernel's checks, allocations and launch, or the plain version) and
-``crdt_tpu_torch.fanin.stamp`` (`_stamp`; a ``pipelined()`` window
-opens it again around its own step and send bump).
+``crdt_tpu_torch.fanin.stamp`` (`_stamp`; on the model's route the
+merge's whole tail, `ops.fanin_tail.merge_tail`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -78,6 +81,23 @@ class BatchResult(NamedTuple):
     any_drift: torch.Tensor      # bool superset drift flag
 
 
+class FaninJoin(NamedTuple):
+    """One merge's join, ahead of its stamp: what the model layer's
+    tail (`ops.fanin_tail.merge_tail`) takes."""
+    store: DenseStore            # the pre-merge store
+    outs: Join                   # lt, node, val, tomb, occupied, win,
+    #                              basemax, any_dup of the join
+    canonical: torch.Tensor      # the pre-merge canonical the join read
+    seen: torch.Tensor           # int64 count of the valid records
+    val_overflow: Optional[torch.Tensor]  # bool; None: nothing masked
+    cs: Optional[DenseChangeset]  # the changeset as joined (None: split)
+
+    def stamp(self, local_node: int, wall_millis: int
+              ) -> Tuple[DenseStore, BatchResult]:
+        return _stamp(self.store, self.outs, self.canonical, local_node,
+                      wall_millis)
+
+
 def fanin_join_reference(store: DenseStore, cs: DenseChangeset,
                          canonical: torch.Tensor, local_node: int) -> Join:
     """Plain torch version of the kernel's own outputs: ``(lt, node,
@@ -104,6 +124,12 @@ def fanin_join_reference(store: DenseStore, cs: DenseChangeset,
 _VP = ctypes.c_void_p
 
 
+def flag_view(words: torch.Tensor) -> torch.Tensor:
+    """0-or-1 int64 words read as bools, with no copy: the low byte of
+    each word (the card and the host are little-endian)."""
+    return words.view(torch.bool)[::8]
+
+
 @functools.cache
 def _launcher():
     return _build.load("fanin_batch", "crdt_fanin_batch",
@@ -120,7 +146,7 @@ def fanin_cuda_many(stores: Sequence[DenseStore],
                     ) -> List[Join]:
     """The kernel's own outputs (`fanin_join_reference`'s tuple) for
     several merges on one device: one launch per `MAX_ENTRIES` merges,
-    each counted under ``count_as``. A changeset may be a key shard's
+    each that joins any slot counted under ``count_as``. A changeset may be a key shard's
     column block of wider lanes (contiguous rows at one row stride),
     read in place. Each call fills fresh scalars: a caller may keep a
     merge's ``seen`` unread past the next call."""
@@ -129,8 +155,8 @@ def fanin_cuda_many(stores: Sequence[DenseStore],
         raise ValueError("fanin_batch: canonical must be an int64 scalar "
                          f"tensor on {dev}")
     m = len(stores)
-    basemax = torch.full((m,), _NEG, dtype=torch.int64, device=dev)
-    dup, seen = torch.zeros((2, m), dtype=torch.int64, device=dev)
+    # Set by the launcher, ahead of the join.
+    basemax, dup, seen = torch.empty((3, m), dtype=torch.int64, device=dev)
     outs, todo = [], []
     for j, (store, cs) in enumerate(zip(stores, css)):
         n = store.n_slots
@@ -143,11 +169,10 @@ def fanin_cuda_many(stores: Sequence[DenseStore],
                torch.empty_like(store.occupied),
                torch.empty_like(store.occupied)]
         outs.append(out)
-        if n:
-            todo.append(([store.lt, store.node, store.val, store.tomb,
-                          store.occupied, *cs, *out, basemax[j], dup[j],
-                          seen[j]],
-                         (n, r, ld)))
+        todo.append(([store.lt, store.node, store.val, store.tomb,
+                      store.occupied, *cs, *out, basemax[j], dup[j],
+                      seen[j]],
+                     (n, r, ld)))
     # The launch goes to the current device: make it the lanes' one.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -162,8 +187,9 @@ def fanin_cuda_many(stores: Sequence[DenseStore],
             if rc:
                 raise RuntimeError(f"fanin_batch kernel launch failed: "
                                    f"CUDA error {rc}")
-            _obs_device.note_launch(count_as)
-    any_dup = dup != 0
+            if any(n for _, (n, _, _) in group):
+                _obs_device.note_launch(count_as)
+    any_dup = flag_view(dup)
     return [(*out, basemax[j], any_dup[j], seen[j])
             for j, out in enumerate(outs)]
 
@@ -241,20 +267,50 @@ def _ledger_name(store: DenseStore, pallas_name: str) -> str:
     return pallas_name if store.lt.is_cuda else "dense.fanin_step"
 
 
+def _mask_values(cs: DenseChangeset, value_width: int
+                 ) -> Tuple[DenseChangeset, Optional[torch.Tensor]]:
+    """`mask_value_width`, with ``val_overflow`` None where nothing is
+    masked (``value_width=64``)."""
+    with span(MASK_SPAN):
+        if value_width != 32:
+            return cs, None
+        fits = (cs.val >= -(2 ** 31)) & (cs.val < 2 ** 31)
+        return (cs._replace(valid=cs.valid & fits),
+                (cs.valid & ~fits).any())
+
+
 def mask_value_width(cs: DenseChangeset, value_width: int):
     """The model layer's checks ahead of a merge: with ``value_width=32``
     records whose value does not fit int32 are masked INVALID, never
     truncated, and ``val_overflow`` says so. Returns ``(cs,
     val_overflow)``."""
-    with span(MASK_SPAN):
-        if value_width == 32:
-            fits = (cs.val >= -(2 ** 31)) & (cs.val < 2 ** 31)
-            val_overflow = (cs.valid & ~fits).any()
-            cs = cs._replace(valid=cs.valid & fits)
-        else:
-            val_overflow = torch.zeros((), dtype=torch.bool,
-                                       device=cs.valid.device)
-        return cs, val_overflow
+    cs, val_overflow = _mask_values(cs, value_width)
+    if val_overflow is None:
+        val_overflow = torch.zeros((), dtype=torch.bool,
+                                   device=cs.valid.device)
+    return cs, val_overflow
+
+
+def _masked_join(store: DenseStore, cs: DenseChangeset,
+                 canonical_lt: Scalar, local_node: int,
+                 value_width: int) -> FaninJoin:
+    """The value-width mask and the join: the kernel for CUDA tensors,
+    the plain version for CPU ones."""
+    cs, val_overflow = _mask_values(cs, value_width)
+    canonical, (*outs, seen) = _join(store, cs, canonical_lt, local_node,
+                                     plain=not store.lt.is_cuda)
+    return FaninJoin(store, tuple(outs), canonical, seen, val_overflow, cs)
+
+
+def model_fanin_join(store: DenseStore, cs: DenseChangeset,
+                     canonical_lt: Scalar, local_node: int, *,
+                     value_width: int = 64) -> FaninJoin:
+    """`model_fanin_batch` up to its stamp, recorded as the same one
+    dispatch: what the model's route ends with `ops.fanin_tail`."""
+    with _obs_device.record(_ledger_name(store, "pallas.model_fanin_batch"),
+                            dim=cs.valid.shape[0]):
+        return _masked_join(store, cs, canonical_lt, local_node,
+                            value_width)
 
 
 def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
@@ -266,9 +322,14 @@ def model_fanin_batch(store: DenseStore, cs: DenseChangeset,
     left after the masking."""
     with _obs_device.record(_ledger_name(store, "pallas.model_fanin_batch"),
                             dim=cs.valid.shape[0]):
-        cs, val_overflow = mask_value_width(cs, value_width)
-        return (*_fanin(store, cs, canonical_lt, local_node, wall_millis,
-                        plain=not store.lt.is_cuda), val_overflow)
+        j = _masked_join(store, cs, canonical_lt, local_node, value_width)
+        with span(STAMP_SPAN):
+            new_store, res = j.stamp(local_node, wall_millis)
+        val_overflow = j.val_overflow
+        if val_overflow is None:
+            val_overflow = torch.zeros((), dtype=torch.bool,
+                                       device=cs.valid.device)
+        return new_store, res, j.seen, val_overflow
 
 
 # --- K1s: the pre-split entry, fed the JAX peers' wire lanes ----------
@@ -384,18 +445,25 @@ def _fanin_split_cuda(store: DenseStore, scs, node_map: torch.Tensor,
     return (*out, basemax, flags[0] != 0, seen, flags[1] != 0)
 
 
-def _fanin_split(join, store: DenseStore, scs, node_map: torch.Tensor,
-                 canonical_lt: Scalar, local_node: int, wall_millis: int,
-                 value_width: int):
+def _split_join(join, store: DenseStore, scs, node_map: torch.Tensor,
+                canonical_lt: Scalar, local_node: int,
+                value_width: int) -> FaninJoin:
     canonical = torch.as_tensor(canonical_lt, dtype=torch.int64,
                                 device=store.lt.device)
     check_fit = value_width == 32 \
         and not isinstance(scs, NarrowSplitChangeset)
     *outs, seen, val_overflow = join(store, flat_lanes(scs), node_map,
                                      canonical, local_node, check_fit)
-    new_store, res = _stamp(store, tuple(outs), canonical, local_node,
-                            wall_millis)
-    return new_store, res, seen, val_overflow
+    return FaninJoin(store, tuple(outs), canonical, seen, val_overflow,
+                     None)
+
+
+def _fanin_split(join, store: DenseStore, scs, node_map: torch.Tensor,
+                 canonical_lt: Scalar, local_node: int, wall_millis: int,
+                 value_width: int):
+    j = _split_join(join, store, scs, node_map, canonical_lt, local_node,
+                    value_width)
+    return (*j.stamp(local_node, wall_millis), j.seen, j.val_overflow)
 
 
 def fanin_split(store: DenseStore, scs, node_map: torch.Tensor,
@@ -421,6 +489,28 @@ def fanin_split_reference(store: DenseStore, scs, node_map: torch.Tensor,
                         canonical_lt, local_node, wall_millis, value_width)
 
 
+def _model_split_join(store: DenseStore, scs, node_map,
+                      canonical_lt: Scalar, local_node: int,
+                      value_width: int) -> FaninJoin:
+    node_map = torch.as_tensor(node_map).to(
+        store.lt.device, torch.int32)[:MAX_MAP_LEN].contiguous()
+    join = _fanin_split_cuda if store.lt.is_cuda \
+        else fanin_split_join_reference
+    return _split_join(join, store, scs, node_map, canonical_lt, local_node,
+                       value_width)
+
+
+def model_fanin_split_join(store: DenseStore, scs, node_map,
+                           canonical_lt: Scalar, local_node: int, *,
+                           value_width: int = 64) -> FaninJoin:
+    """`model_fanin_split` up to its stamp, as `model_fanin_join` is
+    `model_fanin_batch`'s."""
+    with _obs_device.record(_ledger_name(store, "pallas.model_fanin_split"),
+                            dim=scs.hi.shape[0]):
+        return _model_split_join(store, scs, node_map, canonical_lt,
+                                 local_node, value_width)
+
+
 def model_fanin_split(store: DenseStore, scs, node_map,
                       canonical_lt: Scalar, local_node: int,
                       wall_millis: int, *, value_width: int = 64):
@@ -432,8 +522,7 @@ def model_fanin_split(store: DenseStore, scs, node_map,
     ``(new_store, BatchResult, seen, val_overflow)``."""
     with _obs_device.record(_ledger_name(store, "pallas.model_fanin_split"),
                             dim=scs.hi.shape[0]):
-        node_map = torch.as_tensor(node_map).to(
-            store.lt.device, torch.int32)[:MAX_MAP_LEN].contiguous()
-        return fanin_split(store, scs, node_map, canonical_lt, local_node,
-                           wall_millis, value_width=value_width)
+        j = _model_split_join(store, scs, node_map, canonical_lt,
+                              local_node, value_width)
+        return (*j.stamp(local_node, wall_millis), j.seen, j.val_overflow)
 

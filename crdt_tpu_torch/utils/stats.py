@@ -19,7 +19,9 @@ host ints and lazy device scalars.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Tuple
+
+import torch
 
 from ..obs.trace import span as _span
 
@@ -76,6 +78,31 @@ class MergeStats:
         self._adopted_pending = (
             count if self._adopted_pending is None
             else self._adopted_pending + count)
+
+    def device_pending(self, device) -> Tuple[Any, Any]:
+        """The lazy ``(seen, adopted)`` sums as int64 scalars on
+        ``device`` (None where nothing is pending), for a kernel that
+        adds a merge's counts to them and hands the sums to `carry`; a
+        pending host count goes into its total first."""
+        out = []
+        for name in ("_seen", "_adopted"):
+            pending = getattr(self, name + "_pending")
+            if pending is not None and not isinstance(pending,
+                                                      torch.Tensor):
+                setattr(self, name, getattr(self, name) + int(pending))
+                setattr(self, name + "_pending", None)
+                pending = None
+            elif pending is not None:
+                pending = pending.to(device, torch.int64)
+            out.append(pending)
+        return out[0], out[1]
+
+    def carry(self, seen: Any, adopted: Any = None) -> None:
+        """Take the lazy sums a kernel carried on from `device_pending`:
+        ``seen``, and ``adopted`` where given."""
+        self._seen_pending = seen
+        if adopted is not None:
+            self._adopted_pending = adopted
 
     def as_dict(self) -> dict:
         return {k: getattr(self, k) for k in

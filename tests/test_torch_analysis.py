@@ -487,8 +487,10 @@ def test_planted_dense_drop_raises(monkeypatch):
     real = b._dispatch_fanin
 
     def keep_old(cs, wall):
-        _, res, seen, vo, g = real(cs, wall)
-        return b._store, res, seen, vo, g
+        join, g = real(cs, wall)
+        old = b._store
+        return join._replace(outs=(old.lt, old.node, old.val, old.tomb,
+                                   old.occupied, *join.outs[5:])), g
 
     monkeypatch.setattr(b, "_dispatch_fanin", keep_old)
     with pytest.raises(port_san.LatticeViolation,

@@ -1222,8 +1222,10 @@ def test_sanitized_k1_merge_on_the_card(cuda, monkeypatch):
     real = c._dispatch_fanin
 
     def keep_old(cs, wall):
-        _, res, seen, vo, g = real(cs, wall)
-        return c._store, res, seen, vo, g
+        join, g = real(cs, wall)
+        old = c._store
+        return join._replace(outs=(old.lt, old.node, old.val, old.tomb,
+                                   old.occupied, *join.outs[5:])), g
 
     monkeypatch.setattr(c, "_dispatch_fanin", keep_old)
     with pytest.raises(LatticeViolation, match="merged changeset"):

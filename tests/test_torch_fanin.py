@@ -240,4 +240,5 @@ def test_cpu_wrapper_launches_no_kernel():
                                      "fanin_batch_sharded": 0,
                                      "probe_join": 0, "probe_copy": 0,
                                      "probe_stream_noguard": 0,
-                                     "probe_copy_batch": 0}
+                                     "probe_copy_batch": 0,
+                                     "fanin_tail": 0}

@@ -242,13 +242,14 @@ def test_launch_counters_and_build_paths():
         assert path == _build.library_path(name)   # stable tag
         assert (_build.CSRC / f"{name}.cu").exists()
     # One source per kernel; K1 is counted apart where the sharded step
-    # launches it on a block.
+    # launches it on a block, and K1t, the fan-in tail in K1's source,
+    # under its own name.
     assert set(_build.SOURCES) == {
         "fanin_batch", "ingest_scatter", "fanin_split", "fanin_stream",
         "probe_join", "probe_copy", "probe_stream_noguard",
         "probe_copy_batch"}
     assert set(obs_device.KERNELS) == set(_build.SOURCES) | {
-        "fanin_batch_sharded"}
+        "fanin_batch_sharded", "fanin_tail"}
     # The AST import check above covers every module of the port.
     assert {"split.py", "stream_kernel.py", "fanin_kernel.py",
             "fanin.py", "probe.py", "probe_kernel.py", "data.py",

@@ -172,3 +172,60 @@ def test_a_coarse_pipelined_step_reads_nothing_back(split, value_width):
                                        int(new_store.lt[win].max())))
     assert bool((new_store.mod_node[win] == 4).all())
     assert crdt.canonical_time.logical_time > int(new_store.lt[win].max())
+
+
+# --- the kernel's route: K1t's wrapper enqueues one launch -----------------
+
+# What the wrapper may dispatch around its launch: the fresh lanes and
+# words, and views of them. None of these runs a kernel on the card.
+ALLOCATIONS_AND_VIEWS = {"aten.empty_like.default", "aten.empty.memory_format",
+                         "aten.select.int", "aten.view.dtype",
+                         "aten.detach.default", "aten.slice.Tensor"}
+
+
+@pytest.mark.parametrize("pipelined", [True, False],
+                         ids=["window", "unpipelined"])
+def test_the_kernels_tail_dispatches_only_allocations_and_views(
+        pipelined, monkeypatch):
+    """On the kernel's route (here on CPU lanes, the launch emulated) a
+    merge's tail dispatches no aten op but allocations and views, and
+    its one launch: the store lanes and clock equal the plain route's."""
+    from test_torch_tail import emulate
+    from crdt_tpu_torch.ops import fanin_tail as ft
+
+    def two_merges(crdt, merge):
+        if not pipelined:
+            merge()
+            merge()
+            return
+        with crdt.pipelined():
+            merge()
+            merge()
+
+    want, merge = window_merge(split=False, value_width=64)
+    two_merges(want, merge)
+    real, ops, launches = ft.fanin_tail, [], []
+
+    def recorded(*args, **kw):
+        with OpRecorder() as rec:
+            out = real(*args, **kw)
+        ops.append(rec.ops)
+        return out
+
+    def launch(ptrs, dims, dev):
+        launches.append(dims)
+        emulate(ptrs, dims, dev)
+
+    monkeypatch.setattr(ft, "_takes_kernel",
+                        lambda j, pipe: pipe is None or not pipe.exact)
+    monkeypatch.setattr(ft, "_launch", launch)
+    monkeypatch.setattr(ft, "fanin_tail", recorded)
+    got, merge = window_merge(split=False, value_width=64)
+    two_merges(got, merge)
+    assert len(ops) == len(launches) == 2
+    for step in ops:
+        assert step and set(step) <= ALLOCATIONS_AND_VIEWS, step
+    assert [d[5] for d in launches] == [int(pipelined)] * 2
+    for f in want.store._fields:
+        assert torch.equal(getattr(got.store, f), getattr(want.store, f)), f
+    assert got.canonical_time == want.canonical_time
